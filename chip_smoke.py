@@ -1,0 +1,609 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
+H100.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, one line each; any failure raises and the script exits nonzero:
+
+0. the card's name and power limit (``nvidia-smi``), torch and CUDA
+   versions, and the build of every Hopper kernel from the sources in the
+   checkout (one ``nvcc`` per source, all started together);
+1. the dataplane bounce/cost kernel against its plain version: bit
+   identity and exact counters over f32/bf16/int32/uint8 payloads with
+   NaN and -0.0, ragged / single / whole-chunk sizes, copies 0-3 and
+   small to large delays, and more chunks than the grid has blocks; the
+   same bit identity, then its time against its bound and ``torch.clone``,
+   for the main path's payloads: the 1.21 GB gemma3-1b embedding table, a
+   bf16 (1, 512, 1152) activation and a 64 KB payload;
+2. the flash-attention kernel against its plain version at gemma3-1b
+   shapes (bf16, max error bound 1e-2 on outputs of rms >= 0.3; an f32
+   D=16 case, bound 2e-5), its time against its FLOP bound and
+   ``F.scaled_dot_product_attention``;
+3. the serving path at gemma3-1b's full width (26 layers, random weights
+   from a seed, bf16 compute) through a ``cord`` dataplane with
+   ``emulate_costs``: 8 requests on the continuous engine, both kernels'
+   launch counts on that run, a repeat with identical tokens, and a run
+   with ``pallas_dataplane="off"`` with identical tokens.
+
+The line before the last is the per-kernel JSON summary; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
+F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+# bf16 flash kernel vs plain: one bf16 ulp of an output below 2 (2^-7)
+# plus the rounding of P to bf16
+FLASH_BF16_TOL = 1e-2
+
+
+def _line(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _cuda_ms(fn, n: int = 10, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _wall_ms(fn, n: int = 2) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _bits(t):
+    import torch
+    t = t.contiguous()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+# ---------------------------------------------------------------------------
+# phase 0
+# ---------------------------------------------------------------------------
+
+def phase_build() -> str:
+    import torch
+    from repro_torch.kernels import build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    _line(card)
+    _line(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    logs = build.build_all(("-Xptxas", "-v"))
+    secs = time.perf_counter() - t0
+    for name, log in logs.items():
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        _line(f"  nvcc {name}: {len(regs)} ptxas lines; "
+              f"{regs[-1] if regs else 'cached'}")
+    _line(f"phase 0 build ok: {len(logs)} kernels in {secs:.1f} s")
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 1: dataplane bounce / cost kernel
+# ---------------------------------------------------------------------------
+
+def phase_bounce() -> dict:
+    import torch
+    from repro_torch.core import techniques as tech
+    from repro_torch.kernels.dataplane import bounce as bk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    def payload(n, dtype):
+        # a fresh payload for every call: an output block the allocator
+        # hands back still holds the last call's bytes, which must not be
+        # the right answer for this one
+        if dtype.is_floating_point:
+            x = torch.randn(n, generator=gen, device=dev).to(dtype)
+            x[0] = float("nan")
+            if n > 1:
+                x[1] = -0.0
+            return x
+        return torch.randint(0, 120, (n,), generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    n_cases = 0
+    # 401 chunks outnumber the grid (3 blocks per SM), so blocks take a
+    # second turn of the grid-stride loop
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        for n in (37, 1, 8193, 16384, 8192 * 400 + 37):
+            for copies, delay in ((0, 5), (1, 0), (2, 37), (3, 0), (3, 999)):
+                x = payload(n, dtype)
+                got, gctr = bk.mediated_cost(x, delay, copies)
+                want, wctr = bk.mediated_cost_plain(x, delay, copies)
+                torch.cuda.synchronize()
+                if not torch.equal(_bits(got), _bits(want)):
+                    raise AssertionError(f"bounce bits differ: {dtype} n={n} "
+                                         f"copies={copies} delay={delay}")
+                if not torch.equal(gctr, wctr):
+                    raise AssertionError(f"bounce counters differ: {dtype} "
+                                         f"n={n} copies={copies}")
+                if copies:
+                    x = payload(n, dtype)
+                    b = bk.bounce_copy(x, copies)
+                    if not torch.equal(_bits(b), _bits(x)):
+                        raise AssertionError("bounce_copy bits differ")
+                n_cases += 1
+        big_delay = 100_000
+        x = payload(8192 * 400 + 37, dtype)
+        got, gctr = bk.mediated_cost(x, big_delay, 1)
+        want, wctr = bk.mediated_cost_plain(x, big_delay, 1)
+        torch.cuda.synchronize()
+        if not (torch.equal(_bits(got), _bits(want))
+                and torch.equal(gctr, wctr)):
+            raise AssertionError(f"bounce large delay differs: {dtype}")
+        n_cases += 1
+    x = torch.ones(8, device=dev)
+    if bk.bounce_copy(x, 0) is not x or bk.mediated_cost(x, 0, 0)[0] is not x:
+        raise AssertionError("bounce shortcuts lost")
+
+    ns = tech.calibrate(device=dev)
+    iters = tech.iters_for_ns(400.0, device=dev)      # cord's syscall cost
+    res = {"cases": n_cases, "ns_per_iter": ns, "syscall_iters": iters}
+    # the payloads the main path sends through a cord edge: the f32
+    # embedding table (36,864 chunks), a bf16 prefill activation, and a
+    # small one; each held bit for bit against the plain version
+    worst = 0.0
+    for label, shape, dtype in (
+            ("table_1.21GB", (262_144, 1152), torch.float32),
+            ("act_1x512x1152_bf16", (1, 512, 1152), torch.bfloat16),
+            ("64KB", (16_384,), torch.float32)):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        got, gctr = bk.mediated_cost(x, iters, 0)
+        want, wctr = bk.mediated_cost_plain(x, iters, 0)
+        torch.cuda.synchronize()
+        if not (torch.equal(_bits(got), _bits(want))
+                and torch.equal(gctr, wctr)):
+            raise AssertionError(f"bounce {label}: output or counters "
+                                 f"differ from the plain version")
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        del got, want
+        nbytes = x.numel() * x.element_size()
+        ms = _cuda_ms(lambda: bk.mediated_cost(x, iters, 0), n=10)
+        lib = _cuda_ms(lambda: torch.clone(x), n=10)
+        plain = _wall_ms(lambda: bk.mediated_cost_plain(x, iters, 0), n=2)
+        bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        res[label] = {"bytes": nbytes, "chunks": int(gctr.shape[0]),
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound}
+        _line(f"  bounce {label}: bit-exact over {gctr.shape[0]} chunks "
+              f"(max |err| {err}), {ms:.4f} ms (bound {bound:.4f} ms, "
+              f"{bound / ms:.1%} of HBM roofline), torch.clone {lib:.4f} ms, "
+              f"plain {plain:.2f} ms")
+        del x
+    res["max_abs_err"] = worst
+    _line(f"phase 1 bounce ok: {n_cases} cases and 3 main-path payloads "
+          f"bit-exact, counters exact; calibrated {ns:.4f} ns/iter "
+          f"({iters} iters per 400 ns syscall)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2: flash attention
+# ---------------------------------------------------------------------------
+
+def _pairs(sq: int, skv: int, window: int, valid: int) -> int:
+    import numpy as np
+    q = np.arange(sq)
+    hi = np.minimum(q, min(valid, skv) - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_flash() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    B, H, KVH = 1, 4, 1
+    cases = [(torch.bfloat16, 256, s, w, None, 0.0)
+             for s in (512, 2048) for w in (0, 512)]
+    cases += [(torch.bfloat16, 256, 2048, 0, 1500, 0.0),
+              (torch.bfloat16, 256, 512, 512, None, 50.0),
+              (torch.bfloat16, 256, 300, 0, None, 0.0),
+              (torch.float32, 16, 200, 8, None, 0.0)]
+    rows, worst = [], 0.0
+    for dtype, d, s, window, valid, cap in cases:
+        # logits of std 3 put each row's weight on a few keys, so every
+        # output row is O(1) and a lost or mis-scaled kv tile moves it by
+        # O(1); values in [-1.5, 1.5) keep |o| < 2, where a bf16 ulp is
+        # 2^-7 < FLASH_BF16_TOL
+        q = (3 * torch.randn(B, s, H, d, generator=gen, device=dev)
+             ).to(dtype)
+        k = torch.randn(B, s, KVH, d, generator=gen, device=dev).to(dtype)
+        v = (torch.rand(B, s, KVH, d, generator=gen, device=dev) * 3 - 1.5
+             ).to(dtype)
+        kw = dict(window=window, valid_len=valid, logit_cap=cap)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rms = want.float().pow(2).mean().sqrt().item()
+        tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else 2e-5
+        if not (math.isfinite(err) and err <= tol and rms >= 0.3):
+            raise AssertionError(f"flash error {err} > {tol} (or reference "
+                                 f"rms {rms} < 0.3): {dtype} d={d} s={s} "
+                                 f"window={window} valid={valid}")
+        worst = max(worst, err) if dtype == torch.bfloat16 else worst
+        vl = s if valid is None else valid
+        flops = 4 * d * H * B * _pairs(s, s, window, vl)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), n=20)
+        plain = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), n=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kt = kt.repeat_interleave(H // KVH, dim=1)
+        vt = vt.repeat_interleave(H // KVH, dim=1)
+        if window == 0 and valid is None and cap == 0.0:
+            lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), n=20)
+        elif cap == 0.0:
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None] <= pos[:, None]) & (pos[None] < vl)
+            if window:
+                mask &= pos[:, None] - pos[None] < window
+            lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), n=20)
+        else:
+            lib = None            # no library call applies a tanh soft cap
+        row = {"dtype": str(dtype).replace("torch.", ""), "d": d, "s": s,
+               "window": window, "valid_len": vl, "logit_cap": cap,
+               "max_abs_err": err, "ref_rms": rms, "tol": tol, "ms": ms,
+               "plain_ms": plain,
+               "library_ms": lib, "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        rows.append(row)
+        _line(f"  flash {row['dtype']} d={d} s={s} w={window} vl={vl} "
+              f"cap={cap}: err {err:.3g} (<= {tol}; reference rms "
+              f"{rms:.3f}), {ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), sdpa "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, "
+              f"plain {plain:.3f} ms")
+    _line(f"phase 2 flash ok: {len(rows)} cases, worst bf16 error "
+          f"{worst:.3g} <= {FLASH_BF16_TOL}")
+    return {"cases": rows, "worst_bf16_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serving at full width through the CoRD dataplane
+# ---------------------------------------------------------------------------
+
+def _timed_model(model, stats):
+    """The model with prefill / slot decode timed (synchronised) and the
+    dataplane kernel launches of each call counted."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.dataplane import bounce as bk
+
+    def prefill(params, batch, cache, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = bk.LAUNCHES, time.perf_counter()
+        out = model.prefill(params, batch, cache, **kw)
+        torch.cuda.synchronize()
+        stats["prefill"].append((batch["tokens"].shape[1],
+                                 (time.perf_counter() - t0) * 1e3,
+                                 bk.LAUNCHES - n0))
+        return out
+
+    def decode(params, token, cache, pos, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = bk.LAUNCHES, time.perf_counter()
+        out = model.decode_step_slots(params, token, cache, pos, **kw)
+        torch.cuda.synchronize()
+        stats["decode"].append(((time.perf_counter() - t0) * 1e3,
+                                bk.LAUNCHES - n0))
+        return out
+
+    return dataclasses.replace(model, prefill=prefill,
+                               decode_step_slots=decode)
+
+
+def phase_serve() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import DataplaneConfig, ServeConfig
+    from repro_torch.core import Dataplane
+    from repro_torch.kernels.dataplane import bounce as bk
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_model_config("gemma3-1b")
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    _line(f"  gemma3-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B f32 params "
+          f"initialised in {time.perf_counter() - t0:.1f} s")
+    mesh = make_mesh((1,), ("data",))
+
+    def dataplane(**kw):
+        return Dataplane(DataplaneConfig(mode="cord", emulate_costs=True,
+                                         **kw),
+                         mesh=mesh, tenant="alice", tenants=("alice", "bob"))
+
+    # no mesh, or no cost emulation: no dataplane kernel runs
+    toks = torch.arange(16, device="cuda")[None]
+    for dp in (Dataplane(DataplaneConfig(mode="cord", emulate_costs=True),
+                         tenant="alice"),
+               Dataplane(DataplaneConfig(mode="cord"), mesh=mesh,
+                         tenant="alice")):
+        n0 = bk.LAUNCHES
+        model.prefill(params, {"tokens": toks}, model.init_cache(1, 16),
+                      dp=dp)
+        torch.cuda.synchronize()
+        if bk.LAUNCHES != n0:
+            raise AssertionError("a dataplane kernel ran without mesh + "
+                                 "emulate_costs")
+
+    # small-input reference: the last prompt position's logits from the
+    # flash prefill equal those from a prefill one token shorter followed
+    # by one plain-attention decode step
+    dp = dataplane()
+    seq = torch.randint(0, cfg.vocab_size, (1, 33), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(2))
+    ref, _ = model.prefill(params, {"tokens": seq}, model.init_cache(1, 33),
+                           dp=dp)
+    cache = model.init_cache(1, 40)
+    model.prefill(params, {"tokens": seq[:, :32]}, cache, dp=dp)
+    alt, _ = model.decode_step_slots(params, seq[:, 32:], cache,
+                                     torch.tensor([32], device="cuda"), dp=dp)
+    a, b = ref[0, -1].float(), alt[0, -1].float()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()
+            and cos > 0.99):
+        raise AssertionError(f"prefill vs decode logits disagree: cos {cos}")
+    _line(f"  prefill(33) vs prefill(32)+decode logits: cosine {cos:.5f}, "
+          f"max |diff| {(a - b).abs().max().item():.4f} of max |logit| "
+          f"{a.abs().max().item():.3f}")
+
+    rng = np.random.default_rng(0)
+    lengths = (16, 300, 40, 129, 77, 256, 24, 200)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    scfg = ServeConfig(max_batch=4, kv_cache_len=640, max_new_tokens=16)
+
+    def serve(dp, stats):
+        eng = Engine(_timed_model(model, stats), params, cfg, scfg, dp=dp,
+                     eos_id=-1)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16,
+                        tenant=("alice", "bob")[i % 2])
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(done) != len(prompts) or not all(r.done for r in done):
+            raise AssertionError("not every request finished")
+        for r in done:
+            if len(r.out_tokens) != 16 or not all(
+                    0 <= t < cfg.vocab_size for t in r.out_tokens):
+                raise AssertionError(f"request {r.rid}: bad tokens")
+        tokens = {r.rid: list(r.out_tokens) for r in done}
+        ttft = [r.t_first - t0 for r in done]
+        return tokens, wall, ttft, eng
+
+    dp = dataplane()
+    stats = {"prefill": [], "decode": []}
+    bk.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    tokens, wall, ttft, eng = serve(dp, stats)
+    launches = {"bounce": bk.LAUNCHES, "flash_attention": fa.LAUNCHES}
+    n_prefill = len(stats["prefill"])
+    if launches["bounce"] <= 0 or \
+            launches["flash_attention"] != cfg.num_layers * n_prefill:
+        raise AssertionError(f"main path launches {launches} "
+                             f"({n_prefill} prefills)")
+    tokens2, _, _, _ = serve(dataplane(), {"prefill": [], "decode": []})
+    if tokens2 != tokens:
+        raise AssertionError("a second run gave other tokens")
+    tokens_off, _, _, _ = serve(dataplane(pallas_dataplane="off"),
+                                {"prefill": [], "decode": []})
+    if tokens_off != tokens:
+        raise AssertionError("cuda-on and off gave other tokens")
+
+    n_tok = sum(len(t) for t in tokens.values())
+    by_bucket: dict[int, list[float]] = {}
+    for s, ms, _ in stats["prefill"]:
+        by_bucket.setdefault(s, []).append(ms)
+    dec_ms = [ms for ms, _ in stats["decode"]]
+    res = {
+        "requests": len(tokens), "tokens": n_tok, "wall_s": wall,
+        "tok_per_s": n_tok / wall, "ttft_ms_mean": 1e3 * float(np.mean(ttft)),
+        "ttft_ms_max": 1e3 * float(np.max(ttft)),
+        "prefill_ms_by_bucket": {str(s): v for s, v in sorted(by_bucket.items())},
+        "decode_ticks": len(dec_ms), "decode_ms_mean": float(np.mean(dec_ms)),
+        "decode_ms_median": float(np.median(dec_ms)),
+        "launches": launches, "prefills": n_prefill,
+        "bounce_launches_per_prefill": sorted({n for _, _, n in stats["prefill"]}),
+        "bounce_launches_per_tick": sorted({n for _, n in stats["decode"]}),
+        "tenant_report": eng.tenant_report(),
+        "dataplane_ops": dp.telemetry.by_kind(),
+    }
+    buckets = ", ".join(f"{s}: {np.mean(v):.1f}" for s, v in by_bucket.items())
+    _line(f"  prefill ms by bucket {{{buckets}}}")
+    _line(f"  decode {len(dec_ms)} ticks, {res['decode_ms_mean']:.2f} ms/tick "
+          f"mean ({res['decode_ms_median']:.2f} median); {n_tok} tokens in "
+          f"{wall:.2f} s = {res['tok_per_s']:.1f} tok/s; TTFT mean "
+          f"{res['ttft_ms_mean']:.0f} ms, max {res['ttft_ms_max']:.0f} ms")
+    _line(f"  launches {launches}; bounce per prefill "
+          f"{res['bounce_launches_per_prefill']}, per decode tick "
+          f"{res['bounce_launches_per_tick']}")
+    _line(f"phase 3 serve ok: {len(tokens)} requests finished, tokens "
+          f"identical on repeat and with pallas_dataplane=off")
+    res["_profile_inputs"] = (model, params, dataplane, prompts)
+    return res
+
+
+def profile_serve(model, params, dataplane, prompts) -> dict:
+    """torch.profiler over one full-width prefill (a 256-token bucket) and
+    one 4-slot decode tick through the cord dataplane: device and host
+    time by operator."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dp = dataplane()
+    toks = torch.as_tensor(prompts[5][None], dtype=torch.long, device="cuda")
+    cache = model.init_cache(4, 640)
+    tok = torch.full((4, 1), 7, dtype=torch.long, device="cuda")
+    pos = torch.tensor([256, 300, 40, 129], dtype=torch.int32, device="cuda")
+    out = {}
+    for name, fn in (
+            ("prefill_256", lambda: model.prefill(
+                params, {"tokens": toks}, model.init_cache(1, 256), dp=dp)),
+            ("decode_tick", lambda: model.decode_step_slots(
+                params, tok, cache, pos, dp=dp))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        dev_attr = ("self_device_time_total"
+                    if hasattr(ev[0], "self_device_time_total")
+                    else "self_cuda_time_total")
+        dev_total = sum(getattr(e, dev_attr) for e in ev) / 1e3
+        by_dev = sorted(ev, key=lambda e: -getattr(e, dev_attr))[:15]
+        by_cpu = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:15]
+        out[name] = {
+            "wall_ms": wall, "device_ms": dev_total,
+            "device_idle_share": max(0.0, 1 - dev_total / wall),
+            "top_device": [(e.key, e.count, getattr(e, dev_attr) / 1e3)
+                           for e in by_dev],
+            "top_host": [(e.key, e.count, e.self_cpu_time_total / 1e3)
+                         for e in by_cpu],
+        }
+        _line(f"  profile {name}: wall {wall:.2f} ms, device busy "
+              f"{dev_total:.2f} ms")
+        for key, count, ms in out[name]["top_device"][:6]:
+            _line(f"    device {ms:8.3f} ms {count:5d}x {key[:70]}")
+        for key, count, ms in out[name]["top_host"][:6]:
+            _line(f"    host   {ms:8.3f} ms {count:5d}x {key[:70]}")
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="",
+                    help="also write every measurement to this JSON file")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one full-width prefill and decode tick")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = phase_build()
+    bounce = phase_bounce()
+    flash = phase_flash()
+    serve = phase_serve()
+    inputs = serve.pop("_profile_inputs")
+    prof = profile_serve(*inputs) if args.profile else None
+    del inputs
+
+    table = bounce["table_1.21GB"]
+    main_flash = next(r for r in flash["cases"]
+                      if r["dtype"] == "bfloat16" and r["s"] == 512
+                      and r["window"] == 0 and r["logit_cap"] == 0.0)
+    kernels = [
+        {"name": "bounce", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": serve["launches"]["bounce"],
+         "max_abs_err": bounce["max_abs_err"],
+         "ms": table["ms"], "plain_ms": table["plain_ms"],
+         "bound_ms": table["bound_ms"], "bound_by": "bytes",
+         "library_ms": table["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+         "launches": serve["launches"]["flash_attention"],
+         "max_abs_err": flash["worst_bf16_err"], "ms": main_flash["ms"],
+         "plain_ms": main_flash["plain_ms"],
+         "bound_ms": main_flash["bound_ms"],
+         "bound_by": main_flash["bound_by"],
+         "library_ms": main_flash["library_ms"]},
+    ]
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "cuda": torch.version.cuda,
+                                   "bounce": bounce, "flash": flash,
+                                   "serve": serve, "profile": prof,
+                                   "kernels": kernels},
+                                  indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

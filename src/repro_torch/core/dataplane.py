@@ -1,0 +1,209 @@
+"""The Converged Dataplane — the paper's contribution, in PyTorch.
+
+Every communication edge of the model is issued through a
+:class:`Dataplane`: the model code calls :meth:`constrain` with logical
+axis names, the dataplane resolves them against its sharding rules,
+records the edge, runs its mediation pipeline's send side, and places the
+tensor on the mesh.  The port's mesh is one card (``launch/mesh.py``), so
+the placement is the identity, while the mediation work is real: with
+``emulate_costs=True`` in ``cord`` mode every edge launches the dataplane
+kernel on the card.
+
+Three modes (paper Fig. 2):
+
+====== ============= ========= ============ =========================
+mode   kernel-bypass zero-copy polling      policies enforced
+====== ============= ========= ============ =========================
+bypass yes           yes       yes          none (OS has no control)
+cord   **no**        yes       yes          all configured policies
+socket **no**        **no**    **no**       all + heavy stack cost
+====== ============= ========= ============ =========================
+
+Technique toggles in :class:`DataplaneConfig` override the mode presets.
+The five explicit collectives arrive with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+from repro_torch.configs.base import DataplaneConfig
+from repro_torch.core import techniques as tech
+from repro_torch.core import telemetry as tl
+from repro_torch.core.mediation import build_pipeline, runtime_state_init
+from repro_torch.core.mr import MRRegistry
+from repro_torch.core.policies import (
+    Policy,
+    PolicyContext,
+    PolicyViolation,
+    QoSPolicy,
+    QuotaPolicy,
+    SecurityPolicy,
+    TelemetryPolicy,
+)
+from repro_torch.device import resolve_device
+
+_MODE_PRESETS = {
+    "bypass": dict(kernel_bypass=True, zero_copy=True, polling=True, enforce=False),
+    "cord": dict(kernel_bypass=False, zero_copy=True, polling=True, enforce=True),
+    "socket": dict(kernel_bypass=False, zero_copy=False, polling=False, enforce=True),
+}
+
+_POLICY_FACTORIES: dict[str, Callable[[], Policy]] = {
+    "telemetry": TelemetryPolicy,
+    "security": SecurityPolicy,
+    "quota": QuotaPolicy,
+    "qos": QoSPolicy,
+}
+
+
+class Dataplane:
+    """The narrow waist: all framework communication flows through here.
+
+    ``device`` is where the runtime state lives and what the delay chain
+    is calibrated on; it defaults to ``cuda``."""
+
+    def __init__(
+        self,
+        cfg: DataplaneConfig | None = None,
+        mesh=None,
+        rules: dict[str, Any] | None = None,
+        tenant: str = "default",
+        tenants: Sequence[str] | None = None,
+        policies: Sequence[Policy] | None = None,
+        device=None,
+    ) -> None:
+        self.cfg = cfg or DataplaneConfig()
+        self.mesh = mesh
+        self.rules = dict(rules or {})
+        self.tenant = tenant
+        self.device = resolve_device(device)
+        names = list(tenants if tenants is not None else self.cfg.tenants)
+        if tenant not in names:
+            names.insert(0, tenant)
+        self.tenants: tuple[str, ...] = tuple(names)
+        if self.cfg.mode not in _MODE_PRESETS:
+            raise ValueError(f"unknown dataplane mode {self.cfg.mode!r}")
+        preset = _MODE_PRESETS[self.cfg.mode]
+        self.kernel_bypass = preset["kernel_bypass"] and self.cfg.kernel_bypass
+        self.zero_copy = preset["zero_copy"] and self.cfg.zero_copy
+        self.polling = preset["polling"] and self.cfg.polling
+        self.enforce = preset["enforce"]
+        if policies is not None:
+            self.policies = list(policies)
+        else:
+            self.policies = [_POLICY_FACTORIES[p]() for p in self.cfg.policies]
+        self._telemetry = next(
+            (p.telemetry for p in self.policies if isinstance(p, TelemetryPolicy)),
+            tl.Telemetry(enabled=False))
+        self._security = next(
+            (p for p in self.policies if isinstance(p, SecurityPolicy)), None)
+        self.registry: MRRegistry = (self._security.registry
+                                     if self._security else MRRegistry())
+        if self.cfg.emulate_costs:
+            # calibrate now, outside any timed region
+            tech.calibrate(device=self.device)
+        self.pipeline = build_pipeline(self)
+
+    @property
+    def telemetry(self) -> tl.Telemetry:
+        return self._telemetry
+
+    @property
+    def mode(self) -> str:
+        return self.cfg.mode
+
+    # ------------------------------------------------------------------
+    # per-tenant runtime state
+    # ------------------------------------------------------------------
+    def tenant_index(self, tenant: str | None = None) -> int:
+        name = tenant or self.tenant
+        try:
+            return self.tenants.index(name)
+        except ValueError:
+            raise KeyError(
+                f"unknown tenant {name!r}; known tenants: {self.tenants}")
+
+    def runtime_init(self) -> dict:
+        """Per-tenant runtime state on this dataplane's device."""
+        return runtime_state_init(self.tenants, self.policies,
+                                  device=self.device)
+
+    def runtime_report(self, state) -> dict:
+        return tl.tenant_counters_report(state["counters"], self.tenants)
+
+    # ------------------------------------------------------------------
+    # mediation core
+    # ------------------------------------------------------------------
+    def _policy_pass(self, rec: tl.OpRecord, operand, mr_name: str | None,
+                     tenant: str) -> None:
+        if not self.enforce:
+            return
+        ctx = PolicyContext(rec=rec, tenant=tenant, mr_name=mr_name,
+                            operand=operand)
+        for p in self.policies:
+            p.on_op(ctx)    # raises PolicyViolation to refuse the op
+
+    def _record(self, kind: str, tag: str, x, axes, qos: str = "default",
+                mr: str | None = None, count: int = 1,
+                tenant: str | None = None,
+                precharged: bool = False) -> tl.OpRecord:
+        shape, dtype = tl.describe(x)
+        rec = tl.OpRecord(kind=kind, tag=tag, bytes=tl.nbytes(x),
+                          axes=tl.normalize_axes(axes),
+                          shape=shape, dtype=dtype, mode=self.cfg.mode,
+                          qos=qos, count=count, precharged=precharged)
+        self._policy_pass(rec, x, mr, tenant or self.tenant)
+        return rec
+
+    def spec(self, names: Sequence[str | None | tuple]) -> tuple:
+        """Resolve logical axis names to a partition spec (a tuple with one
+        entry per dim: None, an axis name, or a tuple of names) via the
+        rules.  A mesh axis appears at most once — first occurrence wins."""
+        out: list = []
+        used: set[str] = set()
+
+        def take(axes):
+            kept = [a for a in axes if a not in used]
+            used.update(kept)
+            return kept
+
+        for n in names:
+            if n is None:
+                out.append(None)
+                continue
+            subs = n if isinstance(n, (tuple, list)) else [n]
+            merged: list[str] = []
+            for sub in subs:
+                r = self.rules.get(sub)
+                if r is None:
+                    continue
+                merged.extend(take(list(r) if isinstance(r, (tuple, list))
+                                  else [r]))
+            out.append(tuple(merged) if len(merged) > 1
+                       else (merged[0] if merged else None))
+        return tuple(out)
+
+    def constrain(self, x, names: Sequence[str | None | tuple],
+                  tag: str = "constraint", qos: str = "default",
+                  tenant: str | None = None):
+        """Issue a sharding edge through the dataplane: record it, run the
+        pipeline's send side (state None: stateful stages are inert), and
+        place it on the mesh — the identity on one card.  Without a mesh
+        the edge is not a dataplane op and ``x`` is returned untouched."""
+        if self.mesh is None:
+            return x
+        spec = self.spec(names)
+        rec = self._record("constraint", tag, x, spec, qos, tenant=tenant)
+        x, _ = self.pipeline.send(x, rec, None, self.tenant_index(tenant))
+        return x
+
+    # ------------------------------------------------------------------
+    # control plane
+    # ------------------------------------------------------------------
+    def reg_mr(self, name: str, x, tenant: str | None = None):
+        """Control-plane memory registration (ioctl path in the paper)."""
+        return self.registry.reg_mr(name, x, tenant or self.tenant)
+
+
+__all__ = ["Dataplane", "PolicyViolation"]

@@ -1,0 +1,146 @@
+"""Dataplane kernels: the mediation data-movement primitives.
+
+One CUDA kernel (``csrc/bounce.cu``, the Hopper port of the Pallas
+``_bounce_kernel``) serves both entry points:
+
+* :func:`bounce_copy` — the zero-copy-removed bounce-buffer copy: the
+  payload goes through a shared-memory bounce buffer chunk by chunk, with
+  ``copies - 1`` extra round trips per chunk.
+* :func:`mediated_cost` — the fused-mediation cost kernel: the same copy
+  path plus a serial delay burned inside the kernel, with per-chunk cost
+  counters ``(n_chunks, 2)`` int32 (``COST_ITERS``, ``COST_COPIES``).
+
+Both are bit-identical to their input: the payload is only ever moved,
+never computed on.
+
+A wrapper given a CPU tensor runs the kernel's plain version (roll /
+roll-back copies as in ``core/techniques.staged_copy``, the delay chain on
+the host, counters from the same chunk split); given a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import techniques as tech
+from repro_torch.kernels import build
+
+DEFAULT_CHUNK_ELEMS = 8192
+
+# Columns of the per-chunk cost-counter output.
+COST_ITERS = 0    # delay iterations burned for this chunk
+COST_COPIES = 1   # bounce passes this chunk made through the buffer
+NUM_COST_COLS = 2
+
+# kernel launches since the count was last set to 0
+LAUNCHES = 0
+
+
+def _split(n: int, delay_iters: int, chunk_elems: int) -> tuple[int, int, int]:
+    """(chunk, n_chunks, iters_per_chunk) — the TPU kernel's split: the
+    total delay divided evenly over the chunks, rounded up."""
+    chunk = max(1, min(chunk_elems, n))
+    n_full, tail = divmod(n, chunk)
+    n_chunks = n_full + (1 if tail else 0)
+    iters_per_chunk = -(-delay_iters // n_chunks) if delay_iters > 0 else 0
+    return chunk, n_chunks, iters_per_chunk
+
+
+def _plain(x: torch.Tensor, copies: int, delay_iters: int,
+           chunk_elems: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version, on any device."""
+    _, n_chunks, ipc = _split(x.numel(), delay_iters, chunk_elems)
+    out = tech.staged_copy_plain(x, copies) if copies > 0 else x.clone()
+    tok = tech.delay_scalar(n_chunks * ipc)
+    live = int(tok == tok)
+    out = tech.tie(out, tok)
+    ctrs = torch.tensor([[ipc * live, copies]], dtype=torch.int32,
+                        device=x.device).repeat(n_chunks, 1)
+    return out, ctrs
+
+
+# x, out, ctrs; n_bytes, chunk_bytes, n_chunks; copies, iters_per_chunk;
+# stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + \
+    [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+
+
+def _kernel(x: torch.Tensor, copies: int, delay_iters: int,
+            chunk_elems: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/bounce.cu`` on a CUDA tensor."""
+    global LAUNCHES
+    if not x.is_contiguous():
+        raise ValueError("bounce kernel needs a contiguous tensor")
+    chunk, n_chunks, ipc = _split(x.numel(), delay_iters, chunk_elems)
+    es = x.element_size()
+    out = torch.empty_like(x)
+    ctrs = torch.empty((n_chunks, NUM_COST_COLS), dtype=torch.int32,
+                       device=x.device)
+    fn = build.function("bounce", "bounce_launch", _ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), out.data_ptr(), ctrs.data_ptr(),
+             x.numel() * es, chunk * es, n_chunks, int(copies), ipc, stream)
+    build.check(err, "bounce_launch")
+    LAUNCHES += 1
+    return out, ctrs
+
+
+def _launch(x, *, copies: int, delay_iters: int, chunk_elems: int):
+    if x.device.type == "cuda":
+        return _kernel(x, int(copies), int(delay_iters), int(chunk_elems))
+    if x.device.type != "cpu":
+        raise ValueError(f"no dataplane kernel for device {x.device}")
+    return _plain(x, int(copies), int(delay_iters), int(chunk_elems))
+
+
+def bounce_copy(x: torch.Tensor, copies: int = 1, *,
+                chunk_elems: int = DEFAULT_CHUNK_ELEMS) -> torch.Tensor:
+    """``copies`` bounce-buffer passes of ``x``.  Drop-in for
+    ``techniques.staged_copy``: bit-identical output.  ``copies <= 0`` or
+    an empty ``x`` is the identity (returns ``x`` itself)."""
+    if copies <= 0 or x.numel() == 0:
+        return x
+    out, _ = _launch(x, copies=copies, delay_iters=0,
+                     chunk_elems=chunk_elems)
+    return out
+
+
+def kernel_cost_totals(nelems: int, delay_iters: int, copies: int = 0,
+                       chunk_elems: int = DEFAULT_CHUNK_ELEMS
+                       ) -> tuple[int, int]:
+    """Static ``(total_iters, total_copy_passes)`` the cost kernel's
+    counters sum to for a payload of ``nelems`` elements — the exact
+    chunk split of :func:`mediated_cost`, mirrored host-side."""
+    if (delay_iters <= 0 and copies <= 0) or nelems <= 0:
+        return 0, 0
+    _, n_chunks, ipc = _split(nelems, delay_iters, chunk_elems)
+    return ipc * n_chunks, copies * n_chunks
+
+
+def mediated_cost(x: torch.Tensor, delay_iters: int, copies: int = 0, *,
+                  chunk_elems: int = DEFAULT_CHUNK_ELEMS):
+    """One kernel launch covering a fused mediation side's cost: burn
+    ``delay_iters`` of serial work and make ``copies`` bounce passes,
+    returning ``(out, counters)``: ``out`` bit-identical to ``x`` and
+    ``counters`` the per-chunk ``(n_chunks, 2)`` int32 cost output.  With
+    no work (or an empty ``x``) returns ``(x, zeros((1, 2)))``."""
+    if (delay_iters <= 0 and copies <= 0) or x.numel() == 0:
+        return x, torch.zeros((1, NUM_COST_COLS), dtype=torch.int32,
+                              device=x.device)
+    return _launch(x, copies=copies, delay_iters=delay_iters,
+                   chunk_elems=chunk_elems)
+
+
+def mediated_cost_plain(x: torch.Tensor, delay_iters: int, copies: int = 0,
+                        *, chunk_elems: int = DEFAULT_CHUNK_ELEMS):
+    """The plain version of :func:`mediated_cost` on any device — what the
+    kernel is held against on the card."""
+    return _plain(x, int(copies), int(delay_iters), int(chunk_elems))
+
+
+__all__ = ["bounce_copy", "mediated_cost", "mediated_cost_plain",
+           "kernel_cost_totals", "DEFAULT_CHUNK_ELEMS",
+           "COST_ITERS", "COST_COPIES", "NUM_COST_COLS", "LAUNCHES"]

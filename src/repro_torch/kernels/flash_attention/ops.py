@@ -1,0 +1,102 @@
+"""Public wrapper for the flash-attention kernel (``csrc/flash_attention.cu``).
+
+Takes the framework's (B, S, H, D) layout, handles GQA shapes and the
+runtime window / valid-length scalars.  Given CUDA tensors it launches the
+Hopper kernel (or raises); given CPU tensors it runs the plain version,
+``ref.flash_attention_ref``.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since the count was last set to 0
+LAUNCHES = 0
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          logit_cap: float = 0.0, valid_len=None):
+    """The kernel's plain version in the (B, S, H, D) layout, any device."""
+    o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), window=int(window or 0),
+                            valid_len=valid_len, causal=causal,
+                            logit_cap=logit_cap)
+    return o.transpose(1, 2)
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention wants q (B,S,H,D), k/v (B,S,KVH,D);"
+                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"flash_attention shape mismatch: q {tuple(q.shape)}"
+                         f" k {tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
+                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             f"aligned")
+        if t.device != q.device:
+            raise ValueError("flash_attention: q/k/v on different devices")
+
+
+# q, k, v, o; dtype, B, Sq, Skv, H, KVH, D, causal, window, valid_len;
+# logit_cap, scale; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+    [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def _kernel(q, k, v, *, causal, window, logit_cap, valid_len):
+    global LAUNCHES
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    fn = build.function("flash_attention", "flash_attention_launch",
+                        _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _DTYPES[q.dtype], b, sq, skv, h, kvh, d, int(bool(causal)),
+             int(window or 0), int(skv if valid_len is None else valid_len),
+             float(logit_cap), 1.0 / math.sqrt(d), stream)
+    build.check(err, "flash_attention_launch")
+    LAUNCHES += 1
+    return o
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    logit_cap: float = 0.0, valid_len=None):
+    """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D).  Query positions are
+    0..Sq-1 and key positions 0..Skv-1.  ``window``: int (0/None =
+    global).  ``valid_len``: filled kv length; defaults to Skv."""
+    window = int(window or 0)
+    if q.device.type == "cuda":
+        return _kernel(q, k, v, causal=causal, window=window,
+                       logit_cap=logit_cap, valid_len=valid_len)
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 logit_cap=logit_cap, valid_len=valid_len)
+
+
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
+           "LAUNCHES"]

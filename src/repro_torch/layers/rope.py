@@ -1,0 +1,31 @@
+"""Rotary position embeddings, with per-layer theta (gemma3 uses a larger
+base on global layers than on sliding-window layers)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies (head_dim//2,), computed in float32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    base = torch.tensor(float(theta), dtype=torch.float32, device=device)
+    return 1.0 / (base ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """Rotate ``x`` of shape (..., seq, heads, head_dim) by ``positions``
+    of shape (..., seq)."""
+    head_dim = x.shape[-1]
+    freqs = rope_freqs(head_dim, theta, device=x.device)
+    angles = positions[..., :, None].to(torch.float32) * freqs   # (..., S, hd/2)
+    angles = angles[..., :, None, :]                            # (..., S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+__all__ = ["rope_freqs", "apply_rope"]
