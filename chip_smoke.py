@@ -2,13 +2,14 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
 H100.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, one line each; any failure raises and the script exits nonzero:
 
 0. the card's name and power limit (``nvidia-smi``), torch and CUDA
-   versions, and the build of every Hopper kernel from the sources in the
-   checkout (one ``nvcc`` per source, all started together);
+   versions, and the build of every Hopper kernel (bounce,
+   flash_attention, ssm_scan) from the sources in the checkout (one
+   ``nvcc`` per source, all started together);
 1. the dataplane bounce/cost kernel against its plain version: bit
    identity and exact counters over f32/bf16/int32/uint8 payloads with
    NaN and -0.0, ragged / single / whole-chunk sizes, copies 0-3 and
@@ -17,23 +18,35 @@ Phases, one line each; any failure raises and the script exits nonzero:
    for the main path's payloads: the 1.21 GB gemma3-1b embedding table, a
    bf16 (1, 512, 1152) activation and a 64 KB payload;
 2. the flash-attention kernel against its plain version at gemma3-1b
-   shapes (bf16, max error bound 1e-2 on outputs of rms >= 0.3; an f32
-   D=16 case, bound 2e-5), its time against its FLOP bound and
+   shapes and at hymba-1.5b's (D=64, H=25, KVH=5, window 1024; bf16,
+   max error bound 1e-2 on outputs of rms >= 0.3; an f32 D=16 case,
+   bound 2e-5), its time against its FLOP bound and
    ``F.scaled_dot_product_attention``;
+2b. the SSM-scan kernel against its plain version at hymba-1.5b shapes
+   (d_inner 3200, N 16: prefill S = 1, 37, 300, 2048 and the 4-slot
+   decode tick in f32, one bf16 case, a ragged d_inner of 200; f32 bound
+   2e-5 * max(1, |ref|) on outputs of max |ref| >= 1), its time against
+   its byte bound;
 3. the serving path at gemma3-1b's full width (26 layers, random weights
    from a seed, bf16 compute) through a ``cord`` dataplane with
-   ``emulate_costs``: 8 requests on the continuous engine, both kernels'
+   ``emulate_costs``: 8 requests on the continuous engine, the kernels'
    launch counts on that run, a repeat with identical tokens, and a run
-   with ``pallas_dataplane="off"`` with identical tokens.
+   with ``pallas_dataplane="off"`` with identical tokens;
+4. the same for hymba-1.5b at full width and depth (32 layers), which
+   the engine prefills at exact prompt length: flash launches are 32 per
+   prefill and ssm_scan launches 32 per prefill and per decode tick.
 
-The line before the last is the per-kernel JSON summary; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits nonzero and prints no result.
+``--profile`` adds torch.profiler tables for one prefill of 256 tokens
+and one 4-slot decode tick of each model.  The line before the last is
+the per-kernel JSON summary; the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device the script exits nonzero and prints no
+result.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -50,6 +63,10 @@ F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 # bf16 flash kernel vs plain: one bf16 ulp of an output below 2 (2^-7)
 # plus the rounding of P to bf16
 FLASH_BF16_TOL = 1e-2
+# ssm_scan kernel vs plain, f32: both compute in f32 with expf; the sum
+# over N and fma contraction round differently
+SSM_F32_TOL = 2e-5
+SSM_FLOPS_PER_STATE_STEP = 6    # dt*a, exp, *h, dx*b, +, *c (+ reduction)
 
 
 def _line(msg: str) -> None:
@@ -238,15 +255,17 @@ def phase_flash() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    B, H, KVH = 1, 4, 1
-    cases = [(torch.bfloat16, 256, s, w, None, 0.0)
-             for s in (512, 2048) for w in (0, 512)]
-    cases += [(torch.bfloat16, 256, 2048, 0, 1500, 0.0),
-              (torch.bfloat16, 256, 512, 512, None, 50.0),
-              (torch.bfloat16, 256, 300, 0, None, 0.0),
-              (torch.float32, 16, 200, 8, None, 0.0)]
+    B = 1
+    # (model, dtype, H, KVH, D, S, window, valid_len, logit_cap)
+    gemma = ("gemma3-1b", torch.bfloat16, 4, 1, 256)
+    hymba = ("hymba-1.5b", torch.bfloat16, 25, 5, 64)    # GQA group of 5
+    cases = [gemma + (s, w, None, 0.0) for s in (512, 2048) for w in (0, 512)]
+    cases += [gemma + (2048, 0, 1500, 0.0), gemma + (512, 512, None, 50.0),
+              gemma + (300, 0, None, 0.0),
+              hymba + (300, 1024, None, 0.0), hymba + (2048, 1024, None, 0.0),
+              ("f32", torch.float32, 4, 1, 16, 200, 8, None, 0.0)]
     rows, worst = [], 0.0
-    for dtype, d, s, window, valid, cap in cases:
+    for model, dtype, H, KVH, d, s, window, valid, cap in cases:
         # logits of std 3 put each row's weight on a few keys, so every
         # output row is O(1) and a lost or mis-scaled kv tile moves it by
         # O(1); values in [-1.5, 1.5) keep |o| < 2, where a bf16 ulp is
@@ -265,8 +284,9 @@ def phase_flash() -> dict:
         tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else 2e-5
         if not (math.isfinite(err) and err <= tol and rms >= 0.3):
             raise AssertionError(f"flash error {err} > {tol} (or reference "
-                                 f"rms {rms} < 0.3): {dtype} d={d} s={s} "
-                                 f"window={window} valid={valid}")
+                                 f"rms {rms} < 0.3): {model} {dtype} H={H} "
+                                 f"KVH={KVH} d={d} s={s} window={window} "
+                                 f"valid={valid}")
         worst = max(worst, err) if dtype == torch.bfloat16 else worst
         vl = s if valid is None else valid
         flops = 4 * d * H * B * _pairs(s, s, window, vl)
@@ -290,7 +310,8 @@ def phase_flash() -> dict:
                 qt, kt, vt, attn_mask=mask), n=20)
         else:
             lib = None            # no library call applies a tanh soft cap
-        row = {"dtype": str(dtype).replace("torch.", ""), "d": d, "s": s,
+        row = {"model": model, "dtype": str(dtype).replace("torch.", ""),
+               "h": H, "kvh": KVH, "d": d, "s": s,
                "window": window, "valid_len": vl, "logit_cap": cap,
                "max_abs_err": err, "ref_rms": rms, "tol": tol, "ms": ms,
                "plain_ms": plain,
@@ -298,7 +319,8 @@ def phase_flash() -> dict:
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         rows.append(row)
-        _line(f"  flash {row['dtype']} d={d} s={s} w={window} vl={vl} "
+        _line(f"  flash {model} {row['dtype']} H={H} KVH={KVH} d={d} s={s} "
+              f"w={window} vl={vl} "
               f"cap={cap}: err {err:.3g} (<= {tol}; reference rms "
               f"{rms:.3f}), {ms:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), sdpa "
@@ -310,61 +332,181 @@ def phase_flash() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serving at full width through the CoRD dataplane
+# phase 2b: mamba selective scan
 # ---------------------------------------------------------------------------
+
+def _ssm_inputs(gen, shape, dtype):
+    """dt, x, a, b, c, h0 on the card as tests/test_kernels.py makes them,
+    with a nonzero h0: dt = softplus(N(0, 1)) and A = -exp(0.3 N(0, 1))
+    decay h by about e^-1 a step, so y is O(1) and both h0 and every step
+    move it by O(1).  dt and x in ``dtype``; b and c are rounded to it and
+    kept in f32, as the kernel takes them."""
+    import torch
+    import torch.nn.functional as F
+    bsz, s, di, n = shape
+    dev = torch.device("cuda")
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
+    dt = F.softplus(rnd(bsz, s, di)).to(dtype)
+    x = rnd(bsz, s, di).to(dtype)
+    a = -torch.exp(rnd(di, n) * 0.3)
+    b = rnd(bsz, s, n).to(dtype).float()
+    c = rnd(bsz, s, n).to(dtype).float()
+    h0 = rnd(bsz, di, n)
+    return dt, x, a, b, c, h0
+
+
+def _ssm_bound(shape, dtype_bytes: int) -> tuple[int, int, float, str]:
+    """(bytes, flops, bound ms, what bounds it) of one scan: dt, x and y
+    once each, b, c, a, h0 and h_final in f32."""
+    bsz, s, di, n = shape
+    nbytes = 3 * bsz * s * di * dtype_bytes + 4 * (
+        2 * bsz * s * n + di * n + 2 * bsz * di * n)
+    flops = SSM_FLOPS_PER_STATE_STEP * bsz * s * di * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return nbytes, flops, max(t_bytes, t_ops), \
+        "operations" if t_ops > t_bytes else "bytes"
+
+
+def phase_ssm() -> dict:
+    import torch
+    from repro_torch.kernels.ssm_scan import ops as ssm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    di, n = 3200, 16                   # hymba-1.5b: d_inner, state size
+    cases = [("prefill", (1, s, di, n), torch.float32)
+             for s in (1, 37, 300, 2048)]
+    cases += [("decode", (4, 1, di, n), torch.float32),
+              ("prefill", (1, 300, di, n), torch.bfloat16),
+              ("ragged_di", (2, 37, 200, n), torch.float32)]
+    rows, worst = [], 0.0
+    for label, shape, dtype in cases:
+        args = _ssm_inputs(gen, shape, dtype)
+        y, hf = ssm.ssm_scan(*args)
+        yp, hp = ssm.ssm_scan_plain(*args)
+        torch.cuda.synchronize()
+        yf, ypf = y.float(), yp.float()
+        ref_max = ypf.abs().max().item()
+        lim_y = SSM_F32_TOL * ypf.abs().clamp(min=1.0)
+        if dtype == torch.bfloat16:
+            # one bf16 ulp of the output on top of the f32 limit
+            lim_y = lim_y + torch.exp2(torch.floor(torch.log2(
+                torch.maximum(yf.abs(), ypf.abs()).clamp(min=2.0 ** -126))) - 7)
+        err_y = (yf - ypf).abs()
+        err_h = (hf - hp).abs()
+        lim_h = SSM_F32_TOL * hp.abs().clamp(min=1.0)
+        ok = (bool((err_y <= lim_y).all()) and bool((err_h <= lim_h).all())
+              and math.isfinite(err_y.max().item()) and ref_max >= 1.0)
+        err = max(err_y.max().item(), err_h.max().item())
+        if not ok:
+            raise AssertionError(
+                f"ssm_scan {label} {tuple(shape)} {dtype}: y error "
+                f"{err_y.max().item()}, h_final error {err_h.max().item()} "
+                f"above 2e-5 * max(1, |ref|) (bf16: + one ulp), or reference "
+                f"max |y| {ref_max} < 1")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        nbytes, flops, bound, bound_by = _ssm_bound(shape, y.element_size())
+        ms = _cuda_ms(lambda: ssm.ssm_scan(*args), n=20)
+        plain = _cuda_ms(lambda: ssm.ssm_scan_plain(*args), n=2, warmup=1)
+        row = {"label": label, "shape": list(shape),
+               "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+               "ref_max_abs": ref_max, "ms": ms, "plain_ms": plain,
+               "library_ms": None, "bytes": nbytes, "flops": flops,
+               "bound_ms": bound, "bound_by": bound_by}
+        rows.append(row)
+        _line(f"  ssm_scan {label} {tuple(shape)} {row['dtype']}: err "
+              f"{err:.3g} (max |ref| {ref_max:.2f}), {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}, {bound / ms:.1%}), plain "
+              f"{plain:.3f} ms")
+    _line(f"phase 2b ssm_scan ok: {len(rows)} cases, worst f32 error "
+          f"{worst:.3g} (limit 2e-5 * max(1, |ref|))")
+    return {"cases": rows, "worst_f32_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: serving at full width through the CoRD dataplane
+# ---------------------------------------------------------------------------
+
+def _kernel_modules() -> dict:
+    """name -> wrapper module of every kernel (each has ``LAUNCHES``)."""
+    from repro_torch.kernels.dataplane import bounce
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ssm_scan import ops as ssm
+    return {"bounce": bounce, "flash_attention": flash, "ssm_scan": ssm}
+
+
+def _launches() -> dict:
+    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+
+
+def _reset_launches() -> None:
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launches().items()}
+
 
 def _timed_model(model, stats):
     """The model with prefill / slot decode timed (synchronised) and the
-    dataplane kernel launches of each call counted."""
+    kernel launches of each call counted."""
     import dataclasses
 
     import torch
-    from repro_torch.kernels.dataplane import bounce as bk
 
     def prefill(params, batch, cache, **kw):
         torch.cuda.synchronize()
-        n0, t0 = bk.LAUNCHES, time.perf_counter()
+        n0, t0 = _launches(), time.perf_counter()
         out = model.prefill(params, batch, cache, **kw)
         torch.cuda.synchronize()
         stats["prefill"].append((batch["tokens"].shape[1],
                                  (time.perf_counter() - t0) * 1e3,
-                                 bk.LAUNCHES - n0))
+                                 _delta(n0)))
         return out
 
     def decode(params, token, cache, pos, **kw):
         torch.cuda.synchronize()
-        n0, t0 = bk.LAUNCHES, time.perf_counter()
+        n0, t0 = _launches(), time.perf_counter()
         out = model.decode_step_slots(params, token, cache, pos, **kw)
         torch.cuda.synchronize()
         stats["decode"].append(((time.perf_counter() - t0) * 1e3,
-                                bk.LAUNCHES - n0))
+                                _delta(n0)))
         return out
 
     return dataclasses.replace(model, prefill=prefill,
                                decode_step_slots=decode)
 
 
-def phase_serve() -> dict:
+def _per_call(rows, name) -> list[int]:
+    return sorted({launches[name] for launches in rows})
+
+
+def phase_serve(arch: str, phase: str) -> dict:
+    """Serve 8 requests on ``arch`` at full width through a cord
+    dataplane and hold every gate; see the module docstring."""
     import numpy as np
     import torch
     from repro_torch.configs import get_model_config
     from repro_torch.configs.base import DataplaneConfig, ServeConfig
     from repro_torch.core import Dataplane
     from repro_torch.kernels.dataplane import bounce as bk
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, Request
 
-    cfg = get_model_config("gemma3-1b")
+    cfg = get_model_config(arch)
     model = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    _line(f"  gemma3-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    _line(f"  {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B f32 params "
-          f"initialised in {time.perf_counter() - t0:.1f} s")
+          f"initialised in {time.perf_counter() - t0:.1f} s"
+          f"{'; prefilled at exact length' if model.recurrent else ''}")
     mesh = make_mesh((1,), ("data",))
 
     def dataplane(**kw):
@@ -388,7 +530,8 @@ def phase_serve() -> dict:
 
     # small-input reference: the last prompt position's logits from the
     # flash prefill equal those from a prefill one token shorter followed
-    # by one plain-attention decode step
+    # by one plain-attention decode step (for hymba also a one-step scan
+    # from the prefill's h_final)
     dp = dataplane()
     seq = torch.randint(0, cfg.vocab_size, (1, 33), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(2))
@@ -436,15 +579,21 @@ def phase_serve() -> dict:
 
     dp = dataplane()
     stats = {"prefill": [], "decode": []}
-    bk.LAUNCHES = 0
-    fa.LAUNCHES = 0
+    _reset_launches()
     tokens, wall, ttft, eng = serve(dp, stats)
-    launches = {"bounce": bk.LAUNCHES, "flash_attention": fa.LAUNCHES}
-    n_prefill = len(stats["prefill"])
-    if launches["bounce"] <= 0 or \
-            launches["flash_attention"] != cfg.num_layers * n_prefill:
-        raise AssertionError(f"main path launches {launches} "
-                             f"({n_prefill} prefills)")
+    launches = _launches()
+    n_prefill, n_tick = len(stats["prefill"]), len(stats["decode"])
+    want = {"flash_attention": cfg.num_layers * n_prefill,
+            "ssm_scan": (cfg.num_layers * (n_prefill + n_tick)
+                         if model.recurrent else 0)}
+    if launches["bounce"] <= 0 or any(launches[k] != v
+                                      for k, v in want.items()):
+        raise AssertionError(f"main path launches {launches}, want {want} "
+                             f"and bounce > 0 ({n_prefill} prefills, "
+                             f"{n_tick} decode ticks)")
+    if model.recurrent and sorted(s for s, _, _ in stats["prefill"]) != \
+            sorted(lengths):
+        raise AssertionError("a recurrent prefill was not at exact length")
     tokens2, _, _, _ = serve(dataplane(), {"prefill": [], "decode": []})
     if tokens2 != tokens:
         raise AssertionError("a second run gave other tokens")
@@ -454,42 +603,45 @@ def phase_serve() -> dict:
         raise AssertionError("cuda-on and off gave other tokens")
 
     n_tok = sum(len(t) for t in tokens.values())
-    by_bucket: dict[int, list[float]] = {}
+    by_len: dict[int, list[float]] = {}
     for s, ms, _ in stats["prefill"]:
-        by_bucket.setdefault(s, []).append(ms)
+        by_len.setdefault(s, []).append(ms)
     dec_ms = [ms for ms, _ in stats["decode"]]
+    pre_l = [d for _, _, d in stats["prefill"]]
+    dec_l = [d for _, d in stats["decode"]]
     res = {
-        "requests": len(tokens), "tokens": n_tok, "wall_s": wall,
-        "tok_per_s": n_tok / wall, "ttft_ms_mean": 1e3 * float(np.mean(ttft)),
+        "arch": arch, "requests": len(tokens), "tokens": n_tok,
+        "wall_s": wall, "tok_per_s": n_tok / wall,
+        "ttft_ms_mean": 1e3 * float(np.mean(ttft)),
         "ttft_ms_max": 1e3 * float(np.max(ttft)),
-        "prefill_ms_by_bucket": {str(s): v for s, v in sorted(by_bucket.items())},
-        "decode_ticks": len(dec_ms), "decode_ms_mean": float(np.mean(dec_ms)),
+        "prefill_ms_by_len": {str(s): v for s, v in sorted(by_len.items())},
+        "decode_ticks": n_tick, "decode_ms_mean": float(np.mean(dec_ms)),
         "decode_ms_median": float(np.median(dec_ms)),
         "launches": launches, "prefills": n_prefill,
-        "bounce_launches_per_prefill": sorted({n for _, _, n in stats["prefill"]}),
-        "bounce_launches_per_tick": sorted({n for _, n in stats["decode"]}),
+        "launches_per_prefill": {k: _per_call(pre_l, k) for k in launches},
+        "launches_per_tick": {k: _per_call(dec_l, k) for k in launches},
         "tenant_report": eng.tenant_report(),
         "dataplane_ops": dp.telemetry.by_kind(),
     }
-    buckets = ", ".join(f"{s}: {np.mean(v):.1f}" for s, v in by_bucket.items())
-    _line(f"  prefill ms by bucket {{{buckets}}}")
-    _line(f"  decode {len(dec_ms)} ticks, {res['decode_ms_mean']:.2f} ms/tick "
+    per_len = ", ".join(f"{s}: {np.mean(v):.1f}" for s, v in sorted(by_len.items()))
+    _line(f"  prefill ms by length {{{per_len}}}")
+    _line(f"  decode {n_tick} ticks, {res['decode_ms_mean']:.2f} ms/tick "
           f"mean ({res['decode_ms_median']:.2f} median); {n_tok} tokens in "
           f"{wall:.2f} s = {res['tok_per_s']:.1f} tok/s; TTFT mean "
           f"{res['ttft_ms_mean']:.0f} ms, max {res['ttft_ms_max']:.0f} ms")
-    _line(f"  launches {launches}; bounce per prefill "
-          f"{res['bounce_launches_per_prefill']}, per decode tick "
-          f"{res['bounce_launches_per_tick']}")
-    _line(f"phase 3 serve ok: {len(tokens)} requests finished, tokens "
-          f"identical on repeat and with pallas_dataplane=off")
+    _line(f"  launches {launches}; per prefill "
+          f"{res['launches_per_prefill']}, per decode tick "
+          f"{res['launches_per_tick']}")
+    _line(f"phase {phase} serve {arch} ok: {len(tokens)} requests finished, "
+          f"tokens identical on repeat and with pallas_dataplane=off")
     res["_profile_inputs"] = (model, params, dataplane, prompts)
     return res
 
 
 def profile_serve(model, params, dataplane, prompts) -> dict:
-    """torch.profiler over one full-width prefill (a 256-token bucket) and
-    one 4-slot decode tick through the cord dataplane: device and host
-    time by operator."""
+    """torch.profiler over one full-width prefill of 256 tokens and one
+    4-slot decode tick through the cord dataplane: device and host time
+    by operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -519,20 +671,26 @@ def profile_serve(model, params, dataplane, prompts) -> dict:
         dev_total = sum(getattr(e, dev_attr) for e in ev) / 1e3
         by_dev = sorted(ev, key=lambda e: -getattr(e, dev_attr))[:15]
         by_cpu = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:15]
+        ours = [(e.key, e.count, getattr(e, dev_attr) / 1e3) for e in ev
+                if any(k in e.key for k in ("bounce_kernel", "flash_fwd_kernel",
+                                            "ssm_scan_kernel"))]
         out[name] = {
             "wall_ms": wall, "device_ms": dev_total,
             "device_idle_share": max(0.0, 1 - dev_total / wall),
+            "port_kernels": ours,
             "top_device": [(e.key, e.count, getattr(e, dev_attr) / 1e3)
                            for e in by_dev],
             "top_host": [(e.key, e.count, e.self_cpu_time_total / 1e3)
                          for e in by_cpu],
         }
-        _line(f"  profile {name}: wall {wall:.2f} ms, device busy "
-              f"{dev_total:.2f} ms")
-        for key, count, ms in out[name]["top_device"][:6]:
+        _line(f"  profile {model.cfg.name} {name}: wall {wall:.2f} ms, "
+              f"device busy {dev_total:.2f} ms")
+        for key, count, ms in out[name]["top_device"][:8]:
             _line(f"    device {ms:8.3f} ms {count:5d}x {key[:70]}")
         for key, count, ms in out[name]["top_host"][:6]:
             _line(f"    host   {ms:8.3f} ms {count:5d}x {key[:70]}")
+        for key, count, ms in ours:
+            _line(f"    port kernel {ms:8.3f} ms {count:5d}x {key[:60]}")
     return out
 
 
@@ -549,7 +707,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one full-width prefill and decode tick")
+                    help="profile one full-width prefill and decode tick "
+                         "of each model")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -560,20 +719,33 @@ def main(argv=None) -> int:
     card = phase_build()
     bounce = phase_bounce()
     flash = phase_flash()
-    serve = phase_serve()
-    inputs = serve.pop("_profile_inputs")
-    prof = profile_serve(*inputs) if args.profile else None
-    del inputs
+    ssm = phase_ssm()
+    serve, prof = {}, {}
+    for arch, phase in (("gemma3-1b", "3"), ("hymba-1.5b", "4")):
+        res = phase_serve(arch, phase)
+        inputs = res.pop("_profile_inputs")
+        if args.profile:
+            prof[arch] = profile_serve(*inputs)
+        serve[arch] = res
+        del inputs, res                # free this model before the next
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def main_path_launches(name):
+        return sum(r["launches"][name] for r in serve.values())
 
     table = bounce["table_1.21GB"]
     main_flash = next(r for r in flash["cases"]
-                      if r["dtype"] == "bfloat16" and r["s"] == 512
+                      if r["model"] == "gemma3-1b" and r["s"] == 512
                       and r["window"] == 0 and r["logit_cap"] == 0.0)
+    main_ssm = next(r for r in ssm["cases"]
+                    if r["shape"] == [1, 300, 3200, 16]
+                    and r["dtype"] == "float32")
     kernels = [
         {"name": "bounce", "route": "cuda",
          "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
          "replaces": "src/repro/kernels/dataplane/bounce.py:76",
-         "launches": serve["launches"]["bounce"],
+         "launches": main_path_launches("bounce"),
          "max_abs_err": bounce["max_abs_err"],
          "ms": table["ms"], "plain_ms": table["plain_ms"],
          "bound_ms": table["bound_ms"], "bound_by": "bytes",
@@ -582,12 +754,19 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
-         "launches": serve["launches"]["flash_attention"],
+         "launches": main_path_launches("flash_attention"),
          "max_abs_err": flash["worst_bf16_err"], "ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"],
          "bound_ms": main_flash["bound_ms"],
          "bound_by": main_flash["bound_by"],
          "library_ms": main_flash["library_ms"]},
+        {"name": "ssm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:30",
+         "launches": main_path_launches("ssm_scan"),
+         "max_abs_err": ssm["worst_f32_err"], "ms": main_ssm["ms"],
+         "plain_ms": main_ssm["plain_ms"], "bound_ms": main_ssm["bound_ms"],
+         "bound_by": main_ssm["bound_by"], "library_ms": None},
     ]
     if args.out:
         out = pathlib.Path(args.out)
@@ -595,7 +774,8 @@ def main(argv=None) -> int:
         out.write_text(json.dumps({"card": card, "torch": torch.__version__,
                                    "cuda": torch.version.cuda,
                                    "bounce": bounce, "flash": flash,
-                                   "serve": serve, "profile": prof,
+                                   "ssm_scan": ssm, "serve": serve,
+                                   "profile": prof or None,
                                    "kernels": kernels},
                                   indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

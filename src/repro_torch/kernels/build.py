@@ -28,6 +28,7 @@ BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 SOURCES = {
     "bounce": "kernels/dataplane/csrc/bounce.cu",
     "flash_attention": "kernels/flash_attention/csrc/flash_attention.cu",
+    "ssm_scan": "kernels/ssm_scan/csrc/ssm_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

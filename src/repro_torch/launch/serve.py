@@ -3,7 +3,9 @@
 ``python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
 [--scheduler continuous|gang] [--device cuda|cpu]``
 
-The flags are ``repro.launch.serve``'s.  ``--block-size > 0`` (the paged
+``--arch`` takes a dense model (gemma3, granite) or hymba-1.5b, the
+hybrid family, which the engine prefills at exact prompt length.  The
+flags are ``repro.launch.serve``'s.  ``--block-size > 0`` (the paged
 KV pool), ``--timeline`` and ``--elastic`` belong to later slices of the
 port and raise :class:`~repro_torch.serve.ServeError`; ``--prefill-chunk``
 is accepted and has no effect while the model has no chunked prefill

@@ -2,8 +2,9 @@
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 have the same signatures as ``repro``'s, bound to one device, so the
-serving engine is architecture-agnostic.  This slice serves the dense
-family; the others arrive later.
+serving engine is architecture-agnostic.  The port serves the dense
+family (gemma3, granite) and the hybrid family (hymba); the others
+arrive in later slices.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 
 
 @dataclass(frozen=True)
@@ -31,39 +32,64 @@ class Model:
     # chunked prefill arrives with a later slice: the engine prefills
     # whole prompts while this is None (JAX holds chunked ≡ whole)
     prefill_chunk: Callable | None = None
+    # True for families with recurrent state (mamba): the engine prefills
+    # them at exact prompt length, since right padding would advance the
+    # recurrence
+    recurrent: bool = False
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model for ``cfg`` on ``device`` (default ``cuda``).  ``init``
     takes a seed or a ``torch.Generator``."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is ported in a later slice; this "
-            f"slice serves the dense family")
-    m = transformer
+    if cfg.family == "dense":
+        m = transformer
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=_init(m.transformer_init, cfg, dev),
+            init_cache=lambda batch, max_len: m.transformer_init_cache(
+                cfg, batch, max_len, device=dev),
+            prefill=lambda params, batch, cache, **kw: m.transformer_prefill(
+                params, cfg, batch, cache, **kw),
+            decode_step=lambda params, token, cache, pos, **kw:
+                m.transformer_decode_step(params, cfg, token, cache, pos,
+                                          **kw),
+            decode_step_slots=lambda params, token, cache, pos, **kw:
+                m.transformer_decode_step_slots(params, cfg, token, cache,
+                                                pos, **kw),
+        )
+    if cfg.family == "hybrid":
+        m = hybrid
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=_init(m.hybrid_init, cfg, dev),
+            init_cache=lambda batch, max_len: m.hybrid_init_cache(
+                cfg, batch, max_len, device=dev),
+            prefill=lambda params, batch, cache, **kw: m.hybrid_prefill(
+                params, cfg, batch, cache, **kw),
+            decode_step=lambda params, token, cache, pos, **kw:
+                m.hybrid_decode_step(params, cfg, token, cache, pos, **kw),
+            decode_step_slots=lambda params, token, cache, pos, **kw:
+                m.hybrid_decode_step_slots(params, cfg, token, cache, pos,
+                                           **kw),
+            recurrent=True,
+        )
+    raise NotImplementedError(
+        f"the {cfg.family!r} family is ported in a later slice; the port "
+        f"serves the dense and hybrid families")
 
+
+def _init(init_fn, cfg: ModelConfig, dev: torch.device) -> Callable:
+    """``init(seed or torch.Generator)`` over ``init_fn(gen, cfg, device)``."""
     def init(seed):
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
-        return m.transformer_init(gen, cfg, device=dev)
-
-    return Model(
-        cfg=cfg,
-        device=dev,
-        init=init,
-        init_cache=lambda batch, max_len: m.transformer_init_cache(
-            cfg, batch, max_len, device=dev),
-        prefill=lambda params, batch, cache, **kw: m.transformer_prefill(
-            params, cfg, batch, cache, **kw),
-        decode_step=lambda params, token, cache, pos, **kw:
-            m.transformer_decode_step(params, cfg, token, cache, pos, **kw),
-        decode_step_slots=lambda params, token, cache, pos, **kw:
-            m.transformer_decode_step_slots(params, cfg, token, cache, pos,
-                                            **kw),
-    )
+        return init_fn(gen, cfg, device=dev)
+    return init
 
 
 __all__ = ["Model", "build_model"]

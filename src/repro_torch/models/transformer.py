@@ -3,9 +3,10 @@
 Per-layer weights are stacked on a leading layer axis as in ``repro``,
 and a Python loop over layers takes the place of ``lax.scan``.  Per-layer
 heterogeneity (gemma3's 5:1 local:global pattern, per-layer RoPE theta)
-comes from :func:`layer_flags`.  Every communication edge is issued
-through the CoRD dataplane (``dp``); with a mesh and ``emulate_costs``
-each edge launches the dataplane kernel on the card.
+comes from :func:`layer_flags`, which ``models/hybrid.py`` shares.  Every
+communication edge is issued through the CoRD dataplane (``dp``); with a
+mesh and ``emulate_costs`` each edge launches the dataplane kernel on the
+card.
 
 The KV cache is updated in place (``layers/kvcache.py``).
 """
@@ -61,8 +62,9 @@ def layer_flags(cfg: ModelConfig) -> tuple[np.ndarray, np.ndarray]:
 def _check_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"the {cfg.family!r} family is ported in a later slice; this "
-            f"slice serves the dense family")
+            f"the {cfg.family!r} family is not a dense transformer: "
+            f"models/api.py builds the hybrid family with models/hybrid.py, "
+            f"and the others are ported in a later slice")
 
 
 def transformer_init(gen: torch.Generator, cfg: ModelConfig,

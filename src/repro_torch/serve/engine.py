@@ -8,7 +8,9 @@ decode step, WFQ slot packing, and per-tenant admission control.
    position / token vectors (layers/kvcache.py slot helpers).
 2. A granted request is prefilled alone (batch 1), right-padded to a
    power-of-two *prompt bucket* — right padding sits causally after every
-   real token, so bucketing never perturbs logits.
+   real token, so bucketing never perturbs logits.  A recurrent model
+   (``Model.recurrent``, the mamba state of hymba) is prefilled at its
+   exact length instead: a pad token would advance its recurrence.
 3. The prefilled cache is written into the free slot in place; the slot
    joins the batch at its own position.
 4. One decode step advances ALL slots each tick.  Its shapes are
@@ -153,6 +155,7 @@ class Engine:
                      "preemptions": 0, "restores": 0})
         self._tenant_ids: dict[str, int] = {}
         self._decode_shapes: set[tuple] = set()
+        self._recurrent = bool(getattr(model, "recurrent", False))
 
     # ------------------------------------------------------------------
     # model calls (the dataplane edges are issued inside them)
@@ -161,8 +164,9 @@ class Engine:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def _prefill_slot(self, toks: np.ndarray, cache, slot: int, last):
-        """Batch-1 bucketed prefill whose cache lands in ``slot`` of the
-        persistent cache (in place)."""
+        """Batch-1 prefill (bucketed, or exact for a recurrent model)
+        whose cache lands in ``slot`` of the persistent cache (in
+        place)."""
         pc = self.model.init_cache(1, toks.shape[1])
         logits, pc = self.model.prefill(
             self.params, {"tokens": self._tensor(toks)},
@@ -265,6 +269,14 @@ class Engine:
     # ------------------------------------------------------------------
     # continuous: persistent slots, fixed-shape decode, WFQ packing
     # ------------------------------------------------------------------
+    def _cover(self, n: int) -> int:
+        """Prefill cache capacity for an ``n``-token sequence: the
+        power-of-two prompt bucket, or for a recurrent model the exact
+        length (padding would fold pad tokens into the slot state)."""
+        if self._recurrent:
+            return max(n, 1)
+        return prompt_bucket(n)
+
     @staticmethod
     def _resume_len(r: Request) -> int:
         """Tokens re-prefilled when ``r`` restarts: the prompt plus every
@@ -273,7 +285,7 @@ class Engine:
         return len(r.prompt) + k - 1 if k else len(r.prompt)
 
     def _check_capacity(self, r: Request) -> None:
-        cap = prompt_bucket(len(r.prompt))
+        cap = self._cover(len(r.prompt))
         need = cap + self.scfg.max_new_tokens + 1
         if need > self.scfg.kv_cache_len:
             raise ServeError(
@@ -285,7 +297,7 @@ class Engine:
         """Whether a preempted ``r`` can restart inside its stripe."""
         eff = self._resume_len(r)
         limit = min(r.max_new_tokens, self.scfg.max_new_tokens)
-        return max(prompt_bucket(eff),
+        return max(self._cover(eff),
                    len(r.prompt) + limit) + 1 <= self.scfg.kv_cache_len
 
     def set_slot_budget(self, n: int) -> int:
@@ -373,7 +385,7 @@ class Engine:
         seq = (np.concatenate([np.asarray(r.prompt, np.int32),
                                np.asarray(r.out_tokens[:-1], np.int32)])
                if k else np.asarray(r.prompt, np.int32))
-        toks = np.zeros((1, prompt_bucket(eff)), np.int32)
+        toks = np.zeros((1, self._cover(eff)), np.int32)
         toks[0, :eff] = seq              # right-pad
         logits, _ = self._prefill_slot(toks, cache, slot,
                                        np.asarray([eff - 1]))
