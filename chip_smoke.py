@@ -18,10 +18,14 @@ Phases, one line each; any failure raises and the script exits nonzero:
    for the main path's payloads: the 1.21 GB gemma3-1b embedding table, a
    bf16 (1, 512, 1152) activation and a 64 KB payload;
 2. the flash-attention kernel against its plain version at gemma3-1b
-   shapes and at hymba-1.5b's (D=64, H=25, KVH=5, window 1024; bf16,
-   max error bound 1e-2 on outputs of rms >= 0.3; an f32 D=16 case,
-   bound 2e-5), its time against its FLOP bound and
-   ``F.scaled_dot_product_attention``;
+   shapes and at hymba-1.5b's (D=64, H=25, KVH=5, window 1024), the
+   main path's own prefill lengths, and shapes that cut its 64-row tiles
+   (window 100, S=1, valid_len 0 and 130); bf16 max error bound 1e-2 on
+   outputs of rms >= 0.3 (valid_len 0: exactly 0), bf16 D=16/32/128, an
+   f32 D=16 case (bound 2e-5); its time (CUDA events, and device time
+   from torch.profiler) against its bound and
+   ``F.scaled_dot_product_attention``, and the host time of encoding its
+   TMA tensor maps;
 2b. the SSM-scan kernel against its plain version at hymba-1.5b shapes
    (d_inner 3200, N 16: prefill S = 1, 37, 300, 2048 and the 4-slot
    decode tick in f32, one bf16 case, a ragged d_inner of 200; f32 bound
@@ -129,6 +133,9 @@ def phase_build() -> str:
                 if "registers" in ln or "spill" in ln]
         _line(f"  nvcc {name}: {len(regs)} ptxas lines; "
               f"{regs[-1] if regs else 'cached'}")
+        for ln in log.splitlines():   # e.g. serialised wgmma (C75xx)
+            if "warning" in ln.lower() or "Performance" in ln:
+                _line(f"    {ln.strip()}")
     _line(f"phase 0 build ok: {len(logs)} kernels in {secs:.1f} s")
     return card
 
@@ -247,6 +254,32 @@ def _pairs(sq: int, skv: int, window: int, valid: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def _device_ms(fn, n: int = 20):
+    """Device time per call of ``fn``: the card's kernel time that
+    torch.profiler records over ``n`` calls, over ``n``; None when the
+    profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = _kernel_us(prof.key_averages())
+    return total / 1e3 / n if total > 0 else None
+
+
+def _kernel_us(events) -> float:
+    """Microseconds of device kernels among profiler events.  An aten op's
+    self device time repeats its kernels' time, so only the device's own
+    events count."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA)
+
+
 def phase_flash() -> dict:
     import torch
     import torch.nn.functional as F
@@ -262,9 +295,22 @@ def phase_flash() -> dict:
     cases = [gemma + (s, w, None, 0.0) for s in (512, 2048) for w in (0, 512)]
     cases += [gemma + (2048, 0, 1500, 0.0), gemma + (512, 512, None, 50.0),
               gemma + (300, 0, None, 0.0),
-              hymba + (300, 1024, None, 0.0), hymba + (2048, 1024, None, 0.0),
+              hymba + (300, 1024, None, 0.0), hymba + (2048, 1024, None, 0.0)]
+    # the main path's own prefill shapes (gemma3 buckets, hymba exact)
+    cases += [gemma + (s, 512, None, 0.0) for s in (16, 64, 256)]
+    cases += [hymba + (s, 1024, None, 0.0) for s in (16, 77, 200)]
+    # shapes that cut the kernel's 64-row tiles: a window that is no
+    # multiple of 64, one query, no valid key (every row 0), valid_len
+    # inside a tile
+    cases += [gemma + (512, 100, None, 0.0), gemma + (1, 0, None, 0.0),
+              gemma + (512, 0, 0, 0.0), gemma + (512, 0, 130, 0.0)]
+    # the other head dims the wrapper takes in bf16 (16 and 32 padded to
+    # 64), and the f32 CUDA-core path
+    cases += [("bf16-d128", torch.bfloat16, 4, 2, 128, 300, 0, None, 0.0),
+              ("bf16-d32", torch.bfloat16, 4, 2, 32, 200, 8, None, 0.0),
+              ("bf16-d16", torch.bfloat16, 4, 1, 16, 200, 8, None, 0.0),
               ("f32", torch.float32, 4, 1, 16, 200, 8, None, 0.0)]
-    rows, worst = [], 0.0
+    rows, worst, map_ns = [], 0.0, None
     for model, dtype, H, KVH, d, s, window, valid, cap in cases:
         # logits of std 3 put each row's weight on a few keys, so every
         # output row is O(1) and a lost or mis-scaled kv tile moves it by
@@ -282,10 +328,16 @@ def phase_flash() -> dict:
         err = (got.float() - want.float()).abs().max().item()
         rms = want.float().pow(2).mean().sqrt().item()
         tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else 2e-5
-        if not (math.isfinite(err) and err <= tol and rms >= 0.3):
+        if valid == 0:
+            # nothing to attend to: every row is exactly 0
+            ok = bool((got == 0).all()) and bool((want == 0).all())
+        else:
+            ok = math.isfinite(err) and err <= tol and rms >= 0.3
+        if not ok:
             raise AssertionError(f"flash error {err} > {tol} (or reference "
-                                 f"rms {rms} < 0.3): {model} {dtype} H={H} "
-                                 f"KVH={KVH} d={d} s={s} window={window} "
+                                 f"rms {rms} < 0.3, or valid_len 0 not all "
+                                 f"zero): {model} {dtype} H={H} KVH={KVH} "
+                                 f"d={d} s={s} window={window} "
                                  f"valid={valid}")
         worst = max(worst, err) if dtype == torch.bfloat16 else worst
         vl = s if valid is None else valid
@@ -293,42 +345,55 @@ def phase_flash() -> dict:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), n=20)
+        call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        ms = _cuda_ms(call, n=20)
+        dev_ms = _device_ms(call, n=20)
         plain = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), n=5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         kt = kt.repeat_interleave(H // KVH, dim=1)
         vt = vt.repeat_interleave(H // KVH, dim=1)
+        lib_call = None
         if window == 0 and valid is None and cap == 0.0:
-            lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), n=20)
-        elif cap == 0.0:
+            lib_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+        elif cap == 0.0 and vl > 0:
             pos = torch.arange(s, device=dev)
             mask = (pos[None] <= pos[:, None]) & (pos[None] < vl)
             if window:
                 mask &= pos[:, None] - pos[None] < window
-            lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask), n=20)
-        else:
-            lib = None            # no library call applies a tanh soft cap
+            lib_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        # else no library call: none applies a tanh soft cap, and SDPA
+        # gives NaN, not 0, for rows with no valid key
+        lib = None if lib_call is None else _cuda_ms(lib_call, n=20)
+        lib_dev = None if lib_call is None else _device_ms(lib_call, n=20)
+        if model == "gemma3-1b" and s == 512 and window == 0 and \
+                valid is None:
+            map_ns = fa.tensor_map_ns(q, k, v)
         row = {"model": model, "dtype": str(dtype).replace("torch.", ""),
                "h": H, "kvh": KVH, "d": d, "s": s,
                "window": window, "valid_len": vl, "logit_cap": cap,
                "max_abs_err": err, "ref_rms": rms, "tol": tol, "ms": ms,
-               "plain_ms": plain,
-               "library_ms": lib, "flops": flops, "bytes": nbytes,
+               "device_ms": dev_ms, "plain_ms": plain,
+               "library_ms": lib, "library_device_ms": lib_dev,
+               "flops": flops, "bytes": nbytes,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         rows.append(row)
+        fmt = lambda x: "n/a" if x is None else f"{x:.4f} ms"  # noqa: E731
+        share = "" if dev_ms is None else \
+            f", {row['bound_ms'] / dev_ms:.1%} of bound"
         _line(f"  flash {model} {row['dtype']} H={H} KVH={KVH} d={d} s={s} "
-              f"w={window} vl={vl} "
-              f"cap={cap}: err {err:.3g} (<= {tol}; reference rms "
-              f"{rms:.3f}), {ms:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), sdpa "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, "
-              f"plain {plain:.3f} ms")
+              f"w={window} vl={vl} cap={cap}: err {err:.3g} (<= {tol}; "
+              f"reference rms {rms:.3f}), {ms:.4f} ms, device "
+              f"{fmt(dev_ms)}, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}{share}), sdpa {fmt(lib)}, device "
+              f"{fmt(lib_dev)}, plain {plain:.3f} ms")
+    _line(f"  flash tensor maps: {map_ns / 1e3:.3f} us of host time per "
+          f"call (3 maps, gemma3 S=512)")
     _line(f"phase 2 flash ok: {len(rows)} cases, worst bf16 error "
           f"{worst:.3g} <= {FLASH_BF16_TOL}")
-    return {"cases": rows, "worst_bf16_err": worst}
+    return {"cases": rows, "worst_bf16_err": worst, "tensor_map_ns": map_ns}
 
 
 # ---------------------------------------------------------------------------
@@ -665,20 +730,17 @@ def profile_serve(model, params, dataplane, prompts) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         ev = prof.key_averages()
-        dev_attr = ("self_device_time_total"
-                    if hasattr(ev[0], "self_device_time_total")
-                    else "self_cuda_time_total")
-        dev_total = sum(getattr(e, dev_attr) for e in ev) / 1e3
-        by_dev = sorted(ev, key=lambda e: -getattr(e, dev_attr))[:15]
+        dev_total = _kernel_us(ev) / 1e3
+        by_dev = sorted(ev, key=lambda e: -e.self_device_time_total)[:15]
         by_cpu = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:15]
-        ours = [(e.key, e.count, getattr(e, dev_attr) / 1e3) for e in ev
-                if any(k in e.key for k in ("bounce_kernel", "flash_fwd_kernel",
+        ours = [(e.key, e.count, e.self_device_time_total / 1e3) for e in ev
+                if any(k in e.key for k in ("bounce_kernel", "flash_fwd",
                                             "ssm_scan_kernel"))]
         out[name] = {
             "wall_ms": wall, "device_ms": dev_total,
             "device_idle_share": max(0.0, 1 - dev_total / wall),
             "port_kernels": ours,
-            "top_device": [(e.key, e.count, getattr(e, dev_attr) / 1e3)
+            "top_device": [(e.key, e.count, e.self_device_time_total / 1e3)
                            for e in by_dev],
             "top_host": [(e.key, e.count, e.self_cpu_time_total / 1e3)
                          for e in by_cpu],
@@ -756,10 +818,12 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
          "launches": main_path_launches("flash_attention"),
          "max_abs_err": flash["worst_bf16_err"], "ms": main_flash["ms"],
+         "device_ms": main_flash["device_ms"],
          "plain_ms": main_flash["plain_ms"],
          "bound_ms": main_flash["bound_ms"],
          "bound_by": main_flash["bound_by"],
-         "library_ms": main_flash["library_ms"]},
+         "library_ms": main_flash["library_ms"],
+         "library_device_ms": main_flash["library_device_ms"]},
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:30",

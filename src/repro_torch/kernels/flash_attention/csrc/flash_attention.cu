@@ -9,100 +9,658 @@
 // positions 0..Sq-1 and key positions 0..Skv-1.  GQA reads kv head
 // h / (H / KVH).  Runtime scalars: `window` (0 = global; it changes per
 // layer, so it is not a template argument), `valid_len`, `causal`,
-// `logit_cap` (tanh soft cap, 0 = off).  Scale 1/sqrt(D).  Masked logits
-// are NEG_INF = -2^30, masked probabilities are 0, so a fully masked row
-// gives 0.  The softmax state (m, l) and the output accumulator are f32.
-// Whole kv tiles are skipped past `valid_len`, above the causal diagonal
-// or left of the window, exactly as the TPU kernel skips blocks; ragged
-// tiles at the end of a sequence are masked instead of shrinking the
-// tiles to a divisor of S as the TPU wrapper does.
+// `logit_cap` (tanh soft cap, 0 = off).  Scale 1/sqrt(D), given by the
+// caller.  Masked logits are NEG_INF = -2^30 and masked probabilities
+// exactly 0, so a fully masked row gives 0.  bf16 inputs, f32 softmax
+// state and accumulators, P rounded to bf16 before P.V.  Whole kv tiles
+// are skipped past `valid_len`, above the causal diagonal or left of the
+// window, exactly as the TPU kernel skips blocks; ragged tiles at the
+// end of a sequence are masked instead of shrinking the tiles to a
+// divisor of S as the TPU wrapper does.
 //
-// What bounds it.  At gemma3-1b prefill shapes (H=4, KVH=1, D=256,
-// S <= 2048, window 512 on 5 of 6 layers) the work is 4*D flops per
-// unmasked (q, k) pair against (Sq*H + 2*Skv*KVH)*D*2 bytes, which is
-// above the H100's ~295 flop/byte ridge: the bound is the tensor cores'
-// 989 TFLOP/s in bf16.
+// What bounds it.  4*D flops per unmasked (q, k) pair against
+// (2*Sq*H + 2*Skv*KVH)*D*2 bytes (each input read once, the output
+// written once).  At gemma3-1b's prefill shapes (H=4, KVH=1, D=256) that
+// bound is the bytes at S <= 512 (0.78 us at S=512 causal, at 3.35 TB/s)
+// and the operations at S=2048 (8.7 us global causal, at the 989 TFLOP/s
+// of the bf16 tensor cores); chip_smoke.py phase 2 computes both for
+// every case.  A block walks at most 32 kv tiles, so what the card loses
+// is latency: each tile's copy, the chain Q.K^T -> softmax -> P.V inside
+// a tile, and few blocks (32 at gemma3 S=512).
 //
-// What the design does about it.  One block of 4 warps per
-// (q tile, head, batch).  bf16 inputs take the tensor cores through
-// WMMA 16x16x16 (bf16 in, f32 accumulate) for both products; f32 inputs
-// (the smoke configs) take a CUDA-core path.  Q, K, V, the score tile, P
-// (bf16) and the f32 output accumulator live in shared memory (190 KB at
-// D=256, above 48 KB, hence cudaFuncSetAttribute).  This is the simple
-// correct form: the accumulator round-trips through shared memory every
-// kv tile and there is one block per SM.  Not yet used: wgmma, TMA, a
-// register-resident accumulator, warp specialisation.
+// What the design does about it (bf16, D in {64, 128, 256}; the wrapper
+// zero-pads bf16 D in {16, 32} to 64 and passes the scale of the real D):
+// - One block per (64-row q tile, head, batch); causal q tiles are
+//   launched heaviest first (blockIdx.x reversed).
+// - Warp specialisation: warps 0-3 are one consumer warpgroup that owns
+//   the 64 query rows; warp 4 is the producer.  One consumer warpgroup at
+//   every D: at D=64 a block takes 41 KB and 128 registers a thread, so
+//   three blocks share an SM and overlap one another's softmax and wgmma,
+//   which a second consumer warpgroup would buy with a second code path;
+//   at D=256 a second one would halve the blocks (16 at S=512).  No
+//   setmaxnreg: one block fills the SM at D >= 128, where the launch
+//   bounds already give the consumers 255 registers (D=256 uses 255 with
+//   no spill), and a producer of one warp frees too few to matter.  With
+//   launch bounds for two blocks ptxas capped the kernel at 168 registers
+//   and the D=256 consumer spilled, setmaxnreg or not.
+// - The producer fills a K/V ring in shared memory (3 stages at D=256,
+//   2 below) with TMA: a 3-D tensor map over (B, S, heads*D), 64x64 boxes
+//   with the 128-byte swizzle the wgmma descriptors read, rows past S
+//   zero-filled; full/empty mbarriers.  Q arrives the same way once.
+// - S = Q.K^T is wgmma m64n64k16 with both operands in shared memory
+//   (K-major, 128-byte swizzle); the f32 scores stay in registers.
+// - The online softmax runs on those registers: the row max is two
+//   shuffles across the 4 threads that share a row, m and l stay in
+//   registers (l as per-thread partial sums, reduced once at the end),
+//   log2(e) is folded into the scale so each p is one exp2.  Only tiles
+//   that cut the causal diagonal, the window edge, valid_len or Skv build
+//   a mask.
+// - O += P.V is wgmma m64n64k16 per 64 output columns with P converted
+//   to bf16 in registers as the A operand (the accumulator layout of
+//   Q.K^T is the A-fragment layout) and V from shared memory through the
+//   transpose bit (V is stored kv-row-major).  O lives in registers for
+//   the whole block (128 f32 a thread at D=256) and is rescaled there.
+// - Within the warpgroup, Q.K^T of tile j+1 is issued before P.V of tile
+//   j, and the softmax of tile j+1 runs while P.V of tile j does.  The
+//   loop has no conditional wgmma and the barrier waits loop inside their
+//   asm, so ptxas keeps the wgmma asynchronous (no C7514/C7520 warning).
+// - Epilogue: normalise by max(l, 1e-30), stage bf16 O in Q's shared
+//   memory, write it with 16-byte stores.
+// Every mbarrier wait traps after 2 s instead of hanging the card.
+//
+// f32 inputs (the smoke configs) take the CUDA-core kernel at the end of
+// this file, any D in {16, 32, 64, 128, 256}.
+//
+// C interface: flash_attention_launch returns 0, a cudaError_t, or
+// kErrTensorMap below.
 
+#include <cuda.h>   // CUtensorMap and its enums; the driver is reached
+                    // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <chrono>
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr float kNegInf = -1073741824.0f;   // -2^30, as the TPU kernel
-constexpr int kThreads = 128;               // 4 warps
-constexpr int kWarps = kThreads / 32;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
+constexpr int kErrTensorMap = 10001;   // cuTensorMapEncodeTiled refused
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+// ---------------------------------------------------------------------------
+// bf16 path: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
 
-template <typename T>
-struct Tiles;   // BQ x BK tile geometry per input type
+constexpr int kBQ = 64, kBK = 64;          // q rows and kv rows per tile
+constexpr int kConsumers = 128;            // one warpgroup
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+constexpr int kPanelBytes = 64 * 128;      // one TMA box: 64 rows x 128 B
+constexpr uint64_t kHangNs = 2000000000ull;
 
-template <>
-struct Tiles<__nv_bfloat16> {
-  static constexpr int BQ = 64, BK = 64;   // 16 query rows per warp
-  static constexpr bool kWmma = true;
+template <int D>
+struct Smem {
+  static constexpr int kPanels = D / 64;   // 64-column panels of a tile
+  static constexpr int kTile = kPanels * kPanelBytes;
+  // K/V ring depth: 3 at D=256 (224 KB with Q), 2 below
+  static constexpr int kStages = D == 256 ? 3 : 2;
+  // blocks an SM holds: one at D >= 128 (shared memory at D=256, about
+  // 220 consumer registers at D=128), three at D=64
+  static constexpr int kMinBlocks = D >= 128 ? 1 : 3;
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + kTile;
+  static constexpr int V_OFF = K_OFF + kStages * kTile;
+  static constexpr int BAR_OFF = V_OFF + kStages * kTile;
+  // full[kStages], empty[kStages], q
+  static constexpr int BYTES = BAR_OFF + (2 * kStages + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;   // to align the base to 1 KB
 };
 
-template <>
-struct Tiles<float> {
-  static constexpr int BQ = 32, BK = 32;
-  static constexpr bool kWmma = false;
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  The loop is
+// inside the asm, so the compiler sees no divergent branch before the
+// wgmma that follow.  A ring that never fills traps after kHangNs
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      " .reg .pred p;\n"
+      " .reg .u64 t0, t1;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra DONE;\n"
+      " mov.u64 t0, %%globaltimer;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra DONE;\n"
+      " mov.u64 t1, %%globaltimer;\n"
+      " sub.u64 t1, t1, t0;\n"
+      " setp.gt.u64 p, t1, %2;\n"
+      " @p trap;\n"
+      " bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity), "l"(kHangNs)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode in bits 62-63.
+constexpr uint64_t kSwizzle128 = 1ull << 62;
+
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | swizzle;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>   // until at most N committed groups are in flight
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving register reads or writes across the
+// asynchronous wgmma that owns the register.
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// d (64x64 f32) (+)= A (64x16, shared, K-major) . B (16x64, shared,
+// K-major).  accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64x64 f32) += A (64x16 bf16, registers) . B (16x64, shared,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The online-softmax step on one tile's scores.  Thread layout of the
+// m64n64 accumulator: s[4i + {0,1}] is row ra, columns 8i + 2c + {0,1};
+// s[4i + {2,3}] is row ra + 8.  On return s holds p (f32), m/l are
+// updated, and corr_a/corr_b rescale this thread's rows of O.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], float& m_a, float& m_b, float& l_a, float& l_b,
+    float& corr_a, float& corr_b, float scale_log2, float cap,
+    float cap_scale, int qa, int k0, int c, int kv_end, int causal,
+    int window) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = cap > 0.f ? cap * kLog2e * tanhf(s[e] * cap_scale)
+                     : s[e] * scale_log2;
+  }
+  uint32_t ok = 0xffffffffu;
+  if constexpr (kMask) {
+    ok = 0u;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int kpos = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+      const int qpos = qa + ((e & 2) ? 8 : 0);
+      bool valid = kpos < kv_end;
+      if (causal) valid = valid && kpos <= qpos;
+      if (window > 0) valid = valid && qpos - kpos < window;
+      ok |= (valid ? 1u : 0u) << e;
+      s[e] = valid ? s[e] : kNegInf;
+    }
+  }
+  float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    if (e & 2) mx_b = fmaxf(mx_b, s[e]);
+    else mx_a = fmaxf(mx_a, s[e]);
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float new_a = fmaxf(m_a, mx_a), new_b = fmaxf(m_b, mx_b);
+  corr_a = exp2f(m_a - new_a);
+  corr_b = exp2f(m_b - new_b);
+  m_a = new_a;
+  m_b = new_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    float p = exp2f(s[e] - ((e & 2) ? new_b : new_a));
+    if constexpr (kMask) p = ((ok >> e) & 1u) ? p : 0.f;
+    s[e] = p;
+    if (e & 2) sum_b += p;
+    else sum_a += p;
+  }
+  l_a = l_a * corr_a + sum_a;
+  l_b = l_b * corr_b + sum_b;
+}
+
+// S = Q K^T for one kv tile: D/16 k-steps of 32 bytes inside the
+// 128-byte rows of Q's and K's panels.  Issued, not waited for.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sQ,
+                                         uint32_t sK) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_ss(s, desc(sQ + off, 16, 1024, kSwizzle128),
+             desc(sK + off, 16, 1024, kSwizzle128), kk > 0);
+  }
+  wg_commit();
+}
+
+// O += P V for one kv tile: V rows 16kk.. start 2 KB apart in a panel, 64
+// output columns a panel.  Issued, not waited for.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 64][32],
+                                         const uint32_t (&pa)[4][4],
+                                         uint32_t sV) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int p = 0; p < D / 64; ++p)
+      wgmma_rs(acc[p], pa[kk],
+               desc(sV + p * kPanelBytes + kk * 2048, kPanelBytes, 1024,
+                    kSwizzle128));
+  wg_commit();
+}
+
+// P (bf16) as wgmma's A operand: k-step kk is score blocks 2kk and 2kk+1.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 64][32], float ca,
+                                        float cb) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[p][4 * i + 0] *= ca;
+      acc[p][4 * i + 1] *= ca;
+      acc[p][4 * i + 2] *= cb;
+      acc[p][4 * i + 3] *= cb;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
+                      int KVH, int causal, int window, int valid_len,
+                      float logit_cap, float scale) {
+  using L = Smem<D>;
+  constexpr int kPanels = L::kPanels, kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // 128-byte swizzle atoms
+  uint8_t* gbase = smem_raw + (base - raw);       // its generic address
+  const uint32_t sQ = base + L::Q_OFF;
+  const uint32_t bars = base + L::BAR_OFF;        // full, empty, q
+  const uint32_t q_bar = bars + 8u * (2 * kStages);
+
+  // heaviest causal q tile first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int q_last = min(q0 + kBQ - 1, Sq - 1);
+  const int kv_end = min(valid_len, Skv);    // keys at or past it: masked
+  int kt_end = (max(kv_end, 0) + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, q_last / kBK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / kBK;
+  const int n_tiles = max(kt_end - kt_begin, 0);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 8u * st, 1);
+      mbar_init(bars + 8u * (kStages + st), kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32) {
+    // ---------------- producer warp ----------------
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, L::kTile);
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(sQ + p * kPanelBytes, &tm_q, q_bar, h * D + 64 * p, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        const int k0 = (kt_begin + j) * kBK;
+        const uint32_t full = bars + 8u * st;
+        mbar_wait(bars + 8u * (kStages + st), ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kTile);
+        const uint32_t sK = base + L::K_OFF + st * L::kTile;
+        const uint32_t sV = base + L::V_OFF + st * L::kTile;
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(sK + p * kPanelBytes, &tm_k, full, kvh * D + 64 * p, k0, b);
+          tma_load(sV + p * kPanelBytes, &tm_v, full, kvh * D + 64 * p, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroup ----------------
+    const int g = lane / 4, c = lane % 4;
+    const int ra = warp * 16 + g;               // rows ra and ra + 8
+    const float scale_log2 = scale * kLog2e;
+    const float cap_scale = logit_cap > 0.f ? scale / logit_cap : 0.f;
+
+    float acc[kPanels][32];
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+    float s[32];
+    uint32_t pa[4][4];
+
+    // wait for tile j's K/V and issue its S = Q K^T
+    auto start_qk = [&](int j) {
+      const int st = j % kStages;
+      mbar_wait(bars + 8u * st, (j / kStages) & 1);
+      issue_qk<D>(s, sQ, base + L::K_OFF + st * L::kTile);
+    };
+    // the online softmax of tile j on s; returns O's rescale factors
+    auto softmax = [&](int j, float& ca, float& cb) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(s[e]);
+      const int k0 = (kt_begin + j) * kBK;
+      // a mask only where the tile cuts valid_len / Skv, the causal
+      // diagonal or the window edge
+      const bool need_mask = k0 + kBK > kv_end ||
+                             (causal && k0 + kBK - 1 > q0) ||
+                             (window > 0 && q_last - k0 >= window);
+      if (need_mask)
+        softmax_tile<true>(s, m_a, m_b, l_a, l_b, ca, cb, scale_log2,
+                           logit_cap, cap_scale, q0 + ra, k0, c, kv_end,
+                           causal, window);
+      else
+        softmax_tile<false>(s, m_a, m_b, l_a, l_b, ca, cb, scale_log2,
+                            logit_cap, cap_scale, q0 + ra, k0, c, kv_end,
+                            causal, window);
+    };
+    auto fence_acc = [&]() {
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(acc[p][e]);
+    };
+
+    mbar_wait(q_bar, 0);
+    // Q K^T of tile j+1 runs on the tensor cores while P V of tile j
+    // waits behind it; the softmax of tile j+1 runs while P V of tile j
+    // does.  The last tile is peeled off, so no wgmma is conditional.
+    if (n_tiles > 0) {
+      float ca, cb;
+      start_qk(0);
+      wg_wait<0>();
+      softmax(0, ca, cb);        // O is still 0: nothing to rescale
+      pack_p(pa, s);
+      for (int j = 0; j + 1 < n_tiles; ++j) {
+        const int st = j % kStages;
+        start_qk(j + 1);
+        issue_pv<D>(acc, pa, base + L::V_OFF + st * L::kTile);
+        wg_wait<1>();            // S of tile j+1 is in; P V of j may run
+        softmax(j + 1, ca, cb);
+        wg_wait<0>();
+        fence_acc();
+        mbar_arrive(bars + 8u * (kStages + st));   // the stage may be refilled
+        rescale<D>(acc, ca, cb);   // O where m moved
+        pack_p(pa, s);
+      }
+      const int st = (n_tiles - 1) % kStages;
+      issue_pv<D>(acc, pa, base + L::V_OFF + st * L::kTile);
+      wg_wait<0>();
+      fence_acc();
+      mbar_arrive(bars + 8u * (kStages + st));
+    }
+
+    // ---- epilogue: normalise, stage bf16 O in Q's panels, 16-byte stores
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+    const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // Q read
+    const int rb = ra + 8;
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint8_t* panel = gbase + L::Q_OFF + p * kPanelBytes;
+        *reinterpret_cast<uint32_t*>(panel + ra * 128 + ((i ^ (ra & 7)) << 4) +
+                                     4 * c) =
+            pack_bf16(acc[p][4 * i] * inv_a, acc[p][4 * i + 1] * inv_a);
+        *reinterpret_cast<uint32_t*>(panel + rb * 128 + ((i ^ (rb & 7)) << 4) +
+                                     4 * c) =
+            pack_bf16(acc[p][4 * i + 2] * inv_b, acc[p][4 * i + 3] * inv_b);
+      }
+    asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+    constexpr int kChunks = D / 8;   // 16-byte chunks in a row
+    for (int idx = threadIdx.x; idx < kBQ * kChunks; idx += kConsumers) {
+      const int r = idx / kChunks, ch = idx % kChunks;
+      if (q0 + r >= Sq) break;   // rows only grow with idx
+      const uint4 val = *reinterpret_cast<const uint4*>(
+          gbase + L::Q_OFF + (ch / 8) * kPanelBytes + r * 128 +
+          (((ch % 8) ^ (r & 7)) << 4));
+      *reinterpret_cast<uint4*>(
+          o + ((static_cast<long long>(b) * Sq + q0 + r) * H + h) * D +
+          ch * 8) = val;
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static std::atomic<EncodeTiled> fn{nullptr};
+  EncodeTiled f = fn.load(std::memory_order_acquire);
+  if (f != nullptr) return f;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  f = reinterpret_cast<EncodeTiled>(p);
+  fn.store(f, std::memory_order_release);
+  return f;
+}
+
+// A 3-D map over a (B, S, width) bf16 tensor: 64x64 boxes (64 columns =
+// 128 bytes) with the 128-byte swizzle; rows past S read as 0.
+bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
+                 int S, int width) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(S) * width * 2};
+  const cuuint32_t box[3] = {64, kBQ, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool encode_qkv(CUtensorMap* maps, const void* q, const void* k,
+                const void* v, int B, int Sq, int Skv, int H, int KVH,
+                int D) {
+  EncodeTiled fn = encoder();
+  return fn != nullptr && encode_rows(fn, &maps[0], q, B, Sq, H * D) &&
+         encode_rows(fn, &maps[1], k, B, Skv, KVH * D) &&
+         encode_rows(fn, &maps[2], v, B, Skv, KVH * D);
+}
+
+template <int D>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Skv, int H, int KVH, int causal, int window,
+                int valid_len, float logit_cap, float scale,
+                cudaStream_t stream) {
+  using L = Smem<D>;
+  auto kern = flash_fwd_sm90_kernel<D>;
+  // the shared-memory opt-in, once per device
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev].store(true, std::memory_order_relaxed);
+  }
+  CUtensorMap maps[3];
+  if (!encode_qkv(maps, q, k, v, B, Sq, Skv, H, KVH, D)) return kErrTensorMap;
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  kern<<<grid, kThreads, L::ALLOC, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), Sq, Skv, H,
+      KVH, causal, window, valid_len, logit_cap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// f32 path: CUDA cores, Q/K/V/S/P/O tiles in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 128;   // 4 warps
+constexpr int kF32Warps = kF32Threads / 32;
 
 __host__ __device__ constexpr int round128(int bytes) {
   return (bytes + 127) / 128 * 128;
 }
 
-template <typename T, int D>
-struct Layout {
-  static constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-  static constexpr int LDT = D + 16 / static_cast<int>(sizeof(T));  // Q/K/V rows
-  static constexpr int LDS = BK + 4;                                 // f32 scores
-  static constexpr int LDP = BK + 16 / static_cast<int>(sizeof(T));  // P rows
-  static constexpr int LDO = D + 4;                                  // f32 output
+template <int D>
+struct F32Layout {
+  static constexpr int BQ = 32, BK = 32;
+  static constexpr int LDT = D + 4;    // Q/K/V rows
+  static constexpr int LDS = BK + 4;   // scores
+  static constexpr int LDP = BK + 4;   // P rows
+  static constexpr int LDO = D + 4;    // output
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + round128(BQ * LDT * sizeof(T));
-  static constexpr int V_OFF = K_OFF + round128(BK * LDT * sizeof(T));
-  static constexpr int S_OFF = V_OFF + round128(BK * LDT * sizeof(T));
+  static constexpr int K_OFF = Q_OFF + round128(BQ * LDT * 4);
+  static constexpr int V_OFF = K_OFF + round128(BK * LDT * 4);
+  static constexpr int S_OFF = V_OFF + round128(BK * LDT * 4);
   static constexpr int P_OFF = S_OFF + round128(BQ * LDS * 4);
-  static constexpr int O_OFF = P_OFF + round128(BQ * LDP * sizeof(T));
+  static constexpr int O_OFF = P_OFF + round128(BQ * LDP * 4);
   static constexpr int M_OFF = O_OFF + round128(BQ * LDO * 4);
   static constexpr int L_OFF = M_OFF + round128(BQ * 4);
   static constexpr int BYTES = L_OFF + round128(BQ * 4);
 };
 
-// Copy `rows` rows of D elements (row r at src + r * src_stride) into
+// Copy `rows` rows of D floats (row r at src + r * src_stride) into
 // shared memory with row stride LDT, zero-filling rows >= valid_rows.
-template <typename T, int D, int LDT>
-__device__ __forceinline__ void load_rows(T* dst, const T* src,
+template <int D, int LDT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long src_stride, int rows,
                                           int valid_rows) {
-  constexpr int kVec = D * static_cast<int>(sizeof(T)) / 16;   // uint4 per row
-  for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
+  constexpr int kVec = D / 4;   // uint4 per row
+  for (int i = threadIdx.x; i < rows * kVec; i += kF32Threads) {
     const int r = i / kVec, c = i % kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < valid_rows) {
@@ -112,20 +670,20 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int H, int KVH, int causal, int window, int valid_len,
-                 float logit_cap, float scale) {
-  using L = Layout<T, D>;
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int Sq, int Skv, int H, int KVH, int causal, int window,
+                     int valid_len, float logit_cap, float scale) {
+  using L = F32Layout<D>;
   constexpr int BQ = L::BQ, BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::Q_OFF);
-  T* sK = reinterpret_cast<T*>(smem + L::K_OFF);
-  T* sV = reinterpret_cast<T*>(smem + L::V_OFF);
+  float* sQ = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* sK = reinterpret_cast<float*>(smem + L::K_OFF);
+  float* sV = reinterpret_cast<float*>(smem + L::V_OFF);
   float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-  T* sP = reinterpret_cast<T*>(smem + L::P_OFF);
+  float* sP = reinterpret_cast<float*>(smem + L::P_OFF);
   float* sO = reinterpret_cast<float*>(smem + L::O_OFF);
   float* sM = reinterpret_cast<float*>(smem + L::M_OFF);
   float* sL = reinterpret_cast<float*>(smem + L::L_OFF);
@@ -137,11 +695,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long q_stride = static_cast<long long>(H) * D;
   const long long kv_stride = static_cast<long long>(KVH) * D;
 
-  load_rows<T, D, L::LDT>(sQ, q + (static_cast<long long>(b) * Sq + q_start) * q_stride +
-                                  static_cast<long long>(h) * D,
-                          q_stride, BQ, Sq - q_start);
-  for (int i = tid; i < BQ * L::LDO; i += kThreads) sO[i] = 0.f;
-  for (int i = tid; i < BQ; i += kThreads) {
+  load_rows<D, L::LDT>(sQ, q + (static_cast<long long>(b) * Sq + q_start) * q_stride +
+                               static_cast<long long>(h) * D,
+                       q_stride, BQ, Sq - q_start);
+  for (int i = tid; i < BQ * L::LDO; i += kF32Threads) sO[i] = 0.f;
+  for (int i = tid; i < BQ; i += kF32Threads) {
     sM[i] = kNegInf;
     sL[i] = 0.f;
   }
@@ -155,47 +713,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!run) continue;   // uniform over the block
 
     __syncthreads();      // the previous tile is no longer read
-    const T* kb = k + (static_cast<long long>(b) * Skv + k_start) * kv_stride +
-                  static_cast<long long>(kvh) * D;
-    const T* vb = v + (static_cast<long long>(b) * Skv + k_start) * kv_stride +
-                  static_cast<long long>(kvh) * D;
-    load_rows<T, D, L::LDT>(sK, kb, kv_stride, BK, Skv - k_start);
-    load_rows<T, D, L::LDT>(sV, vb, kv_stride, BK, Skv - k_start);
+    const float* kb = k + (static_cast<long long>(b) * Skv + k_start) * kv_stride +
+                      static_cast<long long>(kvh) * D;
+    const float* vb = v + (static_cast<long long>(b) * Skv + k_start) * kv_stride +
+                      static_cast<long long>(kvh) * D;
+    load_rows<D, L::LDT>(sK, kb, kv_stride, BK, Skv - k_start);
+    load_rows<D, L::LDT>(sV, vb, kv_stride, BK, Skv - k_start);
     __syncthreads();
 
-    // ---- S = Q K^T (raw dot products, f32) ----
-    if constexpr (Tiles<T>::kWmma) {
-      const int r0 = warp * 16;
-      for (int nf = 0; nf < BK / 16; ++nf) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, sQ + r0 * L::LDT + kk * 16, L::LDT);
-          wmma::load_matrix_sync(fb, sK + nf * 16 * L::LDT + kk * 16, L::LDT);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(sS + r0 * L::LDS + nf * 16, acc, L::LDS,
-                                wmma::mem_row_major);
-      }
-    } else {
-      for (int i = tid; i < BQ * BK; i += kThreads) {
-        const int r = i / BK, c = i % BK;
-        float acc = 0.f;
+    // ---- S = Q K^T (raw dot products) ----
+    for (int i = tid; i < BQ * BK; i += kF32Threads) {
+      const int r = i / BK, c = i % BK;
+      float acc = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          acc = fmaf(to_f(sQ[r * L::LDT + d]), to_f(sK[c * L::LDT + d]), acc);
-        }
-        sS[r * L::LDS + c] = acc;
+      for (int d = 0; d < D; ++d) {
+        acc = fmaf(sQ[r * L::LDT + d], sK[c * L::LDT + d], acc);
       }
+      sS[r * L::LDS + c] = acc;
     }
     __syncthreads();
 
     // ---- online softmax, one warp per row ----
-    for (int r = warp; r < BQ; r += kWarps) {
+    for (int r = warp; r < BQ; r += kF32Warps) {
       const int qpos = q_start + r;
       constexpr int kPer = BK / 32;
       float s[kPer];
@@ -224,7 +763,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kPer; ++j) {
         const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
         sum += p;
-        store_f(sP + r * L::LDP + lane + 32 * j, p);
+        sP[r * L::LDP + lane + 32 * j] = p;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -240,55 +779,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // ---- O += P V ----
-    if constexpr (Tiles<T>::kWmma) {
-      const int r0 = warp * 16;
-      for (int nf = 0; nf < D / 16; ++nf) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, sO + r0 * L::LDO + nf * 16, L::LDO,
-                               wmma::mem_row_major);
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, sP + r0 * L::LDP + kk * 16, L::LDP);
-          wmma::load_matrix_sync(fb, sV + kk * 16 * L::LDT + nf * 16, L::LDT);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(sO + r0 * L::LDO + nf * 16, acc, L::LDO,
-                                wmma::mem_row_major);
-      }
-    } else {
-      for (int i = tid; i < BQ * D; i += kThreads) {
-        const int r = i / D, d = i % D;
-        float acc = 0.f;
+    for (int i = tid; i < BQ * D; i += kF32Threads) {
+      const int r = i / D, d = i % D;
+      float acc = 0.f;
 #pragma unroll 8
-        for (int c = 0; c < BK; ++c) {
-          acc = fmaf(to_f(sP[r * L::LDP + c]), to_f(sV[c * L::LDT + d]), acc);
-        }
-        sO[r * L::LDO + d] += acc;
+      for (int c = 0; c < BK; ++c) {
+        acc = fmaf(sP[r * L::LDP + c], sV[c * L::LDT + d], acc);
       }
+      sO[r * L::LDO + d] += acc;
     }
   }
   __syncthreads();
 
   // ---- normalise and write (B, Sq, H, D) ----
-  for (int i = tid; i < BQ * D; i += kThreads) {
+  for (int i = tid; i < BQ * D; i += kF32Threads) {
     const int r = i / D, d = i % D;
     if (q_start + r >= Sq) continue;
     const float denom = fmaxf(sL[r], 1e-30f);
-    store_f(o + (static_cast<long long>(b) * Sq + q_start + r) * q_stride +
-                static_cast<long long>(h) * D + d,
-            sO[r * L::LDO + d] / denom);
+    o[(static_cast<long long>(b) * Sq + q_start + r) * q_stride +
+      static_cast<long long>(h) * D + d] = sO[r * L::LDO + d] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KVH, int causal, int window,
-           int valid_len, float logit_cap, float scale, cudaStream_t stream) {
-  using L = Layout<T, D>;
-  auto kern = flash_fwd_kernel<T, D>;
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Skv, int H, int KVH, int causal, int window,
+               int valid_len, float logit_cap, float scale,
+               cudaStream_t stream) {
+  using L = F32Layout<D>;
+  auto kern = flash_fwd_f32_kernel<D>;
   // the shared-memory opt-in, once per device and instantiation
   static std::atomic<bool> ready[kMaxDevices];
   int dev = 0;
@@ -303,37 +822,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     ready[dev].store(true, std::memory_order_relaxed);
   }
   dim3 grid((Sq + L::BQ - 1) / L::BQ, H, B);
-  kern<<<grid, kThreads, L::BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KVH, causal,
-      window, valid_len, logit_cap, scale);
+  kern<<<grid, kF32Threads, L::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KVH,
+      causal, window, valid_len, logit_cap, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int Sq, int Skv, int H, int KVH, int causal, int window,
-               int valid_len, float logit_cap, float scale,
-               cudaStream_t stream) {
-#define FLASH_CASE(DD)                                                      \
-  case DD:                                                                  \
-    return launch<T, DD>(q, k, v, o, B, Sq, Skv, H, KVH, causal, window,   \
-                         valid_len, logit_cap, scale, stream);
-  switch (D) {
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-    FLASH_CASE(256)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef FLASH_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32 (D in {16, 32, 64, 128, 256}), 1 = bfloat16 (D in
+// {64, 128, 256}).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int Sq, int Skv, int H, int KVH,
@@ -341,12 +840,47 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int valid_len, float logit_cap,
                                       float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Skv, H, KVH,
-                                     causal, window, valid_len, logit_cap,
-                                     scale, s);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, Sq, Skv, H, KVH, causal,
-                             window, valid_len, logit_cap, scale, s);
+#define FLASH_CASE(FN, DD)                                                  \
+  case DD:                                                                  \
+    return FN<DD>(q, k, v, o, B, Sq, Skv, H, KVH, causal, window,          \
+                  valid_len, logit_cap, scale, s);
+  if (dtype == 1) {
+    switch (D) {
+      FLASH_CASE(launch_sm90, 64)
+      FLASH_CASE(launch_sm90, 128)
+      FLASH_CASE(launch_sm90, 256)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype == 0) {
+    switch (D) {
+      FLASH_CASE(launch_f32, 16)
+      FLASH_CASE(launch_f32, 32)
+      FLASH_CASE(launch_f32, 64)
+      FLASH_CASE(launch_f32, 128)
+      FLASH_CASE(launch_f32, 256)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#undef FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Host cost of the bf16 path's per-call set-up: nanoseconds to encode the
+// three tensor maps of one call, averaged over `iters`; -1 on failure.
+extern "C" double flash_attention_map_ns(const void* q, const void* k,
+                                         const void* v, int B, int Sq,
+                                         int Skv, int H, int KVH, int D,
+                                         int iters) {
+  CUtensorMap maps[3];
+  if (iters <= 0 || !encode_qkv(maps, q, k, v, B, Sq, Skv, H, KVH, D))
+    return -1.0;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    if (!encode_qkv(maps, q, k, v, B, Sq, Skv, H, KVH, D)) return -1.0;
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / iters;
 }

@@ -4,6 +4,10 @@ Takes the framework's (B, S, H, D) layout, handles GQA shapes and the
 runtime window / valid-length scalars.  Given CUDA tensors it launches the
 Hopper kernel (or raises); given CPU tensors it runs the plain version,
 ``ref.flash_attention_ref``.  ``LAUNCHES`` counts kernel launches.
+
+The bf16 kernel (wgmma on 64-column panels) takes D in {64, 128, 256};
+bf16 q/k/v with D of 16 or 32 are zero-padded to 64 here, which leaves
+every dot product as it was, and the scale stays 1/sqrt(D).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BF16_MIN_D = 64       # the bf16 kernel's panel width
+_ERR_TENSOR_MAP = 10001   # flash_attention_launch's code beside cudaError_t
 
 # kernel launches since the count was last set to 0
 LAUNCHES = 0
@@ -68,19 +74,42 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
 def _kernel(q, k, v, *, causal, window, logit_cap, valid_len):
     global LAUNCHES
     _check(q, k, v)
-    b, sq, h, d = q.shape
+    d = q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    if q.dtype == torch.bfloat16 and d < _BF16_MIN_D:
+        q, k, v = (torch.nn.functional.pad(t, (0, _BF16_MIN_D - d))
+                   for t in (q, k, v))
+    b, sq, h, dk = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     fn = build.function("flash_attention", "flash_attention_launch",
                         _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _DTYPES[q.dtype], b, sq, skv, h, kvh, d, int(bool(causal)),
+             _DTYPES[q.dtype], b, sq, skv, h, kvh, dk, int(bool(causal)),
              int(window or 0), int(skv if valid_len is None else valid_len),
-             float(logit_cap), 1.0 / math.sqrt(d), stream)
+             float(logit_cap), scale, stream)
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError("flash_attention_launch: cuTensorMapEncodeTiled "
+                           "refused a tensor map")
     build.check(err, "flash_attention_launch")
     LAUNCHES += 1
-    return o
+    return o if dk == d else o[..., :d].contiguous()
+
+
+def tensor_map_ns(q, k, v, iters: int = 1000) -> float:
+    """Host nanoseconds the bf16 kernel's launch spends encoding the three
+    TMA tensor maps of one call (q/k/v on the card, D >= 64)."""
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    fn = build.function("flash_attention", "flash_attention_map_ns",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7,
+                        restype=ctypes.c_double)
+    ns = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, sq, k.shape[1], h,
+            k.shape[2], d, iters)
+    if ns < 0:
+        raise RuntimeError("flash_attention_map_ns: encoding failed")
+    return ns
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -98,5 +127,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                  logit_cap=logit_cap, valid_len=valid_len)
 
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
-           "LAUNCHES"]
+__all__ = ["flash_attention", "flash_attention_plain", "tensor_map_ns",
+           "HEAD_DIMS", "LAUNCHES"]

@@ -30,7 +30,18 @@ CASES = [
     (1, 16, 2, 2, 32, 0, 11, 0.0),       # valid_len < S
     (1, 16, 4, 1, 16, 0, None, 5.0),     # logit soft cap
     (1, 8, 2, 1, 16, 4, 0, 0.0),         # every row fully masked -> 0
+    # edges of the Hopper kernel's 64-row tiles
+    (1, 128, 2, 1, 16, 37, None, 0.0),   # window no multiple of 64
+    (1, 128, 2, 1, 16, 0, 70, 0.0),      # valid_len inside a tile
+    (1, 1, 2, 1, 16, 0, None, 0.0),      # one query
+    (1, 40, 10, 2, 64, 24, None, 0.0),   # GQA 5:1 at D=64
 ]
+
+
+def _block(s):
+    """Pallas / XLA block size: small blocks on short sequences, so the
+    block skip and carry are exercised; fewer interpret steps on long."""
+    return 8 if s <= 64 else 32
 
 
 def _qkv(b, s, h, kvh, d, seed=0):
@@ -61,7 +72,8 @@ def test_flash_plain_matches_pallas_interpret(b, s, h, kvh, d, window, valid,
     tr = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))  # noqa: E731
     scal = jnp.asarray([window, s if valid is None else valid], jnp.int32)
     want = flash_attention_fwd(tr(q), tr(k), tr(v), scal, logit_cap=cap,
-                               q_block=8, kv_block=8, interpret=True)
+                               q_block=_block(s), kv_block=_block(s),
+                               interpret=True)
     got = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                torch.from_numpy(v), window=window,
                                valid_len=valid, logit_cap=cap)
@@ -78,7 +90,7 @@ def test_attend_matches_attend_flash(b, s, h, kvh, d, window, valid, cap):
     want = jatt.attend_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              q_pos=jnp.asarray(pos), k_pos=jnp.asarray(pos),
                              causal=True, window=window, logit_cap=cap,
-                             q_block=8, kv_block=8)
+                             q_block=_block(s), kv_block=_block(s))
     tpos = torch.from_numpy(pos)
     got = tatt.attend(torch.from_numpy(q), torch.from_numpy(k),
                       torch.from_numpy(v), q_pos=tpos, k_pos=tpos,
@@ -134,15 +146,30 @@ def test_make_mask_matches_jax():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.float32, 16)])
-def test_kernel_matches_plain_on_card(dtype, d):
+@pytest.mark.parametrize("dtype,h,kvh,d", [
+    (torch.bfloat16, 4, 1, 256),    # gemma3-1b heads
+    (torch.bfloat16, 25, 5, 64),    # hymba-1.5b heads
+    (torch.bfloat16, 4, 2, 128),
+    (torch.bfloat16, 4, 1, 16),     # zero-padded to 64 by the wrapper
+    (torch.float32, 4, 1, 16),      # the CUDA-core path
+])
+def test_kernel_matches_plain_on_card(dtype, h, kvh, d):
     dev = cuda_device()
-    q, k, v = (torch.from_numpy(a).to(dev, dtype)
-               for a in _qkv(1, 200, 4, 1, d, seed=5))
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    for window, valid in ((0, None), (64, None), (0, 150)):
+    # (B, S, window, valid_len): global, windows on and off the 64-row
+    # tile grid, valid_len inside a tile, one query, nothing valid, and
+    # a second sequence in the batch
+    for b, s, window, valid in ((1, 200, 0, None), (1, 200, 64, None),
+                                (1, 200, 0, 150), (1, 200, 37, None),
+                                (1, 130, 100, None), (1, 1, 0, None),
+                                (1, 200, 0, 70), (1, 200, 0, 0),
+                                (2, 130, 0, None)):
+        q, k, v = (torch.from_numpy(a).to(dev, dtype)
+                   for a in _qkv(b, s, h, kvh, d, seed=5))
         got = tops.flash_attention(q, k, v, window=window, valid_len=valid)
         want = tops.flash_attention_plain(q, k, v, window=window,
                                           valid_len=valid)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+        if valid == 0:
+            assert not got.any()

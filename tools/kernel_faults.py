@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Planted faults in the port's CUDA kernels; chip_smoke.py must catch each.
+
+    python3 tools/kernel_faults.py [fault ...]   # on a machine with a card
+
+For each fault (all of them without arguments) it copies
+``chip_smoke.py`` and ``src/`` into a temporary directory, makes one
+edit to one kernel source there, builds the kernels and runs the phase
+of ``chip_smoke.py`` that checks that kernel.  A fault is caught when the
+phase fails.  One line per fault gives the error the phase reported; the
+exit code is nonzero when a fault was missed.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+_FLASH = "kernels/flash_attention/csrc/flash_attention.cu"
+_SSM = "kernels/ssm_scan/csrc/ssm_scan.cu"
+_BOUNCE = "kernels/dataplane/csrc/bounce.cu"
+
+# name -> (source under src/repro_torch, text, replacement, phase)
+FAULTS = {
+    # O is not rescaled when a row's running max moves
+    "flash_no_o_rescale": (
+        _FLASH, "        rescale<D>(acc, ca, cb);   // O where m moved\n", "\n",
+        "phase_flash"),
+    # the producer never fills the ring's last stage: it arrives on the
+    # stage's full barrier without a load, so the consumer reads stale K/V
+    "flash_ring_last_stage_unfilled": (
+        _FLASH, "        mbar_expect_tx(full, 2 * L::kTile);\n",
+        "        mbar_expect_tx(full, st == kStages - 1 ? 0 : 2 * L::kTile);\n"
+        "        if (st == kStages - 1) continue;\n", "phase_flash"),
+    # the K descriptor names the 64-byte swizzle; TMA wrote the 128-byte one
+    "flash_k_desc_swizzle_64b": (
+        _FLASH, "desc(sK + off, 16, 1024, kSwizzle128)",
+        "desc(sK + off, 16, 1024, 2ull << 62)", "phase_flash"),
+    # the scan starts from h = 0 instead of the carried state h0
+    "ssm_no_h0": (_SSM, "float h = live ? h0[hidx] : 0.f;", "float h = 0.f;",
+                  "phase_ssm"),
+    # the scan drops the last time step of the sequence
+    "ssm_drop_last_step": (
+        _SSM, "for (int t = 0; t < nt; ++t) {",
+        "for (int t = 0; t < nt - (t0 + nt == S ? 1 : 0); ++t) {",
+        "phase_ssm"),
+    # a block skips every other turn of the grid-stride loop over chunks
+    "bounce_grid_stride_skip": (
+        _BOUNCE, "c < n_chunks; c += gridDim.x) {",
+        "c < n_chunks; c += 2 * gridDim.x) {", "phase_bounce"),
+}
+
+
+def run(name: str) -> bool:
+    src, old, new, phase = FAULTS[name]
+    with tempfile.TemporaryDirectory(prefix=f"fault_{name}_") as tmp:
+        d = pathlib.Path(tmp)
+        shutil.copy(ROOT / "chip_smoke.py", d)
+        shutil.copytree(ROOT / "src", d / "src",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        path = d / "src" / "repro_torch" / src
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: the text to replace is not in {src} "
+                             f"exactly once")
+        path.write_text(text.replace(old, new))
+        r = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke as c; c.phase_build(); c.{phase}()"],
+            cwd=d, capture_output=True, text=True, timeout=900)
+    caught = r.returncode != 0
+    errors = [ln for ln in r.stderr.splitlines() if "Error" in ln]
+    said = errors[-1] if errors else r.stderr.strip()[-300:]
+    print(f"fault {name}: {'caught' if caught else 'MISSED'}: {said[:400]}",
+          flush=True)
+    return caught
+
+
+def main(argv: list[str]) -> int:
+    names = argv or list(FAULTS)
+    unknown = [n for n in names if n not in FAULTS]
+    if unknown:
+        raise SystemExit(f"unknown faults {unknown}; known: {list(FAULTS)}")
+    missed = [n for n in names if not run(n)]
+    return 1 if missed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
