@@ -13,10 +13,15 @@ Phases, one line each; any failure raises and the script exits nonzero:
 1. the dataplane bounce/cost kernel against its plain version: bit
    identity and exact counters over f32/bf16/int32/uint8 payloads with
    NaN and -0.0, ragged / single / whole-chunk sizes, copies 0-3 and
-   small to large delays, and more chunks than the grid has blocks; the
-   same bit identity, then its time against its bound and ``torch.clone``,
-   for the main path's payloads: the 1.21 GB gemma3-1b embedding table, a
-   bf16 (1, 512, 1152) activation and a 64 KB payload;
+   small to large delays; the ring's edges (storage offsets of 1, 4, 8
+   and 15 bytes, sizes at 16 k +- 1 and at the ring tile +- 1, more tiles
+   than the grid has blocks times stages); the delay chain's calibrated
+   slope, which must be at least 1 ns an iteration; the same bit
+   identity, then its time (CUDA events and profiler device time) against
+   its bound and ``torch.clone``, the device time of its delay chain
+   alone, and its host time per call, for the main path's payloads: the
+   1.21 GB gemma3-1b embedding table, a bf16 (1, 512, 1152) activation
+   and a 64 KB payload;
 2. the flash-attention kernel against its plain version at gemma3-1b
    shapes and at hymba-1.5b's (D=64, H=25, KVH=5, window 1024), the
    main path's own prefill lengths, and shapes that cut its 64-row tiles
@@ -27,10 +32,13 @@ Phases, one line each; any failure raises and the script exits nonzero:
    ``F.scaled_dot_product_attention``, and the host time of encoding its
    TMA tensor maps;
 2b. the SSM-scan kernel against its plain version at hymba-1.5b shapes
-   (d_inner 3200, N 16: prefill S = 1, 37, 300, 2048 and the 4-slot
-   decode tick in f32, one bf16 case, a ragged d_inner of 200; f32 bound
-   2e-5 * max(1, |ref|) on outputs of max |ref| >= 1), its time against
-   its byte bound;
+   (d_inner 3200, N 16: prefill S = 1, 16, 31, 37, 300, 2048 and 4096,
+   which cross its chunk plan, state that outlives a chunk (mamba's own
+   dt and A) at S = 300 and 2048, a batch-4 prefill and the 4-slot decode
+   tick in f32, one bf16 case, a ragged d_inner of 200; f32 bound 2e-5 *
+   max(1, |ref|) on outputs of max |ref| >= 1), its time (CUDA events
+   and profiler device time) against its byte bound, and its host time
+   per call at decode;
 3. the serving path at gemma3-1b's full width (26 layers, random weights
    from a seed, bf16 compute) through a ``cord`` dataplane with
    ``emulate_costs``: 8 requests on the continuous engine, the kernels'
@@ -101,6 +109,21 @@ def _wall_ms(fn, n: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _host_us(fn, n: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` over ``n`` calls with no
+    synchronisation between them: what the caller's thread spends to
+    enqueue one call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / n
 
 
 def _bits(t):
@@ -200,9 +223,47 @@ def phase_bounce() -> dict:
     if bk.bounce_copy(x, 0) is not x or bk.mediated_cost(x, 0, 0)[0] is not x:
         raise AssertionError("bounce shortcuts lost")
 
+    # the ring's edges: payloads at storage offsets of 0-15 bytes (an
+    # unaligned head and tail, or, past offset 0, x and out disagreeing
+    # modulo 16), sizes at 16 k +- 1, at the ring tile +- 1 (the smallest
+    # tile, and the largest over every SM) and more tiles than the grid
+    # has blocks times stages; bits and counters exact
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    big = sms * bk.RING_TILE_MAX
+    sizes = [16 * k + d for k in (1, 7, 1000) for d in (-1, 1)]
+    sizes += [t + d for t in (bk.RING_TILE_MIN, big) for d in (-1, 1)]
+    sizes += [2 * big * bk.RING_STAGES + 37]
+    n_ring = 0
+    for nbytes in sizes:
+        base = torch.randint(0, 256, (nbytes + 16,), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        for off in (0, 1, 4, 8, 15):
+            x = base[off:off + nbytes]
+            for copies, delay in ((1, 0), (2, 37), (0, 5)):
+                got, gctr = bk.mediated_cost(x, delay, copies)
+                want, wctr = bk.mediated_cost_plain(x, delay, copies)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(gctr, wctr)):
+                    tile, n_tiles, grid = bk.ring_plan(nbytes, sms, off)
+                    raise AssertionError(
+                        f"bounce ring case differs: {nbytes} bytes at offset "
+                        f"{off}, copies={copies} delay={delay} (tile {tile}, "
+                        f"{n_tiles} tiles, grid {grid})")
+                n_ring += 1
+        del base, x, got, want
+    tile, n_tiles, grid = bk.ring_plan(sizes[-1], sms)
+    if n_tiles <= grid * bk.RING_STAGES:
+        raise AssertionError("no ring case has more tiles than grid x stages")
+
     ns = tech.calibrate(device=dev)
+    if ns < 1.0:
+        # one fma's latency alone is 4 cycles, about 2 ns: a slope below
+        # 1 ns means the chain was cut or deleted
+        raise AssertionError(f"delay chain slope {ns:.4f} ns/iteration < 1: "
+                             f"the chain does not run in full")
     iters = tech.iters_for_ns(400.0, device=dev)      # cord's syscall cost
-    res = {"cases": n_cases, "ns_per_iter": ns, "syscall_iters": iters}
+    res = {"cases": n_cases, "ring_cases": n_ring, "ns_per_iter": ns,
+           "syscall_iters": iters, "sms": sms}
     # the payloads the main path sends through a cord edge: the f32
     # embedding table (36,864 chunks), a bf16 prefill activation, and a
     # small one; each held bit for bit against the plain version
@@ -223,22 +284,45 @@ def phase_bounce() -> dict:
         worst = max(worst, err)
         del got, want
         nbytes = x.numel() * x.element_size()
-        ms = _cuda_ms(lambda: bk.mediated_cost(x, iters, 0), n=10)
-        lib = _cuda_ms(lambda: torch.clone(x), n=10)
+        call = lambda: bk.mediated_cost(x, iters, 0)  # noqa: E731
+        clone = lambda: torch.clone(x)                # noqa: E731
+        ms = _cuda_ms(call, n=10)
+        lib = _cuda_ms(clone, n=10)
+        dev_ms = _device_ms(call, n=10)
+        lib_dev = _device_ms(clone, n=10)
         plain = _wall_ms(lambda: bk.mediated_cost_plain(x, iters, 0), n=2)
         bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
-        res[label] = {"bytes": nbytes, "chunks": int(gctr.shape[0]),
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": lib, "bound_ms": bound}
-        _line(f"  bounce {label}: bit-exact over {gctr.shape[0]} chunks "
-              f"(max |err| {err}), {ms:.4f} ms (bound {bound:.4f} ms, "
-              f"{bound / ms:.1%} of HBM roofline), torch.clone {lib:.4f} ms, "
-              f"plain {plain:.2f} ms")
+        chunks = int(gctr.shape[0])
+        # the same chain alone: a 256-element payload, one chunk, at this
+        # payload's total iterations
+        chain = torch.zeros(256, device=dev)
+        total_iters = chunks * -(-iters // chunks)
+        chain_dev = _device_ms(lambda: bk.mediated_cost(chain, total_iters, 0),
+                               n=10)
+        row = {"bytes": nbytes, "chunks": chunks, "max_abs_err": err,
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+               "library_ms": lib, "library_device_ms": lib_dev,
+               "bound_ms": bound, "chain_iters": total_iters,
+               "chain_device_ms": chain_dev,
+               "tile_plan": list(bk.ring_plan(nbytes, sms))}
+        if label != "table_1.21GB":
+            row["host_us"] = _host_us(call)
+            row["library_host_us"] = _host_us(clone)
+        res[label] = row
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f} ms"  # noqa: E731
+        _line(f"  bounce {label}: bit-exact over {chunks} chunks "
+              f"(max |err| {err}), {ms:.4f} ms, device {fmt(dev_ms)} (bound "
+              f"{bound:.4f} ms), torch.clone {lib:.4f} ms, device "
+              f"{fmt(lib_dev)}; chain alone ({total_iters} iters) device "
+              f"{fmt(chain_dev)}; plain {plain:.2f} ms"
+              + (f"; host {row['host_us']:.2f} us/call, clone "
+                 f"{row['library_host_us']:.2f} us/call"
+                 if "host_us" in row else ""))
         del x
     res["max_abs_err"] = worst
-    _line(f"phase 1 bounce ok: {n_cases} cases and 3 main-path payloads "
-          f"bit-exact, counters exact; calibrated {ns:.4f} ns/iter "
-          f"({iters} iters per 400 ns syscall)")
+    _line(f"phase 1 bounce ok: {n_cases} cases, {n_ring} ring-edge cases and "
+          f"3 main-path payloads bit-exact, counters exact; calibrated "
+          f"{ns:.4f} ns/iter ({iters} iters per 400 ns syscall)")
     return res
 
 
@@ -254,21 +338,34 @@ def _pairs(sq: int, skv: int, window: int, valid: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _device_ms(fn, n: int = 20):
+def _device_ms(fn, n: int = 20, tries: int = 3):
     """Device time per call of ``fn``: the card's kernel time that
-    torch.profiler records over ``n`` calls, over ``n``; None when the
-    profiler saw no device activity."""
+    torch.profiler records over ``n`` calls, over ``n``.  The profiler
+    sometimes loses kernel events, so a capture counts only when it holds
+    every kernel of a one-call capture exactly ``n`` times as often; up to
+    ``tries`` pairs of captures are made.  None when none was whole."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def capture(calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        return events, {e.key: e.count for e in events
+                        if e.device_type == DeviceType.CUDA}
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = _kernel_us(prof.key_averages())
-    return total / 1e3 / n if total > 0 else None
+    for _ in range(tries):
+        _, once = capture(1)
+        events, counts = capture(n)
+        if once and counts == {k: c * n for k, c in once.items()}:
+            return _kernel_us(events) / 1e3 / n
+    return None
 
 
 def _kernel_us(events) -> float:
@@ -400,20 +497,30 @@ def phase_flash() -> dict:
 # phase 2b: mamba selective scan
 # ---------------------------------------------------------------------------
 
-def _ssm_inputs(gen, shape, dtype):
+def _ssm_inputs(gen, shape, dtype, long_memory: bool = False):
     """dt, x, a, b, c, h0 on the card as tests/test_kernels.py makes them,
     with a nonzero h0: dt = softplus(N(0, 1)) and A = -exp(0.3 N(0, 1))
     decay h by about e^-1 a step, so y is O(1) and both h0 and every step
-    move it by O(1).  dt and x in ``dtype``; b and c are rounded to it and
-    kept in f32, as the kernel takes them."""
+    move it by O(1).  ``long_memory`` takes mamba's own initialisation
+    instead, dt log-uniform in [1e-3, 1e-1] and A = -(1..N) on every
+    channel: the state then lasts tens to hundreds of steps, across the
+    kernel's time chunks, so an error in the carry between chunks shows.
+    dt and x in ``dtype``; b and c are rounded to it and kept in f32, as
+    the kernel takes them."""
     import torch
     import torch.nn.functional as F
     bsz, s, di, n = shape
     dev = torch.device("cuda")
     rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
-    dt = F.softplus(rnd(bsz, s, di)).to(dtype)
+    if long_memory:
+        u = torch.rand(bsz, s, di, generator=gen, device=dev)
+        dt = torch.exp(math.log(1e-3) + u * math.log(100.0)).to(dtype)
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(di, n).contiguous()
+    else:
+        dt = F.softplus(rnd(bsz, s, di)).to(dtype)
+        a = -torch.exp(rnd(di, n) * 0.3)
     x = rnd(bsz, s, di).to(dtype)
-    a = -torch.exp(rnd(di, n) * 0.3)
     b = rnd(bsz, s, n).to(dtype).float()
     c = rnd(bsz, s, n).to(dtype).float()
     h0 = rnd(bsz, di, n)
@@ -440,14 +547,23 @@ def phase_ssm() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     di, n = 3200, 16                   # hymba-1.5b: d_inner, state size
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # prefill lengths that cross the chunk plan: one chunk (1, 16, 31),
+    # two (37), a ragged last chunk (300: 18 chunks of 17, the last 11),
+    # long sequences (2048, 4096), state that outlives a chunk, a batch of
+    # 4, and the 4-slot decode tick
     cases = [("prefill", (1, s, di, n), torch.float32)
-             for s in (1, 37, 300, 2048)]
-    cases += [("decode", (4, 1, di, n), torch.float32),
+             for s in (1, 16, 31, 37, 300, 2048, 4096)]
+    cases += [("prefill_long_memory", (1, s, di, n), torch.float32)
+              for s in (300, 2048)]
+    cases += [("prefill_b4", (4, 300, di, n), torch.float32),
+              ("decode", (4, 1, di, n), torch.float32),
               ("prefill", (1, 300, di, n), torch.bfloat16),
               ("ragged_di", (2, 37, 200, n), torch.float32)]
     rows, worst = [], 0.0
     for label, shape, dtype in cases:
-        args = _ssm_inputs(gen, shape, dtype)
+        args = _ssm_inputs(gen, shape, dtype,
+                           long_memory=label == "prefill_long_memory")
         y, hf = ssm.ssm_scan(*args)
         yp, hp = ssm.ssm_scan_plain(*args)
         torch.cuda.synchronize()
@@ -464,27 +580,39 @@ def phase_ssm() -> dict:
         ok = (bool((err_y <= lim_y).all()) and bool((err_h <= lim_h).all())
               and math.isfinite(err_y.max().item()) and ref_max >= 1.0)
         err = max(err_y.max().item(), err_h.max().item())
+        bsz, s, d_in, _ = shape
+        chunk_len, n_chunks = ssm.chunk_plan(bsz, s, d_in, sms)
         if not ok:
             raise AssertionError(
                 f"ssm_scan {label} {tuple(shape)} {dtype}: y error "
                 f"{err_y.max().item()}, h_final error {err_h.max().item()} "
                 f"above 2e-5 * max(1, |ref|) (bf16: + one ulp), or reference "
-                f"max |y| {ref_max} < 1")
+                f"max |y| {ref_max} < 1 ({n_chunks} chunks of {chunk_len})")
         if dtype == torch.float32:
             worst = max(worst, err)
         nbytes, flops, bound, bound_by = _ssm_bound(shape, y.element_size())
-        ms = _cuda_ms(lambda: ssm.ssm_scan(*args), n=20)
+        call = lambda: ssm.ssm_scan(*args)  # noqa: E731
+        ms = _cuda_ms(call, n=20)
+        dev_ms = _device_ms(call, n=20)
         plain = _cuda_ms(lambda: ssm.ssm_scan_plain(*args), n=2, warmup=1)
         row = {"label": label, "shape": list(shape),
                "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-               "ref_max_abs": ref_max, "ms": ms, "plain_ms": plain,
+               "ref_max_abs": ref_max, "chunk_len": chunk_len,
+               "n_chunks": n_chunks, "cuda_launches": 1 if n_chunks == 1 else 3,
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                "library_ms": None, "bytes": nbytes, "flops": flops,
                "bound_ms": bound, "bound_by": bound_by}
+        if label == "decode":
+            row["host_us"] = _host_us(call)
         rows.append(row)
+        share = "" if dev_ms is None else f", {bound / dev_ms:.1%} of bound"
+        dev_txt = "n/a" if dev_ms is None else f"{dev_ms:.4f} ms"
         _line(f"  ssm_scan {label} {tuple(shape)} {row['dtype']}: err "
-              f"{err:.3g} (max |ref| {ref_max:.2f}), {ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({bound_by}, {bound / ms:.1%}), plain "
-              f"{plain:.3f} ms")
+              f"{err:.3g} (max |ref| {ref_max:.2f}), {n_chunks} chunks of "
+              f"{chunk_len}, {ms:.4f} ms, device {dev_txt}, bound "
+              f"{bound:.4f} ms ({bound_by}{share}), plain {plain:.3f} ms"
+              + (f"; host {row['host_us']:.2f} us/call"
+                 if "host_us" in row else ""))
     _line(f"phase 2b ssm_scan ok: {len(rows)} cases, worst f32 error "
           f"{worst:.3g} (limit 2e-5 * max(1, |ref|))")
     return {"cases": rows, "worst_f32_err": worst}
@@ -735,7 +863,8 @@ def profile_serve(model, params, dataplane, prompts) -> dict:
         by_cpu = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:15]
         ours = [(e.key, e.count, e.self_device_time_total / 1e3) for e in ev
                 if any(k in e.key for k in ("bounce_kernel", "flash_fwd",
-                                            "ssm_scan_kernel"))]
+                                            "ssm_scan_kernel",
+                                            "ssm_chunk_state", "ssm_carry"))]
         out[name] = {
             "wall_ms": wall, "device_ms": dev_total,
             "device_idle_share": max(0.0, 1 - dev_total / wall),
@@ -809,9 +938,11 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/dataplane/bounce.py:76",
          "launches": main_path_launches("bounce"),
          "max_abs_err": bounce["max_abs_err"],
-         "ms": table["ms"], "plain_ms": table["plain_ms"],
+         "ms": table["ms"], "device_ms": table["device_ms"],
+         "plain_ms": table["plain_ms"],
          "bound_ms": table["bound_ms"], "bound_by": "bytes",
-         "library_ms": table["library_ms"]},
+         "library_ms": table["library_ms"],
+         "library_device_ms": table["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
@@ -829,6 +960,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:30",
          "launches": main_path_launches("ssm_scan"),
          "max_abs_err": ssm["worst_f32_err"], "ms": main_ssm["ms"],
+         "device_ms": main_ssm["device_ms"],
          "plain_ms": main_ssm["plain_ms"], "bound_ms": main_ssm["bound_ms"],
          "bound_by": main_ssm["bound_by"], "library_ms": None},
     ]

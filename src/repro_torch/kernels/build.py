@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 
@@ -118,6 +120,27 @@ def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     return fn
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_SMS: dict[int, int] = {}     # device index -> SM count
+
+
+def sm_count(device: int) -> int:
+    """The number of SMs of card ``device``, queried once."""
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def raw_stream(device: int) -> int:
+    """The handle of PyTorch's current stream on card ``device``, without
+    building a ``torch.cuda.Stream`` object."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
@@ -125,4 +148,4 @@ def check(err: int, what: str) -> None:
 
 
 __all__ = ["BUILD_DIR", "SOURCES", "KernelBuildError", "build_all", "load",
-           "function", "library_path", "check"]
+           "function", "library_path", "check", "raw_stream", "sm_count"]

@@ -4,14 +4,21 @@ One CUDA kernel (``csrc/bounce.cu``, the Hopper port of the Pallas
 ``_bounce_kernel``) serves both entry points:
 
 * :func:`bounce_copy` — the zero-copy-removed bounce-buffer copy: the
-  payload goes through a shared-memory bounce buffer chunk by chunk, with
-  ``copies - 1`` extra round trips per chunk.
+  payload goes through shared memory (the bounce buffer) and out again,
+  with ``copies - 1`` extra round trips through a second shared region.
 * :func:`mediated_cost` — the fused-mediation cost kernel: the same copy
-  path plus a serial delay burned inside the kernel, with per-chunk cost
-  counters ``(n_chunks, 2)`` int32 (``COST_ITERS``, ``COST_COPIES``).
+  plus a serial delay chain burned inside the kernel after the copy, with
+  per-chunk cost counters ``(n_chunks, 2)`` int32 (``COST_ITERS``,
+  ``COST_COPIES``) over the TPU kernel's 8192-element chunks.
 
-Both are bit-identical to their input: the payload is only ever moved,
-never computed on.
+The kernel moves the payload through a ring in shared memory: a
+persistent grid of at most one block per SM, sized to the payload
+(:func:`ring_plan`), each block walking its tiles through
+``RING_STAGES`` stages with ``cp.async.bulk`` loads and stores behind
+full/empty mbarriers.  Unaligned head and tail bytes, and payloads whose
+address disagrees with the output's modulo 16, are copied with ordinary
+loads and stores inside the kernel.  Outputs are bit-identical to their
+input: the payload is only ever moved, never computed on.
 
 A wrapper given a CPU tensor runs the kernel's plain version (roll /
 roll-back copies as in ``core/techniques.staged_copy``, the delay chain on
@@ -22,6 +29,7 @@ launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,7 +46,13 @@ NUM_COST_COLS = 2
 # kernel launches since the count was last set to 0
 LAUNCHES = 0
 
+# the kernel's ring (csrc/bounce.cu): stages per block, tile bytes
+RING_STAGES = 4
+RING_TILE_MAX = 32768
+RING_TILE_MIN = 2048
 
+
+@functools.lru_cache(maxsize=4096)
 def _split(n: int, delay_iters: int, chunk_elems: int) -> tuple[int, int, int]:
     """(chunk, n_chunks, iters_per_chunk) — the TPU kernel's split: the
     total delay divided evenly over the chunks, rounded up."""
@@ -62,34 +76,69 @@ def _plain(x: torch.Tensor, copies: int, delay_iters: int,
     return out, ctrs
 
 
-# x, out, ctrs; n_bytes, chunk_bytes, n_chunks; copies, iters_per_chunk;
+def ring_plan(n_bytes: int, sms: int, x_offset: int = 0
+              ) -> tuple[int, int, int]:
+    """``(tile, n_tiles, grid)`` of the kernel's ring for a payload of
+    ``n_bytes`` at ``x_offset`` bytes past a 16-byte boundary, written to
+    an aligned output on a card of ``sms`` SMs — ``make_plan`` in
+    ``csrc/bounce.cu``, mirrored.  The body between the unaligned head
+    and tail is cut evenly over the SMs into tiles of 2-32 KB (multiples
+    of 16 bytes); the grid is one block per tile, at most one per SM."""
+    head = min((16 - x_offset % 16) % 16, n_bytes)
+    body = (n_bytes - head) & ~15
+    per = -(-body // sms)
+    per = (per + 15) & ~15
+    tile = min(max(per, RING_TILE_MIN), RING_TILE_MAX)
+    n_tiles = -(-body // tile)
+    return tile, n_tiles, max(1, min(n_tiles, sms))
+
+
+# x, out, ctrs; n_bytes, n_chunks; copies, iters_per_chunk; device, sms;
 # stream
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + \
-    [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + \
+    [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p]
+_FN = None
+
+
+def _bind():
+    """The launch function, built and bound on first use."""
+    global _FN
+    _FN = build.function("bounce", "bounce_launch", _ARGTYPES)
+    return _FN
+
+
+@functools.lru_cache(maxsize=256)
+def _counter_like(dev: int, n_chunks: int) -> torch.Tensor:
+    """A held ``(n_chunks, 2)`` int32 tensor on card ``dev`` whose
+    ``empty_like`` is the cheapest way to allocate the counters."""
+    return torch.empty((n_chunks, NUM_COST_COLS), dtype=torch.int32,
+                       device=dev)
 
 
 def _kernel(x: torch.Tensor, copies: int, delay_iters: int,
             chunk_elems: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/bounce.cu`` on a CUDA tensor."""
+    """Launch ``csrc/bounce.cu`` on a CUDA tensor: one output and one
+    counter allocation, no device query after the first call."""
     global LAUNCHES
     if not x.is_contiguous():
         raise ValueError("bounce kernel needs a contiguous tensor")
-    chunk, n_chunks, ipc = _split(x.numel(), delay_iters, chunk_elems)
-    es = x.element_size()
+    _, n_chunks, ipc = _split(x.numel(), delay_iters, chunk_elems)
+    dev = x.get_device()
     out = torch.empty_like(x)
-    ctrs = torch.empty((n_chunks, NUM_COST_COLS), dtype=torch.int32,
-                       device=x.device)
-    fn = build.function("bounce", "bounce_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), ctrs.data_ptr(),
-             x.numel() * es, chunk * es, n_chunks, int(copies), ipc, stream)
-    build.check(err, "bounce_launch")
+    ctrs = torch.empty_like(_counter_like(dev, n_chunks))
+    err = (_FN or _bind())(x.data_ptr(), out.data_ptr(), ctrs.data_ptr(),
+                           x.nbytes, n_chunks, copies, ipc, dev,
+                           build.sm_count(dev),
+                           build.raw_stream(dev))
+    if err:
+        build.check(err, "bounce_launch")
     LAUNCHES += 1
     return out, ctrs
 
 
 def _launch(x, *, copies: int, delay_iters: int, chunk_elems: int):
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return _kernel(x, int(copies), int(delay_iters), int(chunk_elems))
     if x.device.type != "cpu":
         raise ValueError(f"no dataplane kernel for device {x.device}")
@@ -142,5 +191,5 @@ def mediated_cost_plain(x: torch.Tensor, delay_iters: int, copies: int = 0,
 
 
 __all__ = ["bounce_copy", "mediated_cost", "mediated_cost_plain",
-           "kernel_cost_totals", "DEFAULT_CHUNK_ELEMS",
+           "kernel_cost_totals", "ring_plan", "DEFAULT_CHUNK_ELEMS",
            "COST_ITERS", "COST_COPIES", "NUM_COST_COLS", "LAUNCHES"]

@@ -3,12 +3,17 @@
 Given CUDA tensors it launches the Hopper kernel (or raises); given CPU
 tensors it runs the plain version, ``ref.ssm_scan_ref``.  Unlike
 ``repro``'s wrapper it pads nothing: the kernel takes any sequence
-length.  ``LAUNCHES`` counts kernel launches.
+length.  The kernel scans time chunks in parallel and carries the state
+between them (:func:`chunk_plan` cuts the sequence); ``ref.py`` mirrors
+that algorithm in plain torch for the tests.  ``LAUNCHES`` counts calls
+that launched the kernel: one CUDA launch for a one-chunk scan (decode,
+short prompts), three for a chunked one (chunk states, carry, scan).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,11 +23,39 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 STATE_SIZES = (1, 2, 4, 8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the count was last set to 0
+# kernel calls since the count was last set to 0
 LAUNCHES = 0
 
-# dt, x, a, b, c, h0, y, hf; dtype, B, S, di, N, chunk; stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+CHANNELS_PER_BLOCK = 128   # one thread per channel (csrc/ssm_scan.cu)
+MIN_CHUNK_STEPS = 16       # shorter sequences keep one chunk
+BLOCKS_PER_SM = 4          # the chunk count aims at this many blocks a SM
+DEFAULT_SMS = 132          # H100 SXM
+
+# dt, x, a, b, c, h0, y, hf, agg; dtype, B, S, di, N, chunk_len,
+# n_chunks, tile; stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_FN = None
+F32 = torch.float32
+
+
+@functools.lru_cache(maxsize=1024)
+def chunk_plan(bsz: int, s: int, di: int, sms: int = DEFAULT_SMS,
+               n_chunks: int | None = None) -> tuple[int, int]:
+    """``(chunk_len, n_chunks)``: the kernel's cut of ``s`` time steps into
+    chunks scanned in parallel.  Without ``n_chunks`` it asks for enough
+    chunks that the grid (``bsz * ceil(di / 128)`` blocks a chunk) fills
+    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, with no chunk shorter
+    than ``MIN_CHUNK_STEPS`` steps, so decode and short prompts keep one
+    chunk.  Every chunk has ``chunk_len`` steps but the last, which has
+    1..chunk_len: the chunks cover ``s`` exactly and none is empty (a
+    requested count is lowered where it would leave one empty)."""
+    if n_chunks is None:
+        blocks = bsz * -(-di // CHANNELS_PER_BLOCK)
+        n_chunks = min(-(-sms * BLOCKS_PER_SM // blocks),
+                       s // MIN_CHUNK_STEPS)
+    n_chunks = max(1, min(n_chunks, s))
+    chunk_len = -(-s // n_chunks)
+    return chunk_len, -(-s // chunk_len)
 
 
 def ssm_scan_plain(dt, x, a, b, c, h0):
@@ -32,7 +65,32 @@ def ssm_scan_plain(dt, x, a, b, c, h0):
     return y.to(dt.dtype), hf
 
 
-def _check(dt, x, a, b, c, h0) -> None:
+def _check(dt, x, a, b, c, h0) -> int:
+    """Raise ``ValueError`` on inputs the kernel does not take; return the
+    inputs' device index.  One pass of cheap tests on the common path; the
+    tests that name the fault run only when that pass fails."""
+    shp = dt.shape
+    dev = dt.get_device()
+    if len(shp) == 3:
+        bsz, s, di = shp
+        n = a.shape[-1]
+        if (x.shape == shp and a.shape == (di, n) and b.shape == (bsz, s, n)
+                and c.shape == b.shape and h0.shape == (bsz, di, n)
+                and n in STATE_SIZES and dt.dtype in _DTYPES
+                and x.dtype == dt.dtype and a.dtype == F32
+                and b.dtype == F32 and c.dtype == F32 and h0.dtype == F32
+                and dt.is_contiguous() and x.is_contiguous()
+                and a.is_contiguous() and b.is_contiguous()
+                and c.is_contiguous() and h0.is_contiguous()
+                and x.get_device() == dev and a.get_device() == dev
+                and b.get_device() == dev and c.get_device() == dev
+                and h0.get_device() == dev):
+            return dev
+    _explain(dt, x, a, b, c, h0)
+    return dev
+
+
+def _explain(dt, x, a, b, c, h0) -> None:
     if dt.dim() != 3 or x.shape != dt.shape:
         raise ValueError(f"ssm_scan wants dt/x (B, S, di); got "
                          f"{tuple(dt.shape)}, {tuple(x.shape)}")
@@ -50,7 +108,7 @@ def _check(dt, x, a, b, c, h0) -> None:
         raise ValueError(f"ssm_scan kernel takes float32 or bfloat16 dt/x of "
                          f"one dtype, got {dt.dtype}/{x.dtype}")
     for name, t in (("a", a), ("b", b), ("c", c), ("h0", h0)):
-        if t.dtype != torch.float32:
+        if t.dtype != F32:
             raise ValueError(f"ssm_scan kernel: {name} must be float32, got "
                              f"{t.dtype}")
     for name, t in (("dt", dt), ("x", x), ("a", a), ("b", b), ("c", c),
@@ -61,19 +119,32 @@ def _check(dt, x, a, b, c, h0) -> None:
             raise ValueError("ssm_scan: inputs on different devices")
 
 
+def _bind():
+    """The launch function, built and bound on first use."""
+    global _FN
+    _FN = build.function("ssm_scan", "ssm_scan_launch", _ARGTYPES)
+    return _FN
+
+
 def _kernel(dt, x, a, b, c, h0, chunk: int):
     global LAUNCHES
-    _check(dt, x, a, b, c, h0)
+    dev = _check(dt, x, a, b, c, h0)
     bsz, s, di = dt.shape
     n = a.shape[1]
+    chunk_len, n_chunks = chunk_plan(bsz, s, di, build.sm_count(dev))
     y = torch.empty_like(dt)
     hf = torch.empty_like(h0)
-    fn = build.function("ssm_scan", "ssm_scan_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(dt.device).cuda_stream
-    err = fn(dt.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(),
-             c.data_ptr(), h0.data_ptr(), y.data_ptr(), hf.data_ptr(),
-             _DTYPES[dt.dtype], bsz, s, di, n, int(chunk), stream)
-    build.check(err, "ssm_scan_launch")
+    agg = None
+    if n_chunks > 1:     # chunk end states and decays
+        agg = dt.new_empty((2 * bsz * (n_chunks - 1) * di * n,), dtype=F32)
+    err = (_FN or _bind())(
+        dt.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), h0.data_ptr(), y.data_ptr(), hf.data_ptr(),
+        agg.data_ptr() if agg is not None else None,
+        _DTYPES[dt.dtype], bsz, s, di, n, chunk_len, n_chunks, chunk,
+        build.raw_stream(dev))
+    if err:
+        build.check(err, "ssm_scan_launch")
     LAUNCHES += 1
     return y, hf
 
@@ -85,22 +156,24 @@ def ssm_scan(dt, x, a, b, c, h0=None, *, chunk: int = 128,
     float32 for the kernel.  Returns (y (B, S, di) in dt's dtype,
     h_final (B, di, N) float32).
 
-    ``chunk`` caps the time steps the kernel stages in shared memory at
-    once (the Pallas kernel's time block).  ``channel_block`` is the
-    Pallas kernel's channel block, kept for the signature: the Hopper
-    kernel's channel tile is one thread per (channel, n), 256 // N
-    channels per block."""
+    ``chunk`` is the Pallas kernel's time block; on the Hopper kernel it
+    caps the time steps staged in shared memory at once (at most 16).
+    The time chunks that the Hopper kernel scans in parallel are its own
+    (:func:`chunk_plan`), not ``chunk``.  ``channel_block`` is the Pallas
+    kernel's channel block, kept for the signature: the Hopper kernel
+    runs one thread per channel, 128 channels per block."""
     if chunk < 1 or channel_block < 1:
         raise ValueError(f"ssm_scan: chunk and channel_block must be >= 1, "
                          f"got {chunk}, {channel_block}")
     if h0 is None:
         h0 = torch.zeros((dt.shape[0], dt.shape[2], a.shape[1]),
                          dtype=torch.float32, device=dt.device)
-    if dt.device.type == "cuda":
+    if dt.is_cuda:
         return _kernel(dt, x, a, b, c, h0, chunk)
     if dt.device.type != "cpu":
         raise ValueError(f"no ssm_scan kernel for device {dt.device}")
     return ssm_scan_plain(dt, x, a, b, c, h0)
 
 
-__all__ = ["ssm_scan", "ssm_scan_plain", "STATE_SIZES", "LAUNCHES"]
+__all__ = ["ssm_scan", "ssm_scan_plain", "chunk_plan", "STATE_SIZES",
+           "LAUNCHES"]

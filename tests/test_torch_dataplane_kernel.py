@@ -145,3 +145,55 @@ def test_kernel_matches_plain_on_card(dtype):
         torch.cuda.synchronize()
         np.testing.assert_array_equal(bits(got), bits(want))
         np.testing.assert_array_equal(gctr.cpu().numpy(), wctr.cpu().numpy())
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_ring_plan_covers_payload(sms):
+    """The kernel's tiles (``bounce.ring_plan``, mirroring ``make_plan`` in
+    csrc/bounce.cu) are 16-byte multiples of 2-32 KB that cover the
+    aligned body exactly, over a grid of at most one block per SM and per
+    tile."""
+    from repro_torch.kernels.dataplane import bounce as tb
+    sizes = [0, 1, 15, 16, 17, 2047, 2048, 2049, 65536, 1 << 20,
+             132 * 32768 - 1, 132 * 32768, 132 * 32768 + 1, 1_207_959_552]
+    for n in sizes:
+        for off in (0, 1, 4, 8, 15):
+            tile, n_tiles, grid = tb.ring_plan(n, sms, off)
+            head = min((16 - off) % 16, n)
+            body = (n - head) // 16 * 16
+            assert tile % 16 == 0
+            assert tb.RING_TILE_MIN <= tile <= tb.RING_TILE_MAX
+            assert (n_tiles - 1) * tile < body <= n_tiles * tile or \
+                body == n_tiles == 0
+            assert 1 <= grid <= max(1, min(n_tiles, sms))
+    # the gemma3-1b f32 table: 32 KB tiles, every SM busy, a ring of more
+    # turns than stages
+    tile, n_tiles, grid = tb.ring_plan(262_144 * 1152 * 4, 132)
+    assert (tile, grid) == (tb.RING_TILE_MAX, 132)
+    assert n_tiles > grid * tb.RING_STAGES
+    # a 9 KB decode activation wakes a few blocks, not the card
+    assert tb.ring_plan(9216, 132)[2] <= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 4, 8, 15])
+@pytest.mark.parametrize("copies,delay", [(1, 0), (2, 37), (0, 5)])
+def test_misaligned_payload_matches_plain_on_card(offset, copies, delay):
+    """A view at a storage offset of 1-15 bytes: the unaligned head and
+    tail, or (x and out disagreeing modulo 16) the whole payload, take
+    the kernel's ordinary path; bits and counters stay exact."""
+    dev = cuda_device()
+    base = torch.randint(0, 256, (132 * 32768 + 77,), dtype=torch.uint8,
+                         device=dev)
+    for n in (5, 16 * 7 + 1, 32768 - 1, 132 * 32768 + 1):
+        x = base[offset:offset + n]
+        got, gctr = tdk.mediated_cost(x, delay, copies)
+        want, wctr = tdk.mediated_cost_plain(x, delay, copies)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(bits(got), bits(want))
+        np.testing.assert_array_equal(gctr.cpu().numpy(), wctr.cpu().numpy())
+        if offset % 4 == 0:
+            xf = x[:n // 4 * 4].view(torch.float32)
+            gotf, _ = tdk.mediated_cost(xf, delay, copies)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(bits(gotf), bits(xf))

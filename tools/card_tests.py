@@ -22,7 +22,8 @@ import types
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_dataplane_kernel.py",
-                   "tests/test_torch_ssm_scan.py")
+                   "tests/test_torch_ssm_scan.py",
+                   "tests/test_torch_ssm_chunked.py")
 _STANDING_IN = ("jax", "repro")
 
 

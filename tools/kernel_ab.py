@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Time the bounce and SSM-scan kernels of several checkouts on one card.
+
+    python3 tools/kernel_ab.py ROOT [ROOT ...] [--out results.json]
+
+Each ROOT is a checkout of this repository (its ``src/`` holds
+``repro_torch``).  The roots run one after another, each in a fresh
+process that builds its own kernels into ``ROOT/build/kernels``, so two
+commits are compared on the same card in one call; give them in turns
+(parent, change, change, parent).  For each root it prints, and writes
+to ``--out``, at the main path's shapes:
+
+* bounce (``mediated_cost`` with cord's 400 ns syscall delay, copies 0)
+  and ``torch.clone`` on the 1.21 GB gemma3-1b f32 table, a bf16
+  (1, 512, 1152) activation and a 64 KB payload: CUDA-event ms per call,
+  profiler device ms per call, and host us per call (1,000 calls with no
+  synchronisation between them) for the two small payloads;
+* ssm_scan at hymba-1.5b shapes (d_inner 3200, N 16, f32): prefill
+  S = 300 and 2048 and the 4-slot decode tick: event ms, device ms, and
+  host us per call at decode.
+
+Every number names the card and its power limit.  It needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def worker(root: str) -> dict:
+    """The measurements of one checkout, in this process."""
+    # chip_smoke's timing helpers; it puts this checkout's src on the
+    # path, so the measured root's src goes in front of it afterwards
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import _cuda_ms, _device_ms, _host_us
+    sys.path.insert(0, str(pathlib.Path(root) / "src"))
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import techniques as tech
+    from repro_torch.kernels.dataplane import bounce as bk
+    from repro_torch.kernels.ssm_scan import ops as ssm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    iters = tech.iters_for_ns(400.0, device=dev)
+    out = {"root": root, "ns_per_iter": tech.calibrate(device=dev),
+           "syscall_iters": iters, "bounce": {}, "ssm_scan": {}}
+    for label, shape, dtype in (
+            ("table_1.21GB", (262_144, 1152), torch.float32),
+            ("act_1x512x1152_bf16", (1, 512, 1152), torch.bfloat16),
+            ("64KB", (16_384,), torch.float32)):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        call = lambda: bk.mediated_cost(x, iters, 0)  # noqa: E731
+        clone = lambda: torch.clone(x)                # noqa: E731
+        row = {"ms": _cuda_ms(call, n=20), "device_ms": _device_ms(call),
+               "clone_ms": _cuda_ms(clone, n=20),
+               "clone_device_ms": _device_ms(clone)}
+        if label != "table_1.21GB":
+            row["host_us"] = _host_us(call)
+            row["clone_host_us"] = _host_us(clone)
+        out["bounce"][label] = row
+        del x
+    for label, shape in (("prefill_300", (1, 300, 3200, 16)),
+                         ("prefill_2048", (1, 2048, 3200, 16)),
+                         ("decode", (4, 1, 3200, 16))):
+        bsz, s, di, n = shape
+        rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa
+        args = (F.softplus(rnd(bsz, s, di)), rnd(bsz, s, di),
+                -torch.exp(rnd(di, n) * 0.3), rnd(bsz, s, n), rnd(bsz, s, n),
+                rnd(bsz, di, n))
+        call = lambda: ssm.ssm_scan(*args)  # noqa: E731
+        row = {"ms": _cuda_ms(call, n=20), "device_ms": _device_ms(call)}
+        if label == "decode":
+            row["host_us"] = _host_us(call)
+        out["ssm_scan"][label] = row
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker)), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    runs = []
+    for root in args.roots:
+        r = subprocess.run([sys.executable, __file__, "--worker",
+                            str(pathlib.Path(root).resolve())],
+                           capture_output=True, text=True, timeout=1200)
+        if r.returncode != 0:
+            print(r.stderr[-3000:], file=sys.stderr)
+            return 1
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        runs.append(res)
+        b, s = res["bounce"], res["ssm_scan"]
+        print(f"{root}: slope {res['ns_per_iter']:.4f} ns/iter", flush=True)
+        for label, row in b.items():
+            print(f"  bounce {label}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row.items() if v is not None),
+                flush=True)
+        for label, row in s.items():
+            print(f"  ssm_scan {label}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row.items() if v is not None),
+                flush=True)
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,18 +40,56 @@ FAULTS = {
     "flash_k_desc_swizzle_64b": (
         _FLASH, "desc(sK + off, 16, 1024, kSwizzle128)",
         "desc(sK + off, 16, 1024, 2ull << 62)", "phase_flash"),
-    # the scan starts from h = 0 instead of the carried state h0
-    "ssm_no_h0": (_SSM, "float h = live ? h0[hidx] : 0.f;", "float h = 0.f;",
-                  "phase_ssm"),
+    # the scan starts from h = 0 instead of h0 (chunk 0 of pass 2)
+    "ssm_no_h0": (
+        _SSM, "load_row<N>(h, h0 + (bi * di + ch) * N);\n    } else {",
+        "for (int n = 0; n < N; ++n) h[n] = 0.f;\n    } else {",
+        "phase_ssm"),
     # the scan drops the last time step of the sequence
     "ssm_drop_last_step": (
-        _SSM, "for (int t = 0; t < nt; ++t) {",
-        "for (int t = 0; t < nt - (t0 + nt == S ? 1 : 0); ++t) {",
+        _SSM, "#pragma unroll 2\n    for (int i = 0; i < nt; ++i) {\n"
+        "      const float d = live ? sm.dt[buf][i][tid] : 0.f;\n"
+        "      const float dx = live ? d * sm.x[buf][i][tid] : 0.f;\n"
+        "      float p[4]",
+        "#pragma unroll 2\n"
+        "    for (int i = 0; i < nt - (k == n_chunks - 1 && next >= len);"
+        " ++i) {\n"
+        "      const float d = live ? sm.dt[buf][i][tid] : 0.f;\n"
+        "      const float dx = live ? d * sm.x[buf][i][tid] : 0.f;\n"
+        "      float p[4]", "phase_ssm"),
+    # the carry is dropped: every chunk k > 0 starts from 0
+    "ssm_no_carry": (
+        _SSM, "for (int n = 0; n < N; ++n) h[n] = hin[n * di];",
+        "for (int n = 0; n < N; ++n) h[n] = 0.f;", "phase_ssm"),
+    # a chunk's carried decay leaves out its last step's factor
+    "ssm_decay_one_step_short": (
+        _SSM, "dec[n] *= f;", "if (t0 + i < len - 1) dec[n] *= f;",
         "phase_ssm"),
-    # a block skips every other turn of the grid-stride loop over chunks
+    # each block skips its last turn of the grid-stride walk over tiles
     "bounce_grid_stride_skip": (
-        _BOUNCE, "c < n_chunks; c += gridDim.x) {",
-        "c < n_chunks; c += 2 * gridDim.x) {", "phase_bounce"),
+        _BOUNCE, "(p.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x",
+        "(p.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x - 1",
+        "phase_bounce"),
+    # the producer never loads the ring's last stage: it arrives on the
+    # stage's full barrier with no bytes, so the storer sends stale bytes
+    "bounce_ring_last_stage_unloaded": (
+        _BOUNCE,
+        "        mbar_expect_tx(smem_u32(&full[s]), "
+        "static_cast<uint32_t>(len));\n",
+        "        if (s == kStages - 1) {\n"
+        "          mbar_arrive(smem_u32(&full[s]));\n"
+        "          continue;\n"
+        "        }\n"
+        "        mbar_expect_tx(smem_u32(&full[s]), "
+        "static_cast<uint32_t>(len));\n", "phase_bounce"),
+    # the unaligned tail is copied one byte short
+    "bounce_tail_drops_last_byte": (
+        _BOUNCE, "static_cast<int>(p.tail), copies",
+        "static_cast<int>(p.tail) - 1, copies", "phase_bounce"),
+    # the delay chain runs one iteration: only the slope check sees it
+    "bounce_chain_one_iteration": (
+        _BOUNCE, "for (long long i = 0; i < total; ++i)",
+        "for (long long i = 0; i < 1; ++i)", "phase_bounce"),
 }
 
 
