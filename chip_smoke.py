@@ -29,8 +29,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
    outputs of rms >= 0.3 (valid_len 0: exactly 0), bf16 D=16/32/128, an
    f32 D=16 case (bound 2e-5); its time (CUDA events, and device time
    from torch.profiler) against its bound and
-   ``F.scaled_dot_product_attention``, and the host time of encoding its
-   TMA tensor maps;
+   ``F.scaled_dot_product_attention``, its host time per call (1,000
+   calls, no sync) beside SDPA's, and the host time of encoding its TMA
+   tensor maps;
 2b. the SSM-scan kernel against its plain version at hymba-1.5b shapes
    (d_inner 3200, N 16: prefill S = 1, 16, 31, 37, 300, 2048 and 4096,
    which cross its chunk plan, state that outlives a chunk (mamba's own
@@ -44,6 +45,19 @@ Phases, one line each; any failure raises and the script exits nonzero:
    ``emulate_costs``: 8 requests on the continuous engine, the kernels'
    launch counts on that run, a repeat with identical tokens, and a run
    with ``pallas_dataplane="off"`` with identical tokens;
+3c. the same model served from the paged KV pool (``block_size=16``,
+   ``kv_cache_len=2560``, so 640 blocks) with chunked prefill
+   (``prefill_chunk=512``): phase 3's 8 prompts and two of 1100 and 2000
+   tokens (3 and 4 chunks), in five runs: (a) paged + chunked, (b) the
+   same again and with ``pallas_dataplane="off"``, (c) fixed stripes with
+   whole prefill, (d) a pool of 160 blocks, which cannot hold both long
+   prompts.  Gates: every request gives 16 in-vocab tokens; (a) = (b);
+   each long prompt's last-chunk logits against (c)'s whole prefill at
+   cosine > 0.99; a prefill inserted or chunk-scattered into the pool
+   gathers back bit for bit as the stripe holds it; (d) preempts and
+   restores at least once and returns every block; flash launches 26 per
+   whole prefill and none per chunk, chunk steps number sum(ceil(n /
+   512)), and bounce launches on every chunk step and paged tick;
 4. the same for hymba-1.5b at full width and depth (32 layers), which
    the engine prefills at exact prompt length: flash launches are 32 per
    prefill and ssm_scan launches 32 per prefill and per decode tick.
@@ -407,7 +421,7 @@ def phase_flash() -> dict:
               ("bf16-d32", torch.bfloat16, 4, 2, 32, 200, 8, None, 0.0),
               ("bf16-d16", torch.bfloat16, 4, 1, 16, 200, 8, None, 0.0),
               ("f32", torch.float32, 4, 1, 16, 200, 8, None, 0.0)]
-    rows, worst, map_ns = [], 0.0, None
+    rows, worst, map_ns, host_us, sdpa_host_us = [], 0.0, None, None, None
     for model, dtype, H, KVH, d, s, window, valid, cap in cases:
         # logits of std 3 put each row's weight on a few keys, so every
         # output row is O(1) and a lost or mis-scaled kv tile moves it by
@@ -467,6 +481,8 @@ def phase_flash() -> dict:
         if model == "gemma3-1b" and s == 512 and window == 0 and \
                 valid is None:
             map_ns = fa.tensor_map_ns(q, k, v)
+            host_us = _host_us(call)
+            sdpa_host_us = _host_us(lib_call)
         row = {"model": model, "dtype": str(dtype).replace("torch.", ""),
                "h": H, "kvh": KVH, "d": d, "s": s,
                "window": window, "valid_len": vl, "logit_cap": cap,
@@ -486,11 +502,13 @@ def phase_flash() -> dict:
               f"{fmt(dev_ms)}, bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']}{share}), sdpa {fmt(lib)}, device "
               f"{fmt(lib_dev)}, plain {plain:.3f} ms")
-    _line(f"  flash tensor maps: {map_ns / 1e3:.3f} us of host time per "
-          f"call (3 maps, gemma3 S=512)")
+    _line(f"  flash host time: {host_us:.2f} us per call (1,000 calls, no "
+          f"sync; SDPA {sdpa_host_us:.2f}), {map_ns / 1e3:.3f} us of it "
+          f"encoding the 3 tensor maps (gemma3 S=512)")
     _line(f"phase 2 flash ok: {len(rows)} cases, worst bf16 error "
           f"{worst:.3g} <= {FLASH_BF16_TOL}")
-    return {"cases": rows, "worst_bf16_err": worst, "tensor_map_ns": map_ns}
+    return {"cases": rows, "worst_bf16_err": worst, "tensor_map_ns": map_ns,
+            "host_us": host_us, "library_host_us": sdpa_host_us}
 
 
 # ---------------------------------------------------------------------------
@@ -644,20 +662,40 @@ def _delta(before: dict) -> dict:
 
 
 def _timed_model(model, stats):
-    """The model with prefill / slot decode timed (synchronised) and the
-    kernel launches of each call counted."""
+    """The model with prefill / prefill chunk / slot decode timed
+    (synchronised) and the kernel launches of each call counted.  With a
+    ``"logits"`` dict in ``stats``, the logits that a whole prefill or a
+    prompt's last chunk gives are kept by ``last_pos``."""
     import dataclasses
 
     import torch
+
+    def keep(last_pos, lo, hi, logits):
+        if "logits" in stats and last_pos is not None:
+            last = int(last_pos.reshape(-1)[0])
+            if lo <= last < hi:
+                stats["logits"][last] = logits[0, -1].float().clone()
 
     def prefill(params, batch, cache, **kw):
         torch.cuda.synchronize()
         n0, t0 = _launches(), time.perf_counter()
         out = model.prefill(params, batch, cache, **kw)
         torch.cuda.synchronize()
-        stats["prefill"].append((batch["tokens"].shape[1],
-                                 (time.perf_counter() - t0) * 1e3,
+        s = batch["tokens"].shape[1]
+        stats["prefill"].append((s, (time.perf_counter() - t0) * 1e3,
                                  _delta(n0)))
+        keep(kw.get("last_pos"), 0, s, out[0])
+        return out
+
+    def chunk(params, batch, cache, offset, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = _launches(), time.perf_counter()
+        out = model.prefill_chunk(params, batch, cache, offset, **kw)
+        torch.cuda.synchronize()
+        c = batch["tokens"].shape[1]
+        stats.setdefault("chunk", []).append(
+            (offset, (time.perf_counter() - t0) * 1e3, _delta(n0)))
+        keep(kw.get("last_pos"), offset, offset + c, out[0])
         return out
 
     def decode(params, token, cache, pos, **kw):
@@ -669,8 +707,9 @@ def _timed_model(model, stats):
                                 _delta(n0)))
         return out
 
-    return dataclasses.replace(model, prefill=prefill,
-                               decode_step_slots=decode)
+    return dataclasses.replace(
+        model, prefill=prefill, decode_step_slots=decode,
+        prefill_chunk=chunk if model.prefill_chunk is not None else None)
 
 
 def _per_call(rows, name) -> list[int]:
@@ -831,24 +870,306 @@ def phase_serve(arch: str, phase: str) -> dict:
     return res
 
 
+# phase 3c: the paged KV pool and chunked prefill on gemma3-1b
+LONG_PROMPTS = (1100, 2000)     # 3 and 4 chunks of 512
+CHUNK = 512                     # repro's default ServeConfig.prefill_chunk
+BLOCK = 16
+
+
+def _check_paged_movement(model, params, pool_blocks: int, kv_len: int):
+    """Gate 4: the pool helpers move a prefill's cache exactly.  One whole
+    prefill (300 tokens, cover 512) is inserted and one chunked prefill
+    (2000 tokens, 4 chunks) is scattered chunk by chunk into a pool of the
+    paged run's geometry, at block ids scattered by earlier frees; the
+    gathered rows [0:eff] of each slot must equal, bit for bit, the stripe
+    rows that the fixed path's slot insert writes from the same prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.layers import kvcache as kv
+
+    spec = model.init_cache(1, BLOCK)
+    layers, _, _, kvh, hd = spec["k"].shape
+    pool = kv.kv_pool_init(layers, pool_blocks, BLOCK, kvh, hd,
+                           dtype=spec["k"].dtype, device="cuda")
+    stripe = model.init_cache(4, kv_len)
+    alloc = kv.BlockAllocator(pool_blocks)
+    held = [alloc.alloc(n) for n in (7, 50, 3, 90)]
+    alloc.free(held[1])
+    alloc.free(held[3])
+    tables = np.zeros((4, pool_blocks), np.int32)
+    gen = np.random.default_rng(5)
+    rows = 0
+    for slot, (n, chunked) in ((2, (300, False)), (1, (2000, True))):
+        cover = -(-n // CHUNK) * CHUNK if chunked else 512
+        ids = alloc.alloc(cover // BLOCK)
+        tables[slot, :len(ids)] = ids
+        toks = torch.zeros((1, cover), dtype=torch.long, device="cuda")
+        toks[0, :n] = torch.as_tensor(gen.integers(0, model.cfg.vocab_size,
+                                                   n), device="cuda")
+        pc = model.init_cache(1, cover)
+        last = torch.tensor([n - 1], device="cuda")
+        if chunked:
+            for off in range(0, cover, CHUNK):
+                _, pc = model.prefill_chunk(
+                    params, {"tokens": toks[:, off:off + CHUNK]}, pc, off,
+                    last_pos=last)
+                kv.kv_pool_scatter_chunk(pool, pc, tables[slot], off, CHUNK,
+                                         BLOCK)
+        else:
+            _, pc = model.prefill(params, {"tokens": toks}, pc,
+                                  last_pos=last)
+            kv.kv_pool_insert(pool, pc, ids, BLOCK)
+        kv.state_slot_insert(stripe, pc, slot)
+        dense = kv.kv_pool_gather(pool, tables, BLOCK)
+        for name in ("k", "v"):
+            got = dense[name][:, slot, :n]
+            want = stripe[name][:, slot, :n]
+            if not torch.equal(_bits(got), _bits(want)):
+                raise AssertionError(f"paged {name} rows of the {n}-token "
+                                     f"prefill differ from the stripe's")
+        rows += n
+        del dense, pc
+    if pool["k"][:, 0].any() or pool["v"][:, 0].any():
+        raise AssertionError("the null block was written")
+    return rows
+
+
+def phase_serve_paged(model, params, dataplane, prompts8) -> dict:
+    """Serve gemma3-1b at full width from the paged KV pool with chunked
+    prefill through a cord dataplane, and hold every gate; see the module
+    docstring."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    longs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in LONG_PROMPTS]
+    # the long prompts between phase 3's: under the pressure run's pool
+    # the 2000-token prompt's chunked prefill forces a preemption
+    prompts = [prompts8[0], longs[0], prompts8[1], longs[1], *prompts8[2:]]
+    short = {0, 2, 4, 5, 6, 7, 8, 9}                  # rids of phase 3's 8
+    base = dict(max_batch=4, kv_cache_len=2560, max_new_tokens=16)
+
+    gather_ms = []
+    orig_gather = engine_mod.kv_pool_gather
+
+    def timed_gather(pool, tables, bs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_gather(pool, tables, bs)
+        torch.cuda.synchronize()
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def serve(dp, stats, **serve_kw):
+        eng = Engine(_timed_model(model, stats), params, cfg,
+                     ServeConfig(**base, **serve_kw), dp=dp, eos_id=-1)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16,
+                        tenant=("alice", "bob")[i % 2])
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(done) != len(prompts) or not all(r.done for r in done):
+            raise AssertionError("not every request finished")
+        for r in done:
+            if len(r.out_tokens) != 16 or not all(
+                    0 <= t < cfg.vocab_size for t in r.out_tokens):
+                raise AssertionError(f"request {r.rid}: bad tokens")
+        ttft = {r.rid: (r.t_first - t0) * 1e3 for r in done}
+        return {r.rid: list(r.out_tokens) for r in done}, wall, ttft, eng
+
+    def fresh():
+        return {"prefill": [], "decode": [], "chunk": [], "logits": {}}
+
+    paged = dict(block_size=BLOCK, prefill_chunk=CHUNK)
+    engine_mod.kv_pool_gather = timed_gather
+    try:
+        stats_a = fresh()
+        _reset_launches()
+        tok_a, wall_a, ttft_a, eng_a = serve(dataplane(), stats_a, **paged)
+        launches = _launches()
+        gather_a = list(gather_ms)
+        tok_b, _, _, _ = serve(dataplane(), fresh(), **paged)
+        tok_off, _, _, _ = serve(dataplane(pallas_dataplane="off"), fresh(),
+                                 **paged)
+        stats_d = fresh()
+        tok_d, _, _, eng_d = serve(dataplane(), stats_d, n_blocks=160,
+                                   **paged)
+    finally:
+        engine_mod.kv_pool_gather = orig_gather
+    stats_c = fresh()
+    tok_c, wall_c, ttft_c, _ = serve(dataplane(), stats_c, prefill_chunk=0)
+
+    # gate 2: paged + chunked is deterministic, cuda-on and off alike
+    if tok_b != tok_a or tok_off != tok_a:
+        raise AssertionError("paged + chunked runs gave other tokens")
+    # gate 3: the last chunk's logits against (c)'s whole prefill
+    cos_rows = {}
+    for n in LONG_PROMPTS:
+        a, c = stats_a["logits"][n - 1], stats_c["logits"][n - 1]
+        cos = F.cosine_similarity(a, c, dim=0).item()
+        cos_rows[n] = {"cosine": cos,
+                       "max_abs_diff": (a - c).abs().max().item(),
+                       "max_abs_logit": c.abs().max().item()}
+        if not (torch.isfinite(a).all() and cos > 0.99):
+            raise AssertionError(f"chunked vs whole logits of the {n}-token "
+                                 f"prompt disagree: cosine {cos}")
+    # gate 4: exact data movement into and out of the pool
+    moved = _check_paged_movement(model, params, eng_a._n_usable,
+                                  base["kv_cache_len"])
+    # gate 5: the pressure run preempts, restores and returns every block
+    rep_d = eng_d.tenant_report()
+    pre = sum(v["preemptions"] for v in rep_d.values())
+    res = sum(v["restores"] for v in rep_d.values())
+    if pre < 1 or res < 1:
+        raise AssertionError(f"pressure run: {pre} preemptions, {res} "
+                             f"restores; want >= 1 each")
+    if eng_d._alloc.free_blocks != eng_d._n_usable or eng_d._tables.any():
+        raise AssertionError("pressure run: blocks or table rows not "
+                             "returned at the end")
+    # gate 6: exact launch counts per step kind
+    want_chunks = sum(-(-n // CHUNK) for n in LONG_PROMPTS)
+    for name, st in (("a", stats_a), ("c", stats_c), ("d", stats_d)):
+        pre_l = [d for _, _, d in st["prefill"]]
+        if any(d["flash_attention"] != cfg.num_layers for d in pre_l):
+            raise AssertionError(f"run {name}: flash launches per whole "
+                                 f"prefill {_per_call(pre_l, 'flash_attention')}"
+                                 f", want {cfg.num_layers}")
+        chunk_l = [d for _, _, d in st["chunk"]]
+        if any(d["flash_attention"] or d["bounce"] <= 0 for d in chunk_l):
+            raise AssertionError(f"run {name}: a chunk step launched flash "
+                                 f"or no bounce")
+        if any(d["bounce"] <= 0 for _, d in st["decode"]):
+            raise AssertionError(f"run {name}: a decode tick launched no "
+                                 f"bounce")
+    if len(stats_a["chunk"]) != want_chunks or stats_c["chunk"]:
+        raise AssertionError(f"chunk steps: (a) {len(stats_a['chunk'])}, "
+                             f"want {want_chunks}; (c) "
+                             f"{len(stats_c['chunk'])}, want 0")
+    n_whole = len(stats_a["prefill"])
+    if launches["flash_attention"] != cfg.num_layers * n_whole or \
+            n_whole != len(prompts) - len(LONG_PROMPTS) or \
+            launches["bounce"] <= 0:
+        raise AssertionError(f"paged run launches {launches} over {n_whole} "
+                             f"whole prefills")
+
+    def per_kind(st):
+        return {"prefill": _per_call([d for _, _, d in st["prefill"]],
+                                     "bounce"),
+                "chunk": _per_call([d for _, _, d in st["chunk"]], "bounce"),
+                "tick": _per_call([d for _, d in st["decode"]], "bounce")}
+
+    n_tok = sum(len(t) for t in tok_a.values())
+    same_ac = sum(tok_a[i] == tok_c[i] for i in tok_a)
+    out = {
+        "prompts": [len(p) for p in prompts],
+        "tokens": n_tok, "wall_s": wall_a, "tok_per_s": n_tok / wall_a,
+        "fixed_wall_s": wall_c, "fixed_tok_per_s": n_tok / wall_c,
+        "ttft_short_ms": {
+            "paged_chunked": {"mean": float(np.mean([ttft_a[i] for i in short])),
+                              "max": float(np.max([ttft_a[i] for i in short]))},
+            "fixed_whole": {"mean": float(np.mean([ttft_c[i] for i in short])),
+                            "max": float(np.max([ttft_c[i] for i in short]))}},
+        "decode_ticks": {"paged": len(stats_a["decode"]),
+                         "fixed": len(stats_c["decode"])},
+        "decode_ms_mean": {
+            "paged": float(np.mean([ms for ms, _ in stats_a["decode"]])),
+            "fixed": float(np.mean([ms for ms, _ in stats_c["decode"]]))},
+        "gather_ms_mean": float(np.mean(gather_a)),
+        "chunk_steps": len(stats_a["chunk"]),
+        "chunk_ms_mean": float(np.mean([ms for _, ms, _ in stats_a["chunk"]])),
+        "launches": launches,
+        "bounce_per_step": {"paged_chunked": per_kind(stats_a),
+                            "fixed_whole": per_kind(stats_c)},
+        "chunked_vs_whole": cos_rows,
+        "streams_equal_paged_chunked_vs_fixed_whole": same_ac,
+        "pressure": {"preemptions": pre, "restores": res,
+                     "n_blocks": eng_d._n_usable},
+        "paged_rows_checked": moved,
+        "n_usable_blocks": eng_a._n_usable,
+    }
+    tt = out["ttft_short_ms"]
+    _line(f"  paged+chunked: {n_tok} tokens in {wall_a:.2f} s = "
+          f"{out['tok_per_s']:.1f} tok/s ({out['fixed_tok_per_s']:.1f} fixed "
+          f"whole); TTFT of the 8 short: mean {tt['paged_chunked']['mean']:.0f}"
+          f" ms, max {tt['paged_chunked']['max']:.0f} ms (fixed whole "
+          f"{tt['fixed_whole']['mean']:.0f} / {tt['fixed_whole']['max']:.0f})")
+    _line(f"  decode ms/tick paged {out['decode_ms_mean']['paged']:.2f} "
+          f"({out['decode_ticks']['paged']} ticks) vs fixed "
+          f"{out['decode_ms_mean']['fixed']:.2f} "
+          f"({out['decode_ticks']['fixed']}); gather "
+          f"{out['gather_ms_mean']:.3f} ms/tick; {want_chunks} chunk steps "
+          f"{out['chunk_ms_mean']:.2f} ms each")
+    _line(f"  bounce launches per step: {out['bounce_per_step']}; launches "
+          f"{launches}")
+    _line("  chunked vs whole last logits: " + ", ".join(
+        f"{n}: cosine {r['cosine']:.5f}, max |diff| {r['max_abs_diff']:.4f} "
+        f"of {r['max_abs_logit']:.3f}" for n, r in cos_rows.items()))
+    _line(f"  pressure run (160 blocks): {pre} preemptions, {res} restores, "
+          f"every block returned; {moved} paged rows bit-exact against the "
+          f"stripe; {same_ac}/{len(tok_a)} streams of paged+chunked equal "
+          f"fixed+whole")
+    _line(f"phase 3c serve gemma3-1b paged+chunked ok: {len(tok_a)} requests "
+          f"x 5 runs, tokens identical on repeat and with "
+          f"pallas_dataplane=off")
+    return out
+
+
 def profile_serve(model, params, dataplane, prompts) -> dict:
     """torch.profiler over one full-width prefill of 256 tokens and one
     4-slot decode tick through the cord dataplane: device and host time
-    by operator."""
+    by operator.  A model with chunked prefill adds phase 3c's paged tick
+    (gather from 640 blocks, the decode tick on the 4 x 10,240-position
+    view, the token scatter) and a 512-token chunk at offset 1536 of a
+    2048-position cache."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.layers import kvcache as kv
 
     dp = dataplane()
     toks = torch.as_tensor(prompts[5][None], dtype=torch.long, device="cuda")
     cache = model.init_cache(4, 640)
     tok = torch.full((4, 1), 7, dtype=torch.long, device="cuda")
-    pos = torch.tensor([256, 300, 40, 129], dtype=torch.int32, device="cuda")
+    pos_np = np.asarray([256, 300, 40, 129], np.int32)
+    pos = torch.as_tensor(pos_np, device="cuda")
+    steps = [("prefill_256", lambda: model.prefill(
+                  params, {"tokens": toks}, model.init_cache(1, 256), dp=dp)),
+             ("decode_tick", lambda: model.decode_step_slots(
+                  params, tok, cache, pos, dp=dp))]
+    if model.prefill_chunk is not None:
+        spec = model.init_cache(1, BLOCK)["k"]
+        n_blocks = 4 * 2560 // BLOCK
+        pool = kv.kv_pool_init(spec.shape[0], n_blocks, BLOCK, spec.shape[3],
+                               spec.shape[4], dtype=spec.dtype, device="cuda")
+        tables = np.zeros((4, n_blocks), np.int32)
+        for i, p in enumerate(pos_np):
+            nb = int(p) // BLOCK + 1
+            tables[i, :nb] = np.arange(1, nb + 1) + 40 * i
+        active = np.ones(4, bool)
+        chunk_toks = toks[:, :1].repeat(1, CHUNK)
+        chunk_cache = model.init_cache(1, 2048)
+
+        def paged_tick():
+            dense = kv.kv_pool_gather(pool, tables, BLOCK)
+            _, dense = model.decode_step_slots(params, tok, dense, pos, dp=dp)
+            kv.kv_pool_scatter_token(pool, dense, tables, pos_np, active,
+                                     BLOCK)
+
+        steps += [("paged_tick", paged_tick),
+                  ("chunk_512_at_1536", lambda: model.prefill_chunk(
+                      params, {"tokens": chunk_toks},
+                      kv.kv_cache_constrain(dp, chunk_cache), 1536, dp=dp))]
     out = {}
-    for name, fn in (
-            ("prefill_256", lambda: model.prefill(
-                params, {"tokens": toks}, model.init_cache(1, 256), dp=dp)),
-            ("decode_tick", lambda: model.decode_step_slots(
-                params, tok, cache, pos, dp=dp))):
+    for name, fn in steps:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -918,6 +1239,8 @@ def main(argv=None) -> int:
         if args.profile:
             prof[arch] = profile_serve(*inputs)
         serve[arch] = res
+        if arch == "gemma3-1b":
+            serve["gemma3-1b-paged"] = phase_serve_paged(*inputs)
         del inputs, res                # free this model before the next
         gc.collect()
         torch.cuda.empty_cache()

@@ -69,6 +69,15 @@ def _check(q, k, v) -> None:
 # logit_cap, scale; stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
     [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_FN = None
+
+
+def _bind():
+    """The launch function, built and bound on first use."""
+    global _FN
+    _FN = build.function("flash_attention", "flash_attention_launch",
+                         _ARGTYPES)
+    return _FN
 
 
 def _kernel(q, k, v, *, causal, window, logit_cap, valid_len):
@@ -82,13 +91,11 @@ def _kernel(q, k, v, *, causal, window, logit_cap, valid_len):
     b, sq, h, dk = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    fn = build.function("flash_attention", "flash_attention_launch",
-                        _ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _DTYPES[q.dtype], b, sq, skv, h, kvh, dk, int(bool(causal)),
-             int(window or 0), int(skv if valid_len is None else valid_len),
-             float(logit_cap), scale, stream)
+    err = (_FN or _bind())(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPES[q.dtype], b, sq, skv, h, kvh, dk, int(bool(causal)),
+        int(window or 0), int(skv if valid_len is None else valid_len),
+        float(logit_cap), scale, build.raw_stream(q.get_device()))
     if err == _ERR_TENSOR_MAP:
         raise RuntimeError("flash_attention_launch: cuTensorMapEncodeTiled "
                            "refused a tensor map")

@@ -1,15 +1,18 @@
 """Serving launcher: batched requests through the Engine.
 
 ``python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
-[--scheduler continuous|gang] [--device cuda|cpu]``
+[--scheduler continuous|gang] [--block-size 16] [--n-blocks N]
+[--prefill-chunk 512] [--device cuda|cpu]``
 
 ``--arch`` takes a dense model (gemma3, granite) or hymba-1.5b, the
 hybrid family, which the engine prefills at exact prompt length.  The
-flags are ``repro.launch.serve``'s.  ``--block-size > 0`` (the paged
-KV pool), ``--timeline`` and ``--elastic`` belong to later slices of the
-port and raise :class:`~repro_torch.serve.ServeError`; ``--prefill-chunk``
-is accepted and has no effect while the model has no chunked prefill
-(the engine prefills whole prompts, which ``repro`` holds equal).
+flags are ``repro.launch.serve``'s.  ``--block-size > 0`` serves from the
+paged KV block pool (``--n-blocks`` usable blocks, 0 = the stripes' token
+capacity; a dense model only: hymba raises
+:class:`~repro_torch.serve.ServeError`).  ``--prefill-chunk`` prefills a
+dense model's prompts longer than one chunk a chunk per engine tick (0
+prefills whole prompts).  ``--timeline`` and ``--elastic`` belong to later
+slices of the port and raise :class:`~repro_torch.serve.ServeError`.
 """
 
 import argparse
@@ -32,12 +35,14 @@ def main(argv=None) -> None:
                     choices=("continuous", "gang"))
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--block-size", type=int, default=0,
-                    help="paged KV block size (ported in a later slice; "
-                         "only 0 is served)")
-    ap.add_argument("--n-blocks", type=int, default=0)
+                    help="paged KV: pool block size in tokens (0 = fixed "
+                         "stripes)")
+    ap.add_argument("--n-blocks", type=int, default=0,
+                    help="paged KV: usable pool blocks (0 = auto: the "
+                         "stripe layout's token capacity)")
     ap.add_argument("--prefill-chunk", type=int, default=512,
-                    help="chunked prefill tokens per tick (no effect until "
-                         "the model has a chunked prefill)")
+                    help="chunked prefill: tokens per prefill tick (power "
+                         "of two >= 8; 0 disables chunking)")
     ap.add_argument("--timeline", action="store_true",
                     help="per-tick timelines (ported in a later slice)")
     ap.add_argument("--elastic", action="store_true",

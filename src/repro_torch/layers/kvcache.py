@@ -1,4 +1,5 @@
-"""KV caches for serving: the fixed per-slot stripe layout.
+"""KV caches for serving: the fixed per-slot stripe layout and the paged
+block pool.
 
 A cache is ``{"k": (layers, batch, max_len, kv_heads, head_dim), "v":
 ...}``.  The serving engine preallocates ONE such cache whose batch rows
@@ -8,10 +9,13 @@ length bucketed), its cache written into a free slot with
 slot at its own position (:func:`kv_update_slots`) behind a per-slot
 validity mask (:func:`slot_validity`).
 
+The paged layout (``kv_pool_*``, :class:`BlockAllocator`) replaces the
+stripe with one shared pool of fixed-size blocks plus a host-side block
+table per slot; see the section below.
+
 Unlike ``repro``'s functional updates, the update helpers here write
 **in place** into the cache tensors they are given (and return them), so
-a decode tick never copies the whole cache.  The paged block pool waits
-for a later slice.
+a decode tick never copies the whole cache.
 """
 
 from __future__ import annotations
@@ -93,6 +97,189 @@ def slot_validity(max_len: int, pos: torch.Tensor) -> torch.Tensor:
             <= pos.to(torch.int32)[:, None])
 
 
+# ---------------------------------------------------------------------------
+# Paged KV block pool
+# ---------------------------------------------------------------------------
+#
+# One pool per k/v leaf, ``(layers, n_blocks + 1, block_size, kv_heads,
+# head_dim)``, plus a host-side ``(max_batch, tables_len)`` int32 block
+# table mapping each slot's logical block to a physical pool block.
+# Physical block 0 is the shared null block: free slots and unallocated
+# table entries point at it, so a gather is a total function of the
+# table, and it is only ever read.  ``repro`` scatters with
+# ``mode="drop"``: an inactive slot, or an unused id, goes to the
+# out-of-bounds id ``n_blocks + 1`` and is dropped.  Torch has no drop
+# mode (an out-of-bounds ``index_put_`` raises on the CPU and asserts on
+# the card), so the scatters here filter their ids on the host, where the
+# engine keeps its tables, before they touch the pool.
+
+def kv_pool_init(layers: int, n_blocks: int, block_size: int, kv_heads: int,
+                 head_dim: int, dtype=torch.bfloat16, device=None) -> dict:
+    """Block pool with ``n_blocks`` usable blocks (physical ids
+    1..n_blocks; id 0 is the shared null block)."""
+    shape = (layers, n_blocks + 1, block_size, kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _host(a) -> np.ndarray:
+    """A host numpy copy of an index array (numpy, list or tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _kept(ids: np.ndarray, n_total: int) -> tuple[np.ndarray, np.ndarray]:
+    """(mask, ids) of a drop-mode scatter: negative ids count from the end
+    as in numpy, and whatever is still outside [0, n_total) is dropped."""
+    ids = np.where(ids < 0, ids + n_total, ids)
+    return (ids >= 0) & (ids < n_total), ids
+
+
+def _upload(device, *arrays) -> list[torch.Tensor]:
+    """Index arrays as int64 tensors on ``device`` in ONE host-to-device
+    copy (each copy from pageable memory waits for the stream)."""
+    n = [len(a) for a in arrays]
+    flat = np.concatenate([np.asarray(a, np.int64).reshape(-1)
+                           for a in arrays])
+    return list(torch.as_tensor(flat, device=device).split(n))
+
+
+def _geom(pool: dict) -> tuple[torch.device, int]:
+    """(device, physical block count) shared by the pool's k/v leaves."""
+    buf = next(iter(pool.values()))
+    return buf.device, buf.shape[1]
+
+
+def kv_pool_gather(pool: dict, tables, block_size: int) -> dict:
+    """Dense (layers, B, T*block_size, KVH, hd) decode cache from the pool
+    by per-slot block table (B, T), one indexing op per leaf.  Rows mapped
+    to the null block read zeros; the slot validity mask hides them."""
+    dev, _ = _geom(pool)
+    tables = _host(tables)
+    b, t = tables.shape
+    (idx,) = _upload(dev, tables.reshape(-1))
+    idx = idx.view(b, t)
+    out = {}
+    for name, buf in pool.items():
+        ll, _, bs, kvh, hd = buf.shape
+        out[name] = buf[:, idx].reshape(ll, b, t * bs, kvh, hd)
+    return out
+
+
+def kv_pool_scatter_token(pool: dict, cache: dict, tables, pos, active,
+                          block_size: int) -> dict:
+    """Write back, in place, the ONE token each active slot appended this
+    decode tick: ``cache`` is the gathered dense cache after the decode
+    step, the token of slot b sits at ``pos[b]`` and lands in pool block
+    ``tables[b, pos[b] // block_size]`` at offset ``pos[b] % block_size``.
+    Inactive slots, and ids outside the pool, are dropped."""
+    dev, n_total = _geom(pool)
+    tables, pos = _host(tables), _host(pos).astype(np.int64)
+    rows = np.nonzero(_host(active).astype(bool))[0]
+    keep, blk = _kept(tables[rows, pos[rows] // block_size].astype(np.int64),
+                      n_total)
+    r = rows[keep]
+    if not len(r):
+        return pool
+    r_t, p_t, b_t, o_t = _upload(dev, r, pos[r], blk[keep],
+                                 pos[r] % block_size)
+    for name, buf in pool.items():
+        buf[:, b_t, o_t] = cache[name][:, r_t, p_t].to(buf.dtype)
+    return pool
+
+
+def _blocks(src: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(L, n, KVH, hd) rows as (L, ceil(n / bs), bs, KVH, hd) blocks, the
+    last one zero-padded."""
+    pad = (-src.shape[1]) % block_size
+    if pad:
+        src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, pad))
+    ll, n, kvh, hd = src.shape
+    return src.reshape(ll, n // block_size, block_size, kvh, hd)
+
+
+def _put_blocks(pool: dict, pieces: dict, ids: np.ndarray) -> dict:
+    """pool[:, ids[i]] = pieces[:, i] for every id kept by a drop-mode
+    scatter, in place."""
+    dev, n_total = _geom(pool)
+    keep, ids = _kept(ids, n_total)
+    if keep.any():
+        dst, src = _upload(dev, ids[keep], np.nonzero(keep)[0])
+        for name, buf in pool.items():
+            buf[:, dst] = pieces[name][:, src].to(buf.dtype)
+    return pool
+
+
+def kv_pool_insert(pool: dict, prefilled: dict, block_ids,
+                   block_size: int) -> dict:
+    """Insert one prefilled request's cache (batch dim 1, capacity ``cap``)
+    into pool blocks ``block_ids`` (ceil(cap / block_size) entries; unused
+    entries hold an out-of-bounds id and are dropped), in place."""
+    ids = _host(block_ids).astype(np.int64).reshape(-1)
+    pieces = {name: _blocks(prefilled[name][:, 0], block_size)
+              for name in pool}
+    nblk = next(iter(pieces.values())).shape[1]
+    if nblk != len(ids):
+        raise ValueError(f"kv_pool_insert: {nblk} blocks of cache for "
+                         f"{len(ids)} block ids")
+    return _put_blocks(pool, pieces, ids)
+
+
+def kv_pool_scatter_chunk(pool: dict, cache: dict, table_row, offset: int,
+                          chunk: int, block_size: int) -> dict:
+    """Scatter one prefill chunk, written into the dense batch-1 ``cache``
+    at ``offset``, into the pool in place.  ``offset`` and ``chunk`` are
+    multiples of ``block_size`` (ServeConfig validation), so the chunk
+    covers whole blocks, ``table_row[offset // bs:][:chunk // bs]``.  Both
+    slices start where ``repro``'s ``dynamic_slice`` starts them: clamped
+    so that they fit."""
+    row = _host(table_row).astype(np.int64).reshape(-1)
+    nblk = chunk // block_size
+    b0 = min(max(int(offset) // block_size, 0), len(row) - nblk)
+    pieces = {}
+    for name in pool:
+        dense = cache[name]
+        start = min(max(int(offset), 0), dense.shape[2] - chunk)
+        pieces[name] = _blocks(dense[:, 0, start:start + chunk], block_size)
+    return _put_blocks(pool, pieces, row[b0:b0 + nblk])
+
+
+class BlockAllocator:
+    """Host-side free list over the pool's usable physical blocks (ids
+    1..n_blocks; 0 is the null block).  ``alloc`` is all-or-nothing; a
+    double free raises, since a table bug would corrupt another tenant's
+    cache."""
+
+    def __init__(self, n_blocks: int):
+        if n_blocks < 1:
+            raise ValueError(f"need n_blocks >= 1, got {n_blocks}")
+        self.n_blocks = n_blocks
+        self._free = list(range(n_blocks, 0, -1))   # pop() yields 1, 2, ...
+        self._held: set[int] = set()
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def alloc(self, k: int) -> list[int] | None:
+        """Claim ``k`` blocks, or None (and no change) if fewer are free."""
+        if k < 0:
+            raise ValueError(f"need k >= 0, got {k}")
+        if k > len(self._free):
+            return None
+        ids = [self._free.pop() for _ in range(k)]
+        self._held.update(ids)
+        return ids
+
+    def free(self, ids) -> None:
+        for i in ids:
+            if i not in self._held:
+                raise ValueError(f"double free / foreign block id {i}")
+            self._held.discard(i)
+            self._free.append(int(i))
+
+
 def kv_cache_constrain(dp, cache, *, tag: str = "kvcache",
                        qos: str = "kvcache", tenant: str | None = None):
     """Issue the KV cache's sharding edges through the dataplane (rank-5
@@ -107,4 +294,6 @@ def kv_cache_constrain(dp, cache, *, tag: str = "kvcache",
 
 __all__ = ["kv_cache_init", "kv_update", "kv_update_slots", "kv_slot_insert",
            "state_slot_insert", "slot_vectors_init", "slot_validity",
+           "kv_pool_init", "kv_pool_gather", "kv_pool_scatter_token",
+           "kv_pool_insert", "kv_pool_scatter_chunk", "BlockAllocator",
            "kv_cache_constrain", "KV_CACHE_AXES"]

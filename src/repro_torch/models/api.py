@@ -29,8 +29,8 @@ class Model:
     decode_step: Callable
     # fixed-shape decode over persistent slots (per-slot positions)
     decode_step_slots: Callable | None = None
-    # chunked prefill arrives with a later slice: the engine prefills
-    # whole prompts while this is None (JAX holds chunked ≡ whole)
+    # chunked prefill: write one (B, C) chunk at an offset.  None for
+    # families without it (hybrid); the engine then prefills whole prompts
     prefill_chunk: Callable | None = None
     # True for families with recurrent state (mamba): the engine prefills
     # them at exact prompt length, since right padding would advance the
@@ -58,6 +58,9 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             decode_step_slots=lambda params, token, cache, pos, **kw:
                 m.transformer_decode_step_slots(params, cfg, token, cache,
                                                 pos, **kw),
+            prefill_chunk=lambda params, batch, cache, offset, **kw:
+                m.transformer_prefill_chunk(params, cfg, batch, cache,
+                                            offset, **kw),
         )
     if cfg.family == "hybrid":
         m = hybrid

@@ -8,7 +8,11 @@ communication edge is issued through the CoRD dataplane (``dp``); with a
 mesh and ``emulate_costs`` each edge launches the dataplane kernel on the
 card.
 
-The KV cache is updated in place (``layers/kvcache.py``).
+The KV cache is updated in place (``layers/kvcache.py``).  Whole-prompt
+prefill attends through the flash kernel; decode and prefill chunks
+(:func:`transformer_prefill_chunk`, a chunk at an offset against the
+cache filled so far) take the plain masked softmax, as ``repro`` computes
+them outside its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -114,6 +118,18 @@ def _layer(lp, x, *, cfg, dp, positions, window, theta, mode,
         kv_update(cache_k, cache_v, k, v, 0)
         o = attend(q, k, v, q_pos=positions, k_pos=positions, causal=True,
                    window=window, logit_cap=a.logit_softcap)
+    elif mode == "chunk":
+        # a prefill chunk written at offset cache_pos, attending to
+        # everything filled so far; the cache edges are the mediation a
+        # decode tick pays, so every chunk is accounted like one
+        kv_update(cache_k, cache_v, k, v, cache_pos)
+        s_max = cache_k.shape[1]
+        k_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)
+        k_valid = k_pos < cache_pos + q.shape[1]
+        ck = constrain(dp, cache_k, CACHE_AXES, tag="attn/cache_k")
+        cv = constrain(dp, cache_v, CACHE_AXES, tag="attn/cache_v")
+        o = attend(q, ck, cv, q_pos=positions, k_pos=k_pos, causal=True,
+                   window=window, logit_cap=a.logit_softcap, k_valid=k_valid)
     elif mode == "decode_slots":
         # one query per slot, per-slot write positions (B,)
         kv_update_slots(cache_k, cache_v, k, v, cache_pos)
@@ -194,6 +210,31 @@ def transformer_prefill(params, cfg: ModelConfig, batch: dict, cache, *,
     return logits_fn(params["embed"], last, dp=dp), cache
 
 
+def transformer_prefill_chunk(params, cfg: ModelConfig, batch: dict, cache,
+                              offset, *, dp=None, last_pos=None):
+    """One prefill chunk: write ``batch["tokens"]`` (B, C) into the cache
+    at position ``offset`` (in place) and attend causally to everything
+    filled so far.  Returns (logits (B, 1, V) float32, cache) like
+    :func:`transformer_prefill`, the logits at ``last_pos - offset``
+    clipped into the chunk; only the chunk holding ``last_pos`` (the last
+    real prompt token) gives logits the caller keeps."""
+    tokens = batch["tokens"]
+    b, c = tokens.shape
+    offset = int(offset)
+    x = embed(params["embed"], tokens, dtype_of(cfg.dtype), dp=dp)
+    positions = offset + torch.arange(c, dtype=torch.int32,
+                                      device=tokens.device)
+    x = _run_layers(params, cfg, x, dp=dp, positions=positions, mode="chunk",
+                    cache=cache, cache_pos=offset)
+    if last_pos is None:
+        last = x[:, -1:, :]
+    else:
+        idx = torch.as_tensor(last_pos, dtype=torch.long, device=x.device)
+        idx = (idx - offset).clamp(0, c - 1)
+        last = x[torch.arange(b, device=x.device), idx][:, None, :]
+    return logits_fn(params["embed"], last, dp=dp), cache
+
+
 def transformer_decode_step(params, cfg: ModelConfig, token, cache, pos: int,
                             *, dp=None):
     """One decode step. token: (B, 1) int; pos: int write position shared
@@ -221,6 +262,7 @@ def transformer_decode_step_slots(params, cfg: ModelConfig, token, cache,
 
 __all__ = [
     "transformer_init", "transformer_apply", "transformer_init_cache",
-    "transformer_prefill", "transformer_decode_step",
+    "transformer_prefill", "transformer_prefill_chunk",
+    "transformer_decode_step",
     "transformer_decode_step_slots", "layer_flags",
 ]

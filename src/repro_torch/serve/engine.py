@@ -27,9 +27,29 @@ slot budget (``ServeConfig.max_slots_per_tenant`` or
 :meth:`Engine.set_slot_budget`) is enforced by preemption with exact
 temperature-0 resume.
 
-``scheduler="gang"`` keeps the batch-to-completion baseline.  The paged
-KV pool (``block_size > 0``), chunked prefill and timelines (``obs``)
-arrive in later slices; asking for them raises :class:`ServeError`.
+**Paged KV pool** (``ServeConfig.block_size > 0``): instead of one
+``kv_cache_len`` stripe per slot, the engine owns one shared pool of
+fixed-size blocks and a host block table per slot (``kv_pool_*`` in
+layers/kvcache.py).  Each decode tick gathers every slot's blocks into a
+dense cache, runs the unchanged slot decode step and scatters the one
+written token back, so paged decode gives the stripe's tokens.  A grant
+claims the request's prefill cover in blocks; decode growth claims one
+block at a time, and pool pressure preempts the active slot whose tenant
+has the largest WFQ virtual time (or the slot itself), with exact
+resume.  A prompt longer than any stripe is served while blocks are
+free.  Only a cache of ``k``/``v`` stripes is pageable: a recurrent
+model with ``block_size > 0`` raises :class:`ServeError`.
+
+**Chunked prefill** (``ServeConfig.prefill_chunk > 0``, models with
+``Model.prefill_chunk``): a prompt longer than one chunk is prefilled one
+``(1, prefill_chunk)`` chunk per engine tick, interleaved with the decode
+ticks of the other slots, and each chunk pays its mediation edges like a
+decode tick.  A slot preempted mid-prefill replays its chunks from the
+start.
+
+``scheduler="gang"`` keeps the batch-to-completion baseline.  Timelines
+(``obs``) arrive in a later slice; asking for them raises
+:class:`ServeError`.
 """
 
 from __future__ import annotations
@@ -46,7 +66,13 @@ from repro_torch.core import telemetry as tl
 from repro_torch.core.mediation import HostTokenBucket
 from repro_torch.core.policies import QoSPolicy
 from repro_torch.layers.kvcache import (
+    BlockAllocator,
     kv_cache_constrain,
+    kv_pool_gather,
+    kv_pool_init,
+    kv_pool_insert,
+    kv_pool_scatter_chunk,
+    kv_pool_scatter_token,
     slot_vectors_init,
     state_slot_insert,
 )
@@ -124,10 +150,6 @@ class WFQScheduler:
 class Engine:
     def __init__(self, model, params, cfg: ModelConfig, serve: ServeConfig,
                  dp=None, eos_id: int = 1, obs=None, obs_every: int = 1):
-        if serve.block_size > 0:
-            raise ServeError(
-                f"paged KV (block_size={serve.block_size}) is ported with "
-                f"the paged-pool slice; use block_size=0 (fixed stripes)")
         if obs is not None:
             raise ServeError("per-tenant timelines (obs) are ported with "
                              "the timelines slice; pass obs=None")
@@ -157,22 +179,72 @@ class Engine:
         self._decode_shapes: set[tuple] = set()
         self._recurrent = bool(getattr(model, "recurrent", False))
 
+        # ---- paged KV block pool (block_size > 0) ---------------------
+        bs = serve.block_size
+        self.paged = bs > 0
+        if self.paged:
+            spec = model.init_cache(1, bs)
+            pageable = (isinstance(spec, dict) and set(spec) == {"k", "v"}
+                        and all(v.dim() == 5 for v in spec.values()))
+            if not pageable:
+                raise ServeError(
+                    f"paged KV (block_size={bs}) is not supported for the "
+                    f"{cfg.family!r} family ({cfg.name}): its decode cache "
+                    f"holds recurrent/cross-attention state that cannot be "
+                    f"block-paged. Set ServeConfig.block_size=0 "
+                    f"(--block-size 0) to serve this family on the fixed "
+                    f"stripe layout (continuous batching, chunk-exact "
+                    f"preemption and WFQ budgets all still apply).")
+            ks = spec["k"]
+            # (layers, kv_heads, head_dim, dtype) of the model's own cache
+            self._pool_geom = (ks.shape[0], ks.shape[3], ks.shape[4],
+                               ks.dtype)
+            self._n_usable = serve.n_blocks or \
+                (serve.max_batch * serve.kv_cache_len // bs)
+            self._tables_len = self._n_usable
+
+        # ---- chunked prefill (prefill_chunk > 0) ----------------------
+        self.chunked = (serve.prefill_chunk > 0
+                        and getattr(model, "prefill_chunk", None) is not None)
+        # per-run chunk state (reset by _run_continuous)
+        self._prefills: dict[int, dict] = {}
+        self._prefill_q: deque = deque()
+
     # ------------------------------------------------------------------
     # model calls (the dataplane edges are issued inside them)
     # ------------------------------------------------------------------
     def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    def _prefill_slot(self, toks: np.ndarray, cache, slot: int, last):
-        """Batch-1 prefill (bucketed, or exact for a recurrent model)
-        whose cache lands in ``slot`` of the persistent cache (in
-        place)."""
+    def _prefill(self, toks: np.ndarray, last):
+        """Batch-1 prefill (bucketed, chunk cover, or exact for a recurrent
+        model) into a cache of its own; returns (logits, cache), which the
+        caller writes into its slot or its pool blocks."""
         pc = self.model.init_cache(1, toks.shape[1])
-        logits, pc = self.model.prefill(
+        return self.model.prefill(
             self.params, {"tokens": self._tensor(toks)},
             kv_cache_constrain(self.dp, pc), dp=self.dp,
             last_pos=self._tensor(last))
-        return logits, state_slot_insert(cache, pc, slot)
+
+    def _chunk(self, toks: np.ndarray, pc, off: int, last):
+        """One prefill chunk into the request's batch-1 cache ``pc``."""
+        return self.model.prefill_chunk(
+            self.params, {"tokens": self._tensor(toks)},
+            kv_cache_constrain(self.dp, pc), off, dp=self.dp,
+            last_pos=self._tensor(last))
+
+    def _step_pool(self, tok: np.ndarray, pool, tables: np.ndarray,
+                   pos: np.ndarray, act: np.ndarray):
+        """Paged decode tick: gather the slots' blocks into a dense cache,
+        run the slot decode step on it, scatter each active slot's new
+        token back into the pool."""
+        bs = self.scfg.block_size
+        dense = kv_pool_gather(pool, tables, bs)
+        logits, dense = self.model.decode_step_slots(
+            self.params, self._tensor(tok), dense,
+            self._tensor(pos, torch.int32), dp=self.dp)
+        return logits, kv_pool_scatter_token(pool, dense, tables, pos, act,
+                                             bs)
 
     def _tenant_id(self, tenant: str) -> int:
         return self._tenant_ids.setdefault(tenant, len(self._tenant_ids))
@@ -270,11 +342,16 @@ class Engine:
     # continuous: persistent slots, fixed-shape decode, WFQ packing
     # ------------------------------------------------------------------
     def _cover(self, n: int) -> int:
-        """Prefill cache capacity for an ``n``-token sequence: the
-        power-of-two prompt bucket, or for a recurrent model the exact
-        length (padding would fold pad tokens into the slot state)."""
+        """Prefill cache capacity for an ``n``-token sequence: the chunk
+        cover (smallest multiple of ``prefill_chunk`` ≥ n) when chunked
+        prefill applies, else the power-of-two prompt bucket; for a
+        recurrent model the exact length (padding would fold pad tokens
+        into the slot state)."""
         if self._recurrent:
             return max(n, 1)
+        C = self.scfg.prefill_chunk
+        if self.chunked and n > C:
+            return -(-n // C) * C
         return prompt_bucket(n)
 
     @staticmethod
@@ -284,7 +361,26 @@ class Engine:
         k = len(r.out_tokens)
         return len(r.prompt) + k - 1 if k else len(r.prompt)
 
+    def _blocks_for(self, r: Request) -> int:
+        return -(-self._cover(self._resume_len(r)) // self.scfg.block_size)
+
     def _check_capacity(self, r: Request) -> None:
+        """Submit-time check.  Paged: the worst-case blocks over the
+        request's life (prefill cover, the resume cover after a worst-case
+        preemption, the decode high-water mark) must fit the pool.  Stripe:
+        prefill cover and decode budget must fit ``kv_cache_len``."""
+        if self.paged:
+            L = len(r.prompt)
+            limit = min(r.max_new_tokens, self.scfg.max_new_tokens)
+            need = max(self._cover(L), self._cover(L + max(limit - 1, 0)),
+                       L + limit) + 1
+            nblk = -(-need // self.scfg.block_size)
+            if nblk > self._n_usable:
+                raise ServeError(
+                    f"request needs {nblk} pool blocks ({need} cache "
+                    f"positions / block_size {self.scfg.block_size}) but the "
+                    f"pool has only {self._n_usable} usable blocks")
+            return
         cap = self._cover(len(r.prompt))
         need = cap + self.scfg.max_new_tokens + 1
         if need > self.scfg.kv_cache_len:
@@ -294,7 +390,11 @@ class Engine:
                 f"kv_cache_len is {self.scfg.kv_cache_len}")
 
     def _resume_fits(self, r: Request) -> bool:
-        """Whether a preempted ``r`` can restart inside its stripe."""
+        """Whether a preempted ``r`` can restart: always under paging (the
+        submit check covered the worst-case resume), else inside its
+        stripe."""
+        if self.paged:
+            return True
         eff = self._resume_len(r)
         limit = min(r.max_new_tokens, self.scfg.max_new_tokens)
         return max(self._cover(eff),
@@ -314,6 +414,11 @@ class Engine:
                    or self.scfg.max_batch)
 
     def _release_slot(self, slot: int, vecs) -> None:
+        """Return a slot's pool blocks and clear its slot vectors."""
+        if self.paged and self._slot_blocks[slot]:
+            self._alloc.free(self._slot_blocks[slot])
+            self._slot_blocks[slot] = []
+            self._tables[slot, :] = 0
         vecs["active"][slot] = False
         vecs["tenant"][slot] = -1
 
@@ -321,6 +426,10 @@ class Engine:
         """Evict the resident request; its emitted tokens are the snapshot
         and it re-queues at the front for an exact resume."""
         r = slots[slot]
+        if self._prefills.pop(slot, None) is not None:
+            # mid-chunk-prefill: drop the partial prefill, replay on resume
+            if slot in self._prefill_q:
+                self._prefill_q.remove(slot)
         slots[slot] = None
         self._release_slot(slot, vecs)
         vecs["pos"][slot] = 0
@@ -348,6 +457,32 @@ class Engine:
                     continue
                 self._preempt_slot(i, slots, vecs, ntok, queue)
                 extra -= 1
+
+    def _ensure_blocks(self, i: int, slots, vecs, ntok, queue) -> bool:
+        """Make slot ``i`` own the block its next decode write lands in,
+        claiming from the pool.  Pool pressure preempts the active slot
+        whose tenant has the largest WFQ virtual time; with no other
+        candidate the slot preempts itself (the submit check bounds any one
+        request's need by the pool).  False when slot ``i`` was
+        preempted."""
+        bs = self.scfg.block_size
+        while vecs["active"][i] and \
+                int(vecs["pos"][i]) // bs >= len(self._slot_blocks[i]):
+            got = self._alloc.alloc(1)
+            if got is not None:
+                self._slot_blocks[i].append(got[0])
+                self._tables[i, len(self._slot_blocks[i]) - 1] = got[0]
+                continue
+            cands = [j for j in range(self.scfg.max_batch)
+                     if j != i and slots[j] is not None and vecs["active"][j]]
+            if not cands:
+                self._preempt_slot(i, slots, vecs, ntok, queue)
+                return False
+            victim = max(cands, key=lambda j: (
+                self._wfq.vtime.get(slots[j].tenant, 0.0),
+                self._slot_started[j]))
+            self._preempt_slot(victim, slots, vecs, ntok, queue)
+        return bool(vecs["active"][i])
 
     def _activate(self, r: Request, slot: int, logits, slots, vecs, tok,
                   ntok, done, gen, *, eff: int, k: int) -> None:
@@ -378,19 +513,70 @@ class Engine:
 
     def _start_request(self, r: Request, slot: int, cache, slots, vecs, tok,
                        ntok, done, gen) -> None:
-        """Prefill one request (batch 1) into ``slot`` and emit / restore
-        its next decode token."""
+        """Prefill one request (batch 1) into ``slot``, whole when it fits
+        one chunk, else queued for chunk-at-a-time prefill, and emit /
+        restore its next decode token.  With paging ``cache`` is the
+        block pool."""
+        scfg = self.scfg
         k = len(r.out_tokens)            # > 0 ⇒ resume after preemption
         eff = self._resume_len(r)
         seq = (np.concatenate([np.asarray(r.prompt, np.int32),
                                np.asarray(r.out_tokens[:-1], np.int32)])
                if k else np.asarray(r.prompt, np.int32))
-        toks = np.zeros((1, self._cover(eff)), np.int32)
+        cover = self._cover(eff)
+        if self.paged:
+            ids = self._alloc.alloc(-(-cover // scfg.block_size))
+            if ids is None:              # callers check free_blocks first
+                raise RuntimeError("block pool exhausted at grant")
+            self._slot_blocks[slot] = list(ids)
+            self._tables[slot, :] = 0
+            self._tables[slot, :len(ids)] = ids
+        toks = np.zeros((1, cover), np.int32)
         toks[0, :eff] = seq              # right-pad
-        logits, _ = self._prefill_slot(toks, cache, slot,
-                                       np.asarray([eff - 1]))
+        if self.chunked and eff > scfg.prefill_chunk:
+            # one chunk per engine tick (run loop); the slot is held but
+            # not active until its last chunk lands
+            self._prefills[slot] = {
+                "r": r, "toks": toks, "eff": eff, "off": 0, "cover": cover,
+                "pcache": self.model.init_cache(1, cover), "k": k}
+            self._prefill_q.append(slot)
+            slots[slot] = r
+            vecs["tenant"][slot] = self._tenant_id(r.tenant)
+            self._slot_seq += 1
+            self._slot_started[slot] = self._slot_seq
+            return
+        logits, pc = self._prefill(toks, np.asarray([eff - 1]))
+        if self.paged:
+            kv_pool_insert(cache, pc, ids, scfg.block_size)
+        else:
+            state_slot_insert(cache, pc, slot)
         self._activate(r, slot, logits, slots, vecs, tok, ntok, done, gen,
                        eff=eff, k=k)
+
+    def _advance_chunk(self, cache, slots, vecs, tok, ntok, done,
+                       gen) -> None:
+        """Advance the oldest chunk-prefilling slot by ONE chunk, scattering
+        the chunk's blocks when paged, and activate it when its last chunk
+        lands."""
+        slot = self._prefill_q.popleft()
+        st = self._prefills[slot]
+        C = self.scfg.prefill_chunk
+        off = st["off"]
+        logits, st["pcache"] = self._chunk(st["toks"][:, off:off + C],
+                                           st["pcache"], off,
+                                           np.asarray([st["eff"] - 1]))
+        if self.paged:
+            kv_pool_scatter_chunk(cache, st["pcache"], self._tables[slot],
+                                  off, C, self.scfg.block_size)
+        st["off"] = off + C
+        if st["off"] < st["cover"]:
+            self._prefill_q.append(slot)
+            return
+        self._prefills.pop(slot)         # last chunk: logits are at eff-1
+        if not self.paged:
+            state_slot_insert(cache, st["pcache"], slot)
+        self._activate(st["r"], slot, logits, slots, vecs, tok, ntok, done,
+                       gen, eff=st["eff"], k=st["k"])
 
     def _fill_slots(self, slots, queue, cache, vecs, tok, ntok, done,
                     gen) -> int:
@@ -431,6 +617,9 @@ class Engine:
                         self.tenant_stats[tenant]["deferrals"] += 1
                         deferred_round.add(tenant)
                     continue
+                if self.paged and \
+                        self._blocks_for(r) > self._alloc.free_blocks:
+                    continue             # pool pressure: wait or try next
                 if bucket is not None:
                     bucket.take(cost)
                 granted = r
@@ -464,9 +653,19 @@ class Engine:
         B = scfg.max_batch
         for r in requests:
             self._check_capacity(r)
-        cache = self.model.init_cache(B, scfg.kv_cache_len)
+        if self.paged:
+            layers, kvh, hd, dt = self._pool_geom
+            cache = kv_pool_init(layers, self._n_usable, scfg.block_size,
+                                 kvh, hd, dtype=dt, device=self.device)
+            self._alloc = BlockAllocator(self._n_usable)
+            self._tables = np.zeros((B, self._tables_len), np.int32)
+            self._slot_blocks: list[list[int]] = [[] for _ in range(B)]
+        else:
+            cache = self.model.init_cache(B, scfg.kv_cache_len)
         vecs = slot_vectors_init(B)
         self._slot_vecs = vecs
+        self._prefills = {}
+        self._prefill_q = deque()
         self._slot_started = [0] * B
         self._slot_seq = 0
         tok = np.zeros((B, 1), np.int32)
@@ -476,15 +675,21 @@ class Engine:
         done: list[Request] = []
         starved = 0
 
-        while queue or vecs["active"].any():
+        while queue or vecs["active"].any() or self._prefills:
             self._enforce_budget(slots, vecs, ntok, queue)
             granted = self._fill_slots(slots, queue, cache, vecs, tok, ntok,
                                        done, gen)
+            if self._prefill_q:          # one chunk per tick, interleaved
+                self._advance_chunk(cache, slots, vecs, tok, ntok, done, gen)
+            if self.paged:               # claim this tick's write blocks
+                for i in np.nonzero(vecs["active"])[0]:
+                    if vecs["active"][i]:
+                        self._ensure_blocks(int(i), slots, vecs, ntok, queue)
             active = np.nonzero(vecs["active"])[0]
             if not len(active):
-                if not queue:
+                if not queue and not self._prefills:
                     break
-                starved = 0 if granted else starved + 1
+                starved = 0 if granted or self._prefills else starved + 1
                 if starved > _MAX_STARVED_ROUNDS:
                     r = queue.popleft()
                     self._start_request(r, 0, cache, slots, vecs, tok, ntok,
@@ -493,10 +698,16 @@ class Engine:
                 continue
             starved = 0
 
-            self._decode_shapes.add(("slots", B, scfg.kv_cache_len))
-            logits, cache = self.model.decode_step_slots(
-                self.params, self._tensor(tok), cache,
-                self._tensor(vecs["pos"], torch.int32), dp=self.dp)
+            if self.paged:
+                self._decode_shapes.add(("pool", B,
+                                         self._tables_len * scfg.block_size))
+                logits, cache = self._step_pool(tok, cache, self._tables,
+                                                vecs["pos"], vecs["active"])
+            else:
+                self._decode_shapes.add(("slots", B, scfg.kv_cache_len))
+                logits, cache = self.model.decode_step_slots(
+                    self.params, self._tensor(tok), cache,
+                    self._tensor(vecs["pos"], torch.int32), dp=self.dp)
             nxt = sample(logits[:, -1, :], gen, scfg.temperature).cpu().numpy()
             for i in active:
                 r = slots[i]

@@ -28,6 +28,7 @@ from repro_torch.configs.base import ServeConfig as TServe
 from repro_torch.core.dataplane import Dataplane as TDataplane
 from repro_torch.core import policies as tpol
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import from_jax_params
 from repro_torch.serve import Engine as TEngine
@@ -140,10 +141,11 @@ def test_budget_preemption_resumes_exactly(smoke):
 
 def test_unported_options_raise(smoke):
     _, _, _, tcfg, tm, tp = smoke
-    with pytest.raises(ServeError, match="paged"):
-        TEngine(tm, tp, tcfg, TServe(block_size=16, kv_cache_len=64))
     with pytest.raises(ServeError, match="timelines"):
         TEngine(tm, tp, tcfg, TServe(), obs=object())
+    for flag in ("--timeline", "--elastic"):
+        with pytest.raises(ServeError, match="timelines"):
+            serve_main([flag, "--device", "cpu"])
     eng = TEngine(tm, tp, tcfg, TServe(max_batch=1, kv_cache_len=16,
                                        max_new_tokens=4))
     with pytest.raises(ServeError, match="cache positions"):

@@ -23,7 +23,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_dataplane_kernel.py",
                    "tests/test_torch_ssm_scan.py",
-                   "tests/test_torch_ssm_chunked.py")
+                   "tests/test_torch_ssm_chunked.py",
+                   "tests/test_torch_kvpool.py")
 _STANDING_IN = ("jax", "repro")
 
 
