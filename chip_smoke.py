@@ -60,7 +60,30 @@ Phases, one line each; any failure raises and the script exits nonzero:
    512)), and bounce launches on every chunk step and paged tick;
 4. the same for hymba-1.5b at full width and depth (32 layers), which
    the engine prefills at exact prompt length: flash launches are 32 per
-   prefill and ssm_scan launches 32 per prefill and per decode tick.
+   prefill and ssm_scan launches 32 per prefill and per decode tick;
+5a. the train path's kernels: (a) the flash kernel with its log-sum-exp
+   against its plain version at the train shapes (B=2, S=256, gemma3
+   heads, window 512 and global; lse within 2e-5 x max(1, |lse|), bf16
+   output as phase 2 holds it), its time against ATen's flash attention
+   (which also returns the lse); the QoS stall kernel returns ``x``
+   itself with one launch and no stream sync (sync debug mode "error"),
+   and its chain's slope is at least 1 ns an iteration;
+5. training: full-width, full-depth gemma3-1b from seed 0 (f32
+   parameters, bf16 compute) through ``make_explicit_dp_step`` on a mesh
+   of 2 ranks on the card, global batch 4, seq 256, 3 steps, with
+   ``benchmarks/converged.py``'s dataplane (cord, cost emulation,
+   telemetry, the train tenant throttled by a QoS token bucket).  Gates:
+   (b) the kernel forward against the plain forward inside the same
+   autograd function from the same state: loss within 2e-2 relative,
+   every synced gradient leaf at cosine > 0.99; (c) the runtime report:
+   13 ops a step, the recorded bytes 3 x 4 x the parameter count (the
+   float32 counter as the same adds give it), ``throttled`` as the port's
+   CPU path gives it for the same ops, ``kernel_iters`` the sum of
+   ``kernel_cost_totals``; (d) ``sync_grads`` under the sync debug mode
+   "error"; (e) launches per step: flash with lse 26 x 2, bounce 2 x 13
+   (cord's cost is on the send side only), stall 2 x 13.  It prints step
+   wall ms, ``sync_grads`` ms, the psums' bounce time against
+   ``torch.clone`` of the same payloads, and peak memory.
 
 ``--profile`` adds torch.profiler tables for one prefill of 256 tokens
 and one 4-slot decode tick of each model.  The line before the last is
@@ -642,10 +665,11 @@ def phase_ssm() -> dict:
 
 def _kernel_modules() -> dict:
     """name -> wrapper module of every kernel (each has ``LAUNCHES``)."""
-    from repro_torch.kernels.dataplane import bounce
+    from repro_torch.kernels.dataplane import bounce, stall
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ssm_scan import ops as ssm
-    return {"bounce": bounce, "flash_attention": flash, "ssm_scan": ssm}
+    return {"bounce": bounce, "flash_attention": flash, "ssm_scan": ssm,
+            "bounce_stall": stall}
 
 
 def _launches() -> dict:
@@ -1206,6 +1230,419 @@ def profile_serve(model, params, dataplane, prompts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the explicit-DP train step at full width through the dataplane
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_RANKS = 2          # mesh ("data",) of 2 ranks on the one card
+TRAIN_BATCH = 4          # global batch: 2 sequences a rank
+TRAIN_SEQ = 256
+TRAIN_STEPS = 3
+TRAIN_TENANTS = ("train", "alice", "bob")
+# f32 lse, kernel vs plain: both take the same bf16 products in f32; the
+# sums run in another order and the kernel works in base 2
+LSE_TOL = 2e-5
+TRAIN_LOSS_RTOL = 2e-2   # kernel vs plain forward inside the same function
+TRAIN_GRAD_COS = 0.99
+
+
+def _train_dataplane(dev):
+    """``benchmarks/converged.py``'s dataplane: cord with cost emulation,
+    telemetry, and the train tenant rate-limited by a QoS token bucket."""
+    from repro_torch.configs.base import DataplaneConfig
+    from repro_torch.core import Dataplane, QoSPolicy, TelemetryPolicy
+    from repro_torch.launch.mesh import make_mesh
+    return Dataplane(DataplaneConfig(mode="cord", emulate_costs=True),
+                     mesh=make_mesh((TRAIN_RANKS,), ("data",)),
+                     tenant="train", tenants=TRAIN_TENANTS,
+                     policies=[TelemetryPolicy(),
+                               QoSPolicy(rates={"train": 0.25}, burst=2.0,
+                                         stall_ns=200.0)],
+                     device=dev)
+
+
+def phase_train_kernels() -> dict:
+    """Gate (a): the flash kernel with its lse against its plain version at
+    the train shapes; and the QoS stall on the card: ``x`` itself back,
+    no stream sync, and a chain that runs in full."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import techniques as tech
+    from repro_torch.kernels.dataplane import stall as sk
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.layers.attention import flash_attention_bwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b, s, h, kvh, d = TRAIN_BATCH // TRAIN_RANKS, TRAIN_SEQ, 4, 1, 256
+    rows, lse_worst, o_worst = [], 0.0, 0.0
+    for window in (512, 0):           # 5 of 6 gemma3 layers, then global
+        q = (3 * torch.randn(b, s, h, d, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        k = torch.randn(b, s, kvh, d, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        v = (torch.rand(b, s, kvh, d, generator=gen, device=dev) * 3 - 1.5
+             ).to(torch.bfloat16)
+        o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+        po, plse = fa.flash_attention_plain(q, k, v, window=window,
+                                            return_lse=True)
+        torch.cuda.synchronize()
+        lse_err = (lse - plse).abs().max().item()
+        lse_lim = LSE_TOL * max(1.0, plse.abs().max().item())
+        o_err = (o.float() - po.float()).abs().max().item()
+        rms = po.float().pow(2).mean().sqrt().item()
+        if not (lse.shape == plse.shape == (b, kvh, h // kvh, s)
+                and math.isfinite(lse_err) and lse_err <= lse_lim
+                and o_err <= FLASH_BF16_TOL and rms >= 0.3):
+            raise AssertionError(
+                f"flash with lse at the train shapes, window {window}: lse "
+                f"error {lse_err} (limit {lse_lim}), output error {o_err} "
+                f"(limit {FLASH_BF16_TOL}, reference rms {rms})")
+        lse_worst, o_worst = max(lse_worst, lse_err), max(o_worst, o_err)
+        call = lambda: fa.flash_attention(q, k, v, window=window,  # noqa: E731
+                                          return_lse=True)
+        ms, dev_ms = _cuda_ms(call, n=20), _device_ms(call, n=20)
+        plain = _cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window, return_lse=True), n=5)
+        # one library call with the same outputs: aten's flash attention
+        # returns o and the lse; a window of 512 >= S is causal here
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kt = kt.repeat_interleave(h // kvh, dim=1).contiguous()
+        vt = vt.repeat_interleave(h // kvh, dim=1).contiguous()
+        lib = None
+        if window == 0 or window >= s:
+            lib_op = torch.ops.aten._scaled_dot_product_flash_attention
+            lib = _cuda_ms(lambda: lib_op(qt, kt, vt, 0.0, True), n=20)
+        # the backward the train step runs after it: plain torch
+        do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+        bwd_ms = _cuda_ms(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True, window=window), n=5)
+        flops = 4 * d * h * b * _pairs(s, s, window, s)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"window": window, "lse_err": lse_err, "o_err": o_err,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                     "library_ms": lib, "plain_bwd_ms": bwd_ms,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"})
+        _line(f"  flash+lse B={b} S={s} H={h} KVH={kvh} d={d} w={window}: "
+              f"lse err {lse_err:.3g} (<= {lse_lim:.3g}), o err "
+              f"{o_err:.3g}, {ms:.4f} ms, device "
+              f"{'n/a' if dev_ms is None else f'{dev_ms:.4f} ms'}, bound "
+              f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']}), "
+              f"aten flash {'n/a' if lib is None else f'{lib:.4f} ms'}, "
+              f"plain {plain:.3f} ms; plain backward {bwd_ms:.3f} ms")
+        del q, k, v, o, lse, po, plse, do
+
+    # the stall: x itself back, no sync, the chain's slope
+    x = torch.randn(1 << 20, generator=gen, device=dev)
+    keep = x.clone()
+    n_iters = 200_000
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    many = torch.full((), n_iters, dtype=torch.int32, device=dev)
+    tech.delay_chain_dyn(x, zero)
+    torch.cuda.synchronize()
+    n0 = sk.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [tech.delay_chain_dyn(x, it) for it in (zero, many)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not (all(o is x for o in outs) and torch.equal(_bits(x), _bits(keep))
+            and sk.LAUNCHES - n0 == 2):
+        raise AssertionError("the stall did not return x untouched with one "
+                             "launch a call")
+    ms0 = _cuda_ms(lambda: tech.delay_chain_dyn(x, zero), n=20)
+    ms1 = _cuda_ms(lambda: tech.delay_chain_dyn(x, many), n=5)
+    ns = (ms1 - ms0) * 1e6 / n_iters
+    if ns < 1.0:
+        raise AssertionError(f"stall chain slope {ns:.4f} ns/iteration < 1: "
+                             f"the chain does not run in full")
+    _line(f"  stall: x returned with no sync; {ms0 * 1e3:.2f} us at 0 "
+          f"iterations, chain slope {ns:.3f} ns/iteration")
+    _line(f"phase 5a train kernels ok: lse error {lse_worst:.3g} <= "
+          f"{LSE_TOL} x max(1, |lse|), stall slope {ns:.3f} ns")
+    return {"flash_lse": rows, "lse_worst_err": lse_worst,
+            "o_worst_err": o_worst, "stall_ms_zero": ms0,
+            "stall_ns_per_iter": ns}
+
+
+def _cpu_throttled(n_ops: int) -> float:
+    """The throttled count the port's CPU path gives for ``n_ops`` psums
+    of the train tenant through the same dataplane."""
+    import torch
+    dp = _train_dataplane("cpu")
+    st = dp.runtime_init()
+    for _ in range(n_ops):
+        _, st = dp.psum(torch.zeros(TRAIN_RANKS, 1), "data", state=st)
+    return dp.runtime_report(st)["train"]["throttled"]
+
+
+def phase_train() -> dict:
+    """Train full-width, full-depth gemma3-1b for a few steps through the
+    explicit-DP step and the converged dataplane; gates (b)-(e)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RunConfig, TrainConfig
+    from repro_torch.core import telemetry as tl
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import DataConfig, SyntheticLM, to_torch
+    from repro_torch.kernels.dataplane import bounce as bk
+    from repro_torch.kernels.dataplane import kernel_cost_totals
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state, make_explicit_dp_step
+    from repro_torch.train import rank_grads, sync_grads
+    from repro_torch.train import step as step_mod
+
+    dev = torch.device("cuda")
+    cfg = get_model_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(model, 0)
+    torch.cuda.synchronize()
+    leaves = tree_flatten(state.params)
+    n_params = sum(p.numel() for _, p in leaves)
+    _line(f"  {TRAIN_ARCH}: {cfg.num_layers} layers, {len(leaves)} leaves, "
+          f"{n_params:,} f32 params and AdamW state in "
+          f"{time.perf_counter() - t0:.1f} s; R={TRAIN_RANKS}, global batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}")
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH))
+    batches = [to_torch(ds.batch_at(i), dev) for i in range(TRAIN_STEPS)]
+
+    # (b) the kernel forward against the plain forward inside the same
+    # autograd function, from the same state and batch, synced through a
+    # dataplane of its own (the main path's counts stay clean)
+    synced, losses = {}, {}
+    for impl in ("flash", "plain"):
+        ls, _, g = rank_grads(model, state.params, batches[0], TRAIN_RANKS,
+                              impl=impl)
+        mean, _, _ = sync_grads(_train_dataplane(dev), g, "data")
+        del g
+        synced[impl] = {path: m[0].clone() for path, m in tree_flatten(mean)}
+        del mean
+        losses[impl] = float(sum(x.item() for x in ls) / len(ls))
+    rel = abs(losses["flash"] - losses["plain"]) / abs(losses["plain"])
+    cos = {"/".join(p): torch.nn.functional.cosine_similarity(
+        synced["flash"][p].flatten().double(),
+        synced["plain"][p].flatten().double(), dim=0).item()
+        for p in synced["flash"]}
+    if not (math.isfinite(losses["flash"]) and rel <= TRAIN_LOSS_RTOL
+            and min(cos.values()) > TRAIN_GRAD_COS):
+        raise AssertionError(f"kernel vs plain forward: loss "
+                             f"{losses['flash']} vs {losses['plain']} (rel "
+                             f"{rel:.3g}), gradient cosines {cos}")
+    _line(f"  (b) kernel vs plain forward: loss {losses['flash']:.5f} vs "
+          f"{losses['plain']:.5f} (rel {rel:.2e} <= {TRAIN_LOSS_RTOL}), "
+          f"min gradient cosine {min(cos.values()):.6f} over {len(cos)} "
+          f"leaves")
+    del synced
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_b_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: TRAIN_STEPS steps with runtime accounting; sync_grads
+    # timed and run under the sync debug mode (gate d)
+    dp = _train_dataplane(dev)
+    run = RunConfig(train=TrainConfig(steps=TRAIN_STEPS, learning_rate=5e-3,
+                                      warmup_steps=2))
+    step = make_explicit_dp_step(model, run, dp, runtime_accounting=True)
+    sync_ms = []
+    real_sync = step_mod.sync_grads
+
+    def timed_sync(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real_sync(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    step_mod.sync_grads = timed_sync
+    rt = dp.runtime_init()
+    wall, per_step, metrics = [], [], []
+    try:
+        _reset_launches()
+        fa.LSE_LAUNCHES = 0
+        for i in range(TRAIN_STEPS):
+            n0 = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m, rt = step(state, batches[i], rt)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+            per_step.append({k: v - n0[k] for k, v in
+                             {**_launches(),
+                              "flash_lse": fa.LSE_LAUNCHES}.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+    finally:
+        step_mod.sync_grads = real_sync
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_losses = [mt["loss"] for mt in metrics]
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError(f"a loss is not finite: {step_losses}")
+
+    # (c) the runtime report against what the path must give
+    rep = dp.runtime_report(rt)["train"]
+    sizes = [p.numel() for _, p in leaves]
+    n_ops = len(sizes) * TRAIN_STEPS
+    rec_bytes = dp.telemetry.by_kind()["all_reduce"]["bytes"]
+    acc_bytes, acc_iters = np.float32(0), np.float32(0)
+    rec0 = tl.OpRecord("all_reduce", "", 0, ())
+    send = (dp.pipeline.send_delay_iters(rec0), dp.pipeline.send_copies(rec0))
+    done = (dp.pipeline.complete_delay_iters(rec0),
+            dp.pipeline.complete_copies(rec0))
+    sides = sum(1 for it, cp in (send, done) if it or cp)
+    for _ in range(TRAIN_STEPS):       # issue order: leaves reversed
+        for n in reversed(sizes):
+            acc_bytes = np.float32(acc_bytes + np.float32(4 * n))
+            for it, cp in (send, done):
+                acc_iters = np.float32(acc_iters + np.float32(
+                    kernel_cost_totals(n, it, cp)[0]))
+    throttled = _cpu_throttled(n_ops)
+    want = {"ops": float(n_ops), "bytes": float(acc_bytes),
+            "throttled": throttled, "kernel_iters": float(acc_iters)}
+    got = {k: rep[k] for k in want}
+    if got != want or rec_bytes != TRAIN_STEPS * 4 * n_params:
+        raise AssertionError(f"runtime report {got}, want {want}; recorded "
+                             f"bytes {rec_bytes}, want "
+                             f"{TRAIN_STEPS * 4 * n_params}")
+    # (e) launches per step
+    per = {"flash_attention": cfg.num_layers * TRAIN_RANKS,
+           "flash_lse": cfg.num_layers * TRAIN_RANKS,
+           "bounce": TRAIN_RANKS * len(sizes) * sides,
+           "bounce_stall": TRAIN_RANKS * len(sizes), "ssm_scan": 0}
+    if any(p != per for p in per_step):
+        raise AssertionError(f"launches per step {per_step}, want {per}")
+
+    # one more step under torch.profiler: device busy time, the largest
+    # kernels, and the host's launches
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _, rt = step(state, batches[0], rt)
+        torch.cuda.synchronize()
+    prof_wall = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    busy_ms = _kernel_us(events) / 1e3
+    top = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                  for e in events if e.device_type == DeviceType.CUDA),
+                 key=lambda r: -r[2])[:8]
+    n_launch = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    # the port's kernels in that step: device ms and launches
+    step_kernels = {name: (sum(e.self_device_time_total for e in events
+                               if e.device_type == DeviceType.CUDA
+                               and sym in e.key) / 1e3,
+                           sum(e.count for e in events
+                               if e.device_type == DeviceType.CUDA
+                               and sym in e.key))
+                    for name, sym in (("bounce", "bounce_kernel"),
+                                      ("flash_lse", "flash_fwd_sm90"),
+                                      ("bounce_stall", "stall_kernel"))}
+
+    # the psums' bounce launches on payloads of the gradients' shapes (the
+    # parameters as rank 0's, the first moments as rank 1's): bit
+    # identity, time against torch.clone of the same payloads
+    grads = [(p, m) for (_, p), (_, m) in
+             zip(tree_flatten(state.params), tree_flatten(state.opt.mu))]
+    iters = send[0]
+    for g in grads:
+        for r in range(TRAIN_RANKS):
+            out, ctr = bk.mediated_cost(g[r], iters, 0)
+            want_out, want_ctr = bk.mediated_cost_plain(g[r], iters, 0)
+            if not (torch.equal(_bits(out), _bits(want_out))
+                    and torch.equal(ctr, want_ctr)):
+                raise AssertionError("a psum's bounce differs from its plain "
+                                     "version")
+            del out, want_out
+
+    def bounces():
+        for g in grads:
+            for r in range(TRAIN_RANKS):
+                bk.mediated_cost(g[r], iters, 0)
+
+    def clones():
+        for g in grads:
+            for r in range(TRAIN_RANKS):
+                g[r].clone()
+
+    def plains():
+        for g in grads:
+            for r in range(TRAIN_RANKS):
+                bk.mediated_cost_plain(g[r], iters, 0)
+
+    # the stall at one missing token's trip count, and its plain version
+    from repro_torch.kernels.dataplane import stall as sk
+    trip = dp.policies[1]._stall_iters
+    one = torch.zeros(1, device=dev)
+    trip_t = torch.full((), trip, dtype=torch.int32, device=dev)
+    stall_ms = _cuda_ms(lambda: sk.stall(one, trip_t), n=20)
+    stall_plain_ms = _wall_ms(lambda: sk.stall_plain(one, trip_t), n=5)
+    bounce_ms = _cuda_ms(bounces, n=3, warmup=1)
+    bounce_dev = step_kernels["bounce"][0]   # the profiled step's psums
+    clone_ms = _cuda_ms(clones, n=3, warmup=1)
+    plain_ms = _cuda_ms(plains, n=2, warmup=1)
+    moved = 2 * TRAIN_RANKS * 4 * n_params
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    del grads
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    res = {"arch": TRAIN_ARCH, "ranks": TRAIN_RANKS,
+           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "n_params": n_params, "leaves": len(sizes),
+           "losses": step_losses, "metrics": metrics,
+           "loss_kernel_vs_plain": losses, "grad_cos_min": min(cos.values()),
+           "step_wall_ms": wall, "sync_grads_ms": sync_ms,
+           "psum_bounce_ms": bounce_ms, "psum_bounce_device_ms": bounce_dev,
+           "psum_clone_ms": clone_ms, "psum_bounce_plain_ms": plain_ms,
+           "psum_bounce_bound_ms": bound_ms, "psum_bounce_err": 0.0,
+           "peak_gb": peak_gb, "peak_gate_b_gb": peak_b_gb,
+           "profiled_step_wall_ms": prof_wall, "device_busy_ms": busy_ms,
+           "cuda_launches_per_step": n_launch, "top_device": top,
+           "step_kernel_device_ms": step_kernels,
+           "report": got, "recorded_bytes": rec_bytes,
+           "launches": launches, "launches_per_step": per_step[0],
+           "stall_iters": trip, "stall_ms": stall_ms,
+           "stall_plain_ms": stall_plain_ms, "card": smi}
+    fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs)  # noqa: E731
+    _line(f"  losses {', '.join(f'{x:.5f}' for x in step_losses)}; step wall "
+          f"ms (synchronised) {fmt(wall)}; sync_grads ms {fmt(sync_ms)} "
+          f"(no stream sync under the sync debug mode)")
+    _line(f"  psums' bounce launches ({TRAIN_RANKS} x {len(sizes)}, "
+          f"{moved / 1e9:.2f} GB moved): {bounce_ms:.3f} ms events, "
+          f"{bounce_dev:.3f} ms device in the profiled step; "
+          f"torch.clone of the same {clone_ms:.3f} ms; bound "
+          f"{bound_ms:.3f} ms; plain {plain_ms:.3f} ms")
+    _line(f"  report {got}; recorded bytes {rec_bytes:,}; launches per step "
+          f"{per_step[0]}; peak memory {peak_gb:.2f} GB ({peak_b_gb:.2f} "
+          f"GB in gate b); card {smi}")
+    _line(f"  profiled step: {prof_wall:.1f} ms wall, device busy "
+          f"{busy_ms:.1f} ms, {n_launch} cudaLaunchKernel calls; port "
+          f"kernels (device ms, launches) {step_kernels}")
+    for key, count, ms in top:
+        _line(f"    device {ms:8.3f} ms {count:5d}x {key[:70]}")
+    _line(f"phase 5 train {TRAIN_ARCH} ok: {TRAIN_STEPS} steps, gates (b)-(e) "
+          f"held")
+    return res
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1226,6 +1663,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_build()
@@ -1244,6 +1682,8 @@ def main(argv=None) -> int:
         del inputs, res                # free this model before the next
         gc.collect()
         torch.cuda.empty_cache()
+    train_k = phase_train_kernels()
+    train = phase_train()
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -1287,6 +1727,38 @@ def main(argv=None) -> int:
          "plain_ms": main_ssm["plain_ms"], "bound_ms": main_ssm["bound_ms"],
          "bound_by": main_ssm["bound_by"], "library_ms": None},
     ]
+    # phase 5's path: the train step's launches, at the train shapes
+    lse_main = train_k["flash_lse"][0]          # window 512: 5 of 6 layers
+    stall_iters = train["stall_iters"]
+    kernels += [
+        {"name": "bounce (train: gradient psums)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": train["launches"]["bounce"],
+         "max_abs_err": train["psum_bounce_err"],
+         "ms": train["psum_bounce_ms"],
+         "device_ms": train["psum_bounce_device_ms"],
+         "plain_ms": train["psum_bounce_plain_ms"],
+         "bound_ms": train["psum_bounce_bound_ms"], "bound_by": "bytes",
+         "library_ms": train["psum_clone_ms"]},
+        {"name": "flash_attention (train forward with lse)", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+         "launches": train["launches"]["flash_lse"],
+         "max_abs_err": train_k["lse_worst_err"], "ms": lse_main["ms"],
+         "device_ms": lse_main["device_ms"], "plain_ms": lse_main["plain_ms"],
+         "bound_ms": lse_main["bound_ms"], "bound_by": lse_main["bound_by"],
+         "library_ms": train_k["flash_lse"][1]["library_ms"]},
+        {"name": "bounce_stall (QoS stall)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/core/techniques.py:75 (delay_chain_dyn, an "
+                     "XLA loop beside the Pallas kernel)",
+         "launches": train["launches"]["bounce_stall"], "max_abs_err": 0.0,
+         "ms": train["stall_ms"], "plain_ms": train["stall_plain_ms"],
+         "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
+         "bound_by": "operations", "library_ms": None},
+    ]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1294,9 +1766,12 @@ def main(argv=None) -> int:
                                    "cuda": torch.version.cuda,
                                    "bounce": bounce, "flash": flash,
                                    "ssm_scan": ssm, "serve": serve,
+                                   "train_kernels": train_k, "train": train,
                                    "profile": prof or None,
                                    "kernels": kernels},
                                   indent=1))
+    _line(f"chip_smoke: every phase ok in {time.perf_counter() - t_start:.1f}"
+          f" s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,20 @@ the placement is the identity, while the mediation work is real: with
 ``emulate_costs=True`` in ``cord`` mode every edge launches the dataplane
 kernel on the card.
 
+The explicit collectives (:meth:`psum`, :meth:`all_gather`,
+:meth:`reduce_scatter`, :meth:`all_to_all`, :meth:`ppermute`; the
+gradient sync's path) take and return *rank-stacked* tensors: the mesh
+axis they span has R ranks on the one card, and slice ``r`` of the
+leading dim is rank ``r``'s shard.  Each is one :meth:`_mediate`, as in
+``repro``'s ``shard_map`` body: one record describing one rank's shard;
+the pipeline's send and complete sides once per rank on that rank's
+slice (so the dataplane kernel launches once per rank and side with
+work, and its counters cover one shard as in ``repro``); the collective
+itself over the leading dim in plain torch.  Rank 0 carries the runtime
+state; ranks 1..R-1 run the same pipeline from the same incoming state
+and their result state is dropped, as ``out_specs=P()`` keeps one of
+``repro``'s replicated copies.
+
 Three modes (paper Fig. 2):
 
 ====== ============= ========= ============ =========================
@@ -20,12 +34,14 @@ socket **no**        **no**    **no**       all + heavy stack cost
 ====== ============= ========= ============ =========================
 
 Technique toggles in :class:`DataplaneConfig` override the mode presets.
-The five explicit collectives arrive with the training slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Sequence
+
+import torch
 
 from repro_torch.configs.base import DataplaneConfig
 from repro_torch.core import techniques as tech
@@ -113,6 +129,18 @@ class Dataplane:
     def mode(self) -> str:
         return self.cfg.mode
 
+    def with_mode(self, mode: str) -> "Dataplane":
+        return Dataplane(dataclasses.replace(self.cfg, mode=mode),
+                         mesh=self.mesh, rules=self.rules, tenant=self.tenant,
+                         tenants=self.tenants, device=self.device)
+
+    def axis_size(self, axis) -> int:
+        """Ranks that mesh axis (or axes) ``axis`` spans: the leading dim
+        of a rank-stacked tensor there."""
+        if self.mesh is None:
+            raise ValueError("explicit collectives need a mesh")
+        return self.mesh.axis_size(tl.normalize_axes(axis))
+
     # ------------------------------------------------------------------
     # per-tenant runtime state
     # ------------------------------------------------------------------
@@ -199,11 +227,123 @@ class Dataplane:
         return x
 
     # ------------------------------------------------------------------
+    # explicit collectives over rank-stacked tensors — uniform (out, state)
+    # ------------------------------------------------------------------
+    def _mediate(self, collective, kind: str, x, axis, tag: str, *,
+                 mr: str | None, state, qos: str, tenant: str | None,
+                 precharged: bool = False):
+        """One dataplane op: record (one rank's shard) → pipeline.send per
+        rank → collective → pipeline.complete per rank.  All five explicit
+        collectives are this.  ``collective`` maps the list of the ranks'
+        sent shards to the list of their outputs."""
+        r = self.axis_size(axis)
+        if x.dim() < 1 or x.shape[0] != r:
+            raise ValueError(f"{kind} over {axis!r} wants a rank-stacked "
+                             f"tensor with leading dim {r}, got "
+                             f"{tuple(x.shape)}")
+        rec = self._record(kind, tag, x[0], axis, qos, mr, tenant=tenant,
+                           precharged=precharged)
+        ti = self.tenant_index(tenant)
+        sent, states = [], []
+        for i in range(r):
+            xi, st = self.pipeline.send(x[i], rec, state, ti)
+            sent.append(xi)
+            states.append(st)
+        outs = collective(sent)
+        done = []
+        for i in range(r):
+            oi, st = self.pipeline.complete(outs[i], rec, states[i], ti)
+            done.append(oi)
+            states[i] = st
+        return _stack_ranks(done), states[0]
+
+    def psum(self, x, axis, tag: str = "psum", mr: str | None = None,
+             state=None, qos: str = "default", tenant: str | None = None,
+             precharged: bool = False):
+        """Every rank gets the sum of the ranks' shards, added in rank
+        order.  ``precharged=True`` marks an op whose QoS tokens were
+        already debited at chunk granularity by the issuer — the
+        token-bucket stage skips it."""
+        return self._mediate(_sum_ranks, "all_reduce", x, axis, tag, mr=mr,
+                             state=state, qos=qos, tenant=tenant,
+                             precharged=precharged)
+
+    def all_gather(self, x, axis, tag: str = "all_gather", *,
+                   gather_axis: int = 0, tiled: bool = False,
+                   mr: str | None = None, state=None, qos: str = "default",
+                   tenant: str | None = None):
+        def gather(xs):
+            out = (torch.cat(xs, dim=gather_axis) if tiled
+                   else torch.stack(xs, dim=gather_axis))
+            return [out] * len(xs)
+        return self._mediate(gather, "all_gather", x, axis, tag, mr=mr,
+                             state=state, qos=qos, tenant=tenant)
+
+    def reduce_scatter(self, x, axis, tag: str = "reduce_scatter", *,
+                       scatter_axis: int = 0, mr: str | None = None,
+                       state=None, qos: str = "default",
+                       tenant: str | None = None):
+        def scatter(xs):
+            total = _sum_ranks(xs)[0]
+            return [c.contiguous() for c in _split_ranks(total, len(xs),
+                                                         scatter_axis)]
+        return self._mediate(scatter, "reduce_scatter", x, axis, tag, mr=mr,
+                             state=state, qos=qos, tenant=tenant)
+
+    def all_to_all(self, x, axis, tag: str = "all_to_all", *,
+                   split_axis: int = 0, concat_axis: int = 0,
+                   mr: str | None = None, state=None, qos: str = "default",
+                   tenant: str | None = None):
+        def exchange(xs):
+            parts = [_split_ranks(t, len(xs), split_axis) for t in xs]
+            return [torch.cat([p[j] for p in parts], dim=concat_axis)
+                    for j in range(len(xs))]
+        return self._mediate(exchange, "all_to_all", x, axis, tag, mr=mr,
+                             state=state, qos=qos, tenant=tenant)
+
+    def ppermute(self, x, axis, perm, tag: str = "ppermute",
+                 mr: str | None = None, state=None, qos: str = "default",
+                 tenant: str | None = None):
+        """Rank ``dst`` gets rank ``src``'s shard for each ``(src, dst)``
+        of ``perm``; a rank that is no destination gets zeros."""
+        def permute(xs):
+            out = [torch.zeros_like(xs[0])] * len(xs)
+            for src, dst in perm:
+                out[dst] = xs[src]
+            return out
+        return self._mediate(permute, "collective_permute", x, axis, tag,
+                             mr=mr, state=state, qos=qos, tenant=tenant)
+
+    # ------------------------------------------------------------------
     # control plane
     # ------------------------------------------------------------------
     def reg_mr(self, name: str, x, tenant: str | None = None):
         """Control-plane memory registration (ioctl path in the paper)."""
         return self.registry.reg_mr(name, x, tenant or self.tenant)
+
+
+def _sum_ranks(xs: list) -> list:
+    total = xs[0]
+    for t in xs[1:]:
+        total = total + t
+    return [total] * len(xs)
+
+
+def _split_ranks(t: torch.Tensor, r: int, dim: int) -> tuple:
+    n = t.shape[dim]
+    if n % r:
+        raise ValueError(f"dim {dim} of extent {n} does not split over {r} "
+                         f"ranks")
+    return torch.split(t, n // r, dim=dim)
+
+
+def _stack_ranks(outs: list) -> torch.Tensor:
+    """The ranks' outputs as one rank-stacked tensor; when every rank
+    holds the same tensor (a psum's sum), a broadcast view of it."""
+    first = outs[0]
+    if all(o is first for o in outs):
+        return first.unsqueeze(0).expand(len(outs), *first.shape)
+    return torch.stack(outs)
 
 
 __all__ = ["Dataplane", "PolicyViolation"]

@@ -64,15 +64,12 @@ def delay_chain(x: torch.Tensor, iters: int) -> torch.Tensor:
 
 def delay_chain_dyn(x: torch.Tensor, iters) -> torch.Tensor:
     """``delay_chain`` with a trip count held in a tensor — the QoS token
-    bucket's runtime stall.  Only the CPU path exists in this slice: the
-    card's stall arrives with the explicit-collectives slice, where
-    runtime state is threaded through the dataplane."""
-    if x.device.type == "cuda":
-        raise NotImplementedError(
-            "delay_chain_dyn on a CUDA tensor (the QoS runtime stall) is "
-            "ported with the explicit-collectives slice")
-    n = int(iters.item()) if isinstance(iters, torch.Tensor) else int(iters)
-    return tie(x, delay_scalar(max(n, 0)))
+    bucket's runtime stall.  On a CUDA tensor the count stays on the
+    card: the stall kernel (``kernels/dataplane/stall.py``) reads it
+    there and ``x`` itself is returned, so no value is read back and no
+    stream waits.  On the CPU the chain runs on the host."""
+    from repro_torch.kernels.dataplane.stall import stall
+    return stall(x, iters)
 
 
 _CALIBRATION: dict[tuple[str, int], float] = {}   # (device type, iters) -> ns/iter

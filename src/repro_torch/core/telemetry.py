@@ -146,18 +146,22 @@ def tenant_counters_init(num_tenants: int, device=None) -> torch.Tensor:
 def tenant_counters_bump(ctrs: torch.Tensor, tenant_idx: int,
                          **bumps) -> torch.Tensor:
     """Return ``ctrs`` with one tenant's row bumped.  Each bump value is a
-    Python number or a 0-d tensor, converted to float32 before the add
-    (as ``repro`` converts with ``jnp.asarray(v, float32)``)."""
+    Python number or a 0-d tensor, taken as float32 before the add (as
+    ``repro`` converts with ``jnp.asarray(v, float32)``).  A Python
+    number is added as a scalar and a tensor in place on a copy, so a
+    bump on the card copies nothing from the host and never waits for
+    the device."""
     unknown = set(bumps) - set(_BUMP_FIELDS)
     if unknown:
         raise TypeError(f"unknown counter bump(s): {sorted(unknown)}")
-    row = [torch.as_tensor(bumps.get(name, 0), dtype=torch.float32,
-                           device=ctrs.device).reshape(())
-           for name in COUNTER_NAMES if name != "cq_depth"]
-    row.insert(CTR_CQ_DEPTH, torch.zeros((), dtype=torch.float32,
-                                         device=ctrs.device))
     out = ctrs.clone()
-    out[tenant_idx] += torch.stack(row)
+    row = out[tenant_idx]
+    for name, v in bumps.items():
+        j = COUNTER_NAMES.index(name)
+        if isinstance(v, torch.Tensor):
+            row[j] += v.to(torch.float32).reshape(())
+        elif v:
+            row[j] += v
     return out
 
 

@@ -62,6 +62,17 @@
 // C interface: bounce_launch returns 0 or a cudaError_t.  The caller
 // passes the device index and its SM count, so the launch makes no
 // device query; the shared-memory opt-in is made once per device.
+//
+// The QoS stall (bounce_stall_launch).  `repro`'s token bucket stalls a
+// throttled op by a serial chain whose trip count is a traced value
+// (`delay_chain_dyn`, an XLA while loop, not the Pallas kernel).  Here
+// one thread runs the same fma chain with its trip count read from an
+// int32 on the card, so the host never reads the deficit and never waits
+// for the device; stream order makes the payload's next use wait for the
+// chain, so the payload is neither copied nor touched.  The chain's
+// result goes to a one-word scratch buffer, or nvcc would delete the
+// loop.  A trip count <= 0 runs no iteration.  The stall writes no cost
+// counter: `repro`'s stall is not the kernel and is not in its counters.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -388,4 +399,23 @@ extern "C" int bounce_launch(const void* x, void* out, void* ctrs,
       reinterpret_cast<const void*>(bounce_kernel), dim3(p.grid),
       dim3(kThreads), args, static_cast<size_t>(p.smem),
       static_cast<cudaStream_t>(stream)));
+}
+
+namespace {
+
+__global__ void stall_kernel(const int* __restrict__ iters,
+                             float* __restrict__ sink) {
+  const int n = *iters;
+  float v = 1.0f;
+  for (int i = 0; i < n; ++i) v = fmaf(v, 1.0000001f, 1e-9f);
+  *sink = v;
+}
+
+}  // namespace
+
+extern "C" int bounce_stall_launch(const void* iters, void* sink,
+                                   void* stream) {
+  stall_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(iters), static_cast<float*>(sink));
+  return static_cast<int>(cudaGetLastError());
 }

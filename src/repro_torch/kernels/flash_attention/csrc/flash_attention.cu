@@ -66,6 +66,14 @@
 //   asm, so ptxas keeps the wgmma asynchronous (no C7514/C7520 warning).
 // - Epilogue: normalise by max(l, 1e-30), stage bf16 O in Q's shared
 //   memory, write it with 16-byte stores.
+// - Optional log-sum-exp (B, H, Sq) f32, for the training backward
+//   (`repro`'s `_flash_fwd_impl` returns it as (B, KVH, G, Sq), the same
+//   memory since h = kvh * G + g).  m and l are kept in base 2 (log2(e)
+//   is folded into the scale), so a row's natural-log lse of its scaled,
+//   soft-capped logits is (m + log2 l) * ln 2.  One of the four threads
+//   of a row writes it once O is staged, when O's registers are free.
+//   The wrapper refuses a call with a fully masked row, whose lse would
+//   be meaningless.  With a null pointer nothing more is done.
 // Every mbarrier wait traps after 2 s instead of hanging the card.
 //
 // f32 inputs (the smoke configs) take the CUDA-core kernel at the end of
@@ -373,7 +381,8 @@ __global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
+                      __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Skv, int H,
                       int KVH, int causal, int window, int valid_len,
                       float logit_cap, float scale) {
   using L = Smem<D>;
@@ -529,6 +538,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             pack_bf16(acc[p][4 * i + 2] * inv_b, acc[p][4 * i + 3] * inv_b);
       }
     asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+    if (lse != nullptr && c == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq + q0;
+      if (q0 + ra < Sq) lrow[ra] = (m_a + log2f(fmaxf(l_a, 1e-30f))) * kLn2;
+      if (q0 + rb < Sq) lrow[rb] = (m_b + log2f(fmaxf(l_b, 1e-30f))) * kLn2;
+    }
     constexpr int kChunks = D / 8;   // 16-byte chunks in a row
     for (int idx = threadIdx.x; idx < kBQ * kChunks; idx += kConsumers) {
       const int r = idx / kChunks, ch = idx % kChunks;
@@ -596,7 +611,8 @@ bool encode_qkv(CUtensorMap* maps, const void* q, const void* k,
 }
 
 template <int D>
-int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
+int launch_sm90(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B,
                 int Sq, int Skv, int H, int KVH, int causal, int window,
                 int valid_len, float logit_cap, float scale,
                 cudaStream_t stream) {
@@ -619,8 +635,9 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
   if (!encode_qkv(maps, q, k, v, B, Sq, Skv, H, KVH, D)) return kErrTensorMap;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, L::ALLOC, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), Sq, Skv, H,
-      KVH, causal, window, valid_len, logit_cap, scale);
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), Sq, Skv, H, KVH, causal, window, valid_len,
+      logit_cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -674,6 +691,7 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse,
                      int Sq, int Skv, int H, int KVH, int causal, int window,
                      int valid_len, float logit_cap, float scale) {
   using L = F32Layout<D>;
@@ -799,10 +817,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     o[(static_cast<long long>(b) * Sq + q_start + r) * q_stride +
       static_cast<long long>(h) * D + d] = sO[r * L::LDO + d] / denom;
   }
+  // the natural-log lse of each row (m and l are in base e here)
+  if (lse != nullptr) {
+    for (int r = tid; r < BQ && q_start + r < Sq; r += kF32Threads)
+      lse[(static_cast<long long>(b) * H + h) * Sq + q_start + r] =
+          sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  }
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B,
                int Sq, int Skv, int H, int KVH, int causal, int window,
                int valid_len, float logit_cap, float scale,
                cudaStream_t stream) {
@@ -824,17 +849,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + L::BQ - 1) / L::BQ, H, B);
   kern<<<grid, kF32Threads, L::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KVH,
-      causal, window, valid_len, logit_cap, scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Sq, Skv, H, KVH, causal, window, valid_len,
+      logit_cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (D in {16, 32, 64, 128, 256}), 1 = bfloat16 (D in
-// {64, 128, 256}).
+// {64, 128, 256}).  `lse`: null, or (B, H, Sq) float32 for the rows'
+// natural-log log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
+                                      const void* v, void* o, void* lse,
+                                      int dtype,
                                       int B, int Sq, int Skv, int H, int KVH,
                                       int D, int causal, int window,
                                       int valid_len, float logit_cap,
@@ -842,7 +870,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(FN, DD)                                                  \
   case DD:                                                                  \
-    return FN<DD>(q, k, v, o, B, Sq, Skv, H, KVH, causal, window,          \
+    return FN<DD>(q, k, v, o, lse, B, Sq, Skv, H, KVH, causal, window,     \
                   valid_len, logit_cap, scale, s);
   if (dtype == 1) {
     switch (D) {

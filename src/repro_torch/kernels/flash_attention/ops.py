@@ -3,7 +3,14 @@
 Takes the framework's (B, S, H, D) layout, handles GQA shapes and the
 runtime window / valid-length scalars.  Given CUDA tensors it launches the
 Hopper kernel (or raises); given CPU tensors it runs the plain version,
-``ref.flash_attention_ref``.  ``LAUNCHES`` counts kernel launches.
+``ref.flash_attention_ref``.  ``LAUNCHES`` counts kernel launches and
+``LSE_LAUNCHES`` those of them that also wrote the log-sum-exp.
+
+``return_lse=True`` adds each row's natural-log log-sum-exp of its
+scaled, soft-capped logits, (B, KVH, G, Sq) float32 as ``repro``'s
+``_flash_fwd_impl`` returns it, for the training backward.  A call whose
+masks leave some query row with no key is refused then: such a row has
+no log-sum-exp.
 
 The bf16 kernel (wgmma on 64-column panels) takes D in {64, 128, 256};
 bf16 q/k/v with D of 16 or 32 are zero-padded to 64 here, which leaves
@@ -27,16 +34,43 @@ _ERR_TENSOR_MAP = 10001   # flash_attention_launch's code beside cudaError_t
 
 # kernel launches since the count was last set to 0
 LAUNCHES = 0
+LSE_LAUNCHES = 0
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          logit_cap: float = 0.0, valid_len=None):
+                          logit_cap: float = 0.0, valid_len=None,
+                          return_lse: bool = False):
     """The kernel's plain version in the (B, S, H, D) layout, any device."""
-    o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), window=int(window or 0),
-                            valid_len=valid_len, causal=causal,
-                            logit_cap=logit_cap)
-    return o.transpose(1, 2)
+    if return_lse:
+        _check_rows(q, k, causal, window, valid_len)
+    out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), window=int(window or 0),
+                              valid_len=valid_len, causal=causal,
+                              logit_cap=logit_cap, return_lse=return_lse)
+    if not return_lse:
+        return out.transpose(1, 2)
+    o, lse = out
+    return o.transpose(1, 2), _lse_view(lse, k.shape[2])
+
+
+def _lse_view(lse, kvh: int):
+    """(B, H, Sq) as ``repro``'s (B, KVH, G, Sq): the same memory."""
+    b, h, sq = lse.shape
+    return lse.reshape(b, kvh, h // kvh, sq)
+
+
+def _check_rows(q, k, causal: bool, window, valid_len) -> None:
+    """Refuse masks that leave a query row with no key.  Query row i of
+    0..Sq-1 sees keys below kv_end = min(valid_len, Skv), from i - window
+    + 1 on with a window, and up to i when causal; the first and last
+    rows are the first to run empty."""
+    sq, skv = q.shape[1], k.shape[1]
+    kv_end = min(skv if valid_len is None else int(valid_len), skv)
+    w = int(window or 0)
+    if kv_end < 1 or (w > 0 and kv_end < sq - w + 1):
+        raise ValueError(f"flash_attention with lse: a query row has no "
+                         f"key (Sq {sq}, kv_end {kv_end}, window {w}, "
+                         f"causal {causal})")
 
 
 def _check(q, k, v) -> None:
@@ -65,9 +99,9 @@ def _check(q, k, v) -> None:
             raise ValueError("flash_attention: q/k/v on different devices")
 
 
-# q, k, v, o; dtype, B, Sq, Skv, H, KVH, D, causal, window, valid_len;
-# logit_cap, scale; stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+# q, k, v, o, lse; dtype, B, Sq, Skv, H, KVH, D, causal, window,
+# valid_len; logit_cap, scale; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
     [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 _FN = None
 
@@ -80,9 +114,12 @@ def _bind():
     return _FN
 
 
-def _kernel(q, k, v, *, causal, window, logit_cap, valid_len):
-    global LAUNCHES
+def _kernel(q, k, v, *, causal, window, logit_cap, valid_len,
+            return_lse=False):
+    global LAUNCHES, LSE_LAUNCHES
     _check(q, k, v)
+    if return_lse:
+        _check_rows(q, k, causal, window, valid_len)
     d = q.shape[3]
     scale = 1.0 / math.sqrt(d)
     if q.dtype == torch.bfloat16 and d < _BF16_MIN_D:
@@ -91,8 +128,11 @@ def _kernel(q, k, v, *, causal, window, logit_cap, valid_len):
     b, sq, h, dk = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     err = (_FN or _bind())(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         _DTYPES[q.dtype], b, sq, skv, h, kvh, dk, int(bool(causal)),
         int(window or 0), int(skv if valid_len is None else valid_len),
         float(logit_cap), scale, build.raw_stream(q.get_device()))
@@ -101,7 +141,11 @@ def _kernel(q, k, v, *, causal, window, logit_cap, valid_len):
                            "refused a tensor map")
     build.check(err, "flash_attention_launch")
     LAUNCHES += 1
-    return o if dk == d else o[..., :d].contiguous()
+    o = o if dk == d else o[..., :d].contiguous()
+    if lse is None:
+        return o
+    LSE_LAUNCHES += 1
+    return o, _lse_view(lse, kvh)
 
 
 def tensor_map_ns(q, k, v, iters: int = 1000) -> float:
@@ -120,19 +164,21 @@ def tensor_map_ns(q, k, v, iters: int = 1000) -> float:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    logit_cap: float = 0.0, valid_len=None):
+                    logit_cap: float = 0.0, valid_len=None,
+                    return_lse: bool = False):
     """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D).  Query positions are
     0..Sq-1 and key positions 0..Skv-1.  ``window``: int (0/None =
-    global).  ``valid_len``: filled kv length; defaults to Skv."""
+    global).  ``valid_len``: filled kv length; defaults to Skv.  Returns
+    o, or (o, lse) with ``return_lse``."""
     window = int(window or 0)
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+              valid_len=valid_len, return_lse=return_lse)
     if q.device.type == "cuda":
-        return _kernel(q, k, v, causal=causal, window=window,
-                       logit_cap=logit_cap, valid_len=valid_len)
+        return _kernel(q, k, v, **kw)
     if q.device.type != "cpu":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 logit_cap=logit_cap, valid_len=valid_len)
+    return flash_attention_plain(q, k, v, **kw)
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "tensor_map_ns",
-           "HEAD_DIMS", "LAUNCHES"]
+           "HEAD_DIMS", "LAUNCHES", "LSE_LAUNCHES"]

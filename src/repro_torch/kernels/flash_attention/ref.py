@@ -15,9 +15,11 @@ NEG_INF = -2.0**30
 
 def flash_attention_ref(q, k, v, *, window: int = 0,
                         valid_len: int | None = None, causal: bool = True,
-                        logit_cap: float = 0.0):
+                        logit_cap: float = 0.0, return_lse: bool = False):
     """q: (B, H, Sq, D); k/v: (B, KVH, Skv, D). Returns (B, H, Sq, D) in
-    q's dtype, computed in float32."""
+    q's dtype, computed in float32; with ``return_lse`` also each row's
+    natural-log log-sum-exp (B, H, Sq) float32 of its scaled, soft-capped,
+    masked logits."""
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     g = h // kvh
@@ -42,7 +44,10 @@ def flash_attention_ref(q, k, v, *, window: int = 0,
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     p = p * mask  # fully-masked rows -> 0 (flash convention), not uniform
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(logits, dim=-1)
+    return o
 
 
 __all__ = ["flash_attention_ref", "NEG_INF"]

@@ -6,9 +6,15 @@ query heads into KVH groups of size G = H // KVH.
 
 :func:`attend` takes the flash-attention kernel
 (``kernels/flash_attention``) for whole-sequence attention with positions
-0..S-1 and no per-key validity — the prefill — and the plain masked
-softmax (:func:`attend_naive`) for the decode and chunk modes, which JAX
-also computes outside its Pallas kernel.
+0..S-1 and no per-key validity — the prefill and the training forward —
+and the plain masked softmax (:func:`attend_naive`) for the decode and
+chunk modes, which JAX also computes outside its Pallas kernel.
+
+With gradients wanted, whole-sequence attention is :class:`FlashAttention`,
+an autograd function: its forward is the kernel with its log-sum-exp, its
+backward :func:`flash_attention_bwd`, a plain-torch port of ``repro``'s
+blockwise ``_flash_bwd`` (``repro`` too computes the backward outside any
+Pallas kernel).
 """
 
 from __future__ import annotations
@@ -124,6 +130,92 @@ def _check_iota(pos: torch.Tensor, n: int, what: str) -> None:
                          f" (whole-sequence prefill)")
 
 
+def _blocking(sq: int, skv: int, q_block: int, kv_block: int):
+    qb = min(q_block, sq)
+    while sq % qb:
+        qb -= 1
+    kb = min(kv_block, skv)
+    while skv % kb:
+        kb -= 1
+    return qb, kb
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window,
+                        logit_cap: float = 0.0, q_block: int = 512,
+                        kv_block: int = 1024):
+    """(dq, dk, dv) of whole-sequence attention (positions 0..S-1) from
+    the forward's ``o`` and ``lse`` (B, KVH, G, Sq): ``repro``'s
+    ``_flash_bwd``, block by block in the same order (kv blocks outer, q
+    blocks inner), the probabilities recomputed from the saved lse,
+    ``delta = rowsum(do * o)``, the soft cap's derivative, all in float32
+    and cast to the inputs' dtypes at the end."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    qb, kb = _blocking(sq, skv, q_block, kv_block)
+    dev = q.device
+    delta = (do.float() * o.float()).sum(-1)                  # (b, sq, h)
+    delta = delta.reshape(b, sq, kvh, g).permute(0, 2, 3, 1)  # (b,kvh,g,sq)
+    qg = q.reshape(b, sq, kvh, g, d).float()
+    dog = do.reshape(b, sq, kvh, g, d).float()
+    kf, vf = k.float(), v.float()
+    q_pos = torch.arange(sq, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(skv, dtype=torch.int32, device=dev)
+    dq = torch.zeros((b, sq, kvh, g, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, skv, kvh, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, skv, kvh, d), dtype=torch.float32, device=dev)
+    for j in range(0, skv, kb):
+        kj, vj = kf[:, j:j + kb], vf[:, j:j + kb]
+        for i in range(0, sq, qb):
+            qi, doi = qg[:, i:i + qb], dog[:, i:i + qb]
+            raw = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj)
+            logits = _softcap(raw * scale, logit_cap)
+            mask = make_mask(q_pos[i:i + qb], k_pos[j:j + kb],
+                             causal=causal, window=window)
+            logits = torch.where(mask, logits,
+                                 torch.full_like(logits, NEG_INF))
+            p = torch.exp(logits - lse[..., i:i + qb, None])
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", doi, vj)
+            ds = p * (dp - delta[..., i:i + qb, None])
+            if logit_cap > 0:   # soft cap's derivative: 1 - tanh(raw/cap)^2
+                ds = ds * (1.0 - torch.square(torch.tanh(
+                    raw * scale / logit_cap)))
+            dq[:, i:i + qb] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                            kj) * scale
+            dk[:, j:j + kb] += torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                                            qi) * scale
+            dv[:, j:j + kb] += torch.einsum("bhgqk,bqhgd->bkhd", p, doi)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Whole-sequence attention with a gradient.  Forward: the flash
+    kernel with its log-sum-exp (its plain version on the CPU, or with
+    ``plain=True`` anywhere, so the card can hold the kernel against it
+    inside the same function); backward: :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap, plain):
+        from repro_torch.kernels.flash_attention import ops
+        fwd = ops.flash_attention_plain if plain else ops.flash_attention
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = fwd(q, k, v, causal=causal, window=int(window or 0),
+                     logit_cap=logit_cap, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = (causal, window, logit_cap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, logit_cap = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window, logit_cap=logit_cap)
+        return dq, dk, dv, None, None, None, None
+
+
 def attend(q, k, v, *, q_pos, k_pos, causal: bool = True, window=None,
            logit_cap: float = 0.0, k_valid=None, impl: str = "flash"):
     """Attention over (B, S, H, D) activations.
@@ -132,16 +224,25 @@ def attend(q, k, v, *, q_pos, k_pos, causal: bool = True, window=None,
     goes through ``kernels/flash_attention`` (the Hopper kernel on a CUDA
     tensor, its plain version on the CPU), which assumes positions
     0..S-1 — checked here (for free when the positions are
-    :func:`prefill_positions`, by value otherwise).  With ``k_valid`` (decode / chunk modes) or
-    ``impl="naive"`` it is the plain masked softmax."""
-    if impl not in ("flash", "naive"):
+    :func:`prefill_positions`, by value otherwise).  When q, k or v wants
+    a gradient it is :class:`FlashAttention`.  ``impl="plain"`` is the
+    same with the kernel's plain version as the forward, on any device.
+    With ``k_valid`` (decode / chunk modes) or ``impl="naive"`` it is the
+    plain masked softmax."""
+    if impl not in ("flash", "plain", "naive"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "flash" and k_valid is None:
+    if impl != "naive" and k_valid is None:
         _check_iota(q_pos, q.shape[1], "query")
         _check_iota(k_pos, k.shape[1], "key")
-        from repro_torch.kernels.flash_attention.ops import flash_attention
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               logit_cap=logit_cap)
+        plain = impl == "plain"
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window, logit_cap,
+                                        plain)
+        from repro_torch.kernels.flash_attention import ops
+        fwd = ops.flash_attention_plain if plain else ops.flash_attention
+        return fwd(q, k, v, causal=causal, window=int(window or 0),
+                   logit_cap=logit_cap)
     qp = q_pos[0] if q_pos.dim() == 2 else q_pos
     mask = make_mask(qp, k_pos, causal=causal, window=window, k_valid=k_valid)
     return attend_naive(q, k, v, mask, logit_cap=logit_cap)
@@ -149,5 +250,6 @@ def attend(q, k, v, *, q_pos, k_pos, causal: bool = True, window=None,
 
 __all__ = [
     "attention_init", "qkv_project", "output_project", "make_mask",
-    "attend", "attend_naive", "prefill_positions", "NEG_INF",
+    "attend", "attend_naive", "prefill_positions", "FlashAttention",
+    "flash_attention_bwd", "NEG_INF",
 ]

@@ -2,9 +2,9 @@
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 have the same signatures as ``repro``'s, bound to one device, so the
-serving engine is architecture-agnostic.  The port serves the dense
-family (gemma3, granite) and the hybrid family (hymba); the others
-arrive in later slices.
+serving engine and the train step are architecture-agnostic.  The port
+serves the dense family (gemma3, granite) and the hybrid family (hymba),
+and trains the dense family; the others arrive in later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    # (params, batch, **kw) -> (loss, metrics); dense family only
+    loss: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -48,6 +50,8 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             cfg=cfg,
             device=dev,
             init=_init(m.transformer_init, cfg, dev),
+            loss=lambda params, batch, **kw: m.transformer_loss(
+                params, cfg, batch, **kw),
             init_cache=lambda batch, max_len: m.transformer_init_cache(
                 cfg, batch, max_len, device=dev),
             prefill=lambda params, batch, cache, **kw: m.transformer_prefill(
@@ -68,6 +72,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             cfg=cfg,
             device=dev,
             init=_init(m.hybrid_init, cfg, dev),
+            loss=_hybrid_loss,
             init_cache=lambda batch, max_len: m.hybrid_init_cache(
                 cfg, batch, max_len, device=dev),
             prefill=lambda params, batch, cache, **kw: m.hybrid_prefill(
@@ -82,6 +87,12 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     raise NotImplementedError(
         f"the {cfg.family!r} family is ported in a later slice; the port "
         f"serves the dense and hybrid families")
+
+
+def _hybrid_loss(params, batch, **kw):
+    raise NotImplementedError("training the hybrid family is ported with a "
+                              "later slice (its forward has no training "
+                              "mode yet)")
 
 
 def _init(init_fn, cfg: ModelConfig, dev: torch.device) -> Callable:

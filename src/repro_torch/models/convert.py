@@ -4,7 +4,8 @@
 per-layer weights stacked on a leading axis), so conversion is a copy of
 every leaf into a tensor.  The caller hands the JAX parameters over as
 numpy arrays (``jax.tree.map(np.asarray, params)``); this module itself
-never imports JAX.
+never imports JAX.  :func:`train_state_to_numpy` goes the other way for a
+train state, so it can be held against ``repro``'s.
 """
 
 from __future__ import annotations
@@ -38,4 +39,28 @@ def from_jax_params(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     return out
 
 
-__all__ = ["from_jax_params"]
+def to_numpy(tree):
+    """A numpy copy of a nested dict of tensors (bf16 as float32); None
+    stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_to_numpy(state) -> dict:
+    """A ``train.step.TrainState`` as numpy, laid out as ``repro``'s
+    ``TrainState`` converts with ``jax.tree.map(np.asarray, ...)``:
+    ``params``, ``opt`` (``step``, ``mu``, ``nu``), ``step`` and ``err``
+    (the int8 error feedback, or None)."""
+    return {"params": to_numpy(state.params),
+            "opt": {"step": to_numpy(state.opt.step),
+                    "mu": to_numpy(state.opt.mu),
+                    "nu": to_numpy(state.opt.nu)},
+            "step": to_numpy(state.step),
+            "err": to_numpy(state.err)}
+
+
+__all__ = ["from_jax_params", "to_numpy", "train_state_to_numpy"]

@@ -8,8 +8,10 @@ communication edge is issued through the CoRD dataplane (``dp``); with a
 mesh and ``emulate_costs`` each edge launches the dataplane kernel on the
 card.
 
-The KV cache is updated in place (``layers/kvcache.py``).  Whole-prompt
-prefill attends through the flash kernel; decode and prefill chunks
+Training (:func:`transformer_loss`) runs the whole sequence with no
+cache and attends through the flash kernel's autograd function.  The KV
+cache is updated in place (``layers/kvcache.py``).  Whole-prompt prefill
+attends through the flash kernel; decode and prefill chunks
 (:func:`transformer_prefill_chunk`, a chunk at an offset against the
 cache filled so far) take the plain masked softmax, as ``repro`` computes
 them outside its Pallas kernel.
@@ -39,6 +41,7 @@ from repro_torch.layers.kvcache import (
     slot_validity,
 )
 from repro_torch.layers.mlp import mlp, mlp_init
+from repro_torch.models.losses import ce_metrics, chunked_ce_loss
 
 CACHE_AXES = ("batch", "kv_seq", "kv_heads", "cache_head_dim")
 
@@ -108,13 +111,16 @@ def _layer_params(params: dict, i: int) -> dict:
 
 
 def _layer(lp, x, *, cfg, dp, positions, window, theta, mode,
-           cache_k=None, cache_v=None, cache_pos=None):
+           cache_k=None, cache_v=None, cache_pos=None, impl="flash"):
     a = cfg.attention
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     q, k, v = qkv_project(lp["attn"], h, num_kv_heads=a.num_kv_heads,
                           positions=positions, theta=theta,
                           qk_norm=a.qk_norm, eps=cfg.norm_eps, dp=dp)
-    if mode == "prefill":
+    if mode == "train":
+        o = attend(q, k, v, q_pos=positions, k_pos=positions, causal=True,
+                   window=window, logit_cap=a.logit_softcap, impl=impl)
+    elif mode == "prefill":
         kv_update(cache_k, cache_v, k, v, 0)
         o = attend(q, k, v, q_pos=positions, k_pos=positions, causal=True,
                    window=window, logit_cap=a.logit_softcap)
@@ -161,31 +167,52 @@ def _layer(lp, x, *, cfg, dp, positions, window, theta, mode,
 
 
 def _run_layers(params, cfg, x, *, dp, positions, mode, cache,
-                cache_pos=None):
+                cache_pos=None, impl="flash"):
     window_arr, theta_arr = layer_flags(cfg)
     for i in range(cfg.num_layers):
         x = _layer(_layer_params(params["layers"], i), x, cfg=cfg, dp=dp,
                    positions=positions, window=int(window_arr[i]),
                    theta=float(theta_arr[i]), mode=mode,
-                   cache_k=cache["k"][i], cache_v=cache["v"][i],
-                   cache_pos=cache_pos)
+                   cache_k=None if cache is None else cache["k"][i],
+                   cache_v=None if cache is None else cache["v"][i],
+                   cache_pos=cache_pos, impl=impl)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def transformer_apply(params, cfg: ModelConfig, batch: dict, *, dp=None,
-                      cache=None):
-    """Whole-sequence forward in prefill mode, filling ``cache`` in place.
-    Returns (final_hiddens, new_cache)."""
-    if cache is None:
-        raise NotImplementedError("the training forward (cache=None) is "
-                                  "ported with the training slice")
+                      cache=None, train=False, remat="none", impl="flash"):
+    """Whole-sequence forward from position 0.  With ``cache`` it is the
+    prefill and fills the cache in place; without, the training forward
+    (``repro``'s ``mode="train"``).  Returns (final_hiddens, cache).
+
+    ``remat="none"`` only: the ``"full"`` and ``"dots"`` rematerialisation
+    policies are ported with a later slice.  ``impl`` picks the
+    whole-sequence attention (``layers/attention.attend``)."""
+    if remat != "none":
+        raise NotImplementedError(f"remat={remat!r} is ported with a later "
+                                  f"slice; the port trains with "
+                                  f"remat='none'")
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = embed(params["embed"], tokens, dtype_of(cfg.dtype), dp=dp)
     positions = prefill_positions(s, tokens.device)
     x = _run_layers(params, cfg, x, dp=dp, positions=positions,
-                    mode="prefill", cache=cache)
+                    mode="prefill" if cache is not None else "train",
+                    cache=cache, impl=impl)
     return x, cache
+
+
+def transformer_loss(params, cfg: ModelConfig, batch: dict, *, dp=None,
+                     rng=None, remat="none", impl="flash"):
+    """Mean next-token cross entropy of ``batch`` (tokens, labels; -1
+    ignored) and its metrics: ``(loss, metrics)`` as ``repro``'s."""
+    x, _ = transformer_apply(params, cfg, batch, dp=dp, train=True,
+                             remat=remat, impl=impl)
+    table = params["embed"].get("head", params["embed"]["tok"])
+    loss, correct, count = chunked_ce_loss(x, table, batch["labels"], dp=dp)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    m = ce_metrics(loss, correct, count, aux)
+    return m["loss"], m
 
 
 def transformer_init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -261,7 +288,8 @@ def transformer_decode_step_slots(params, cfg: ModelConfig, token, cache,
 
 
 __all__ = [
-    "transformer_init", "transformer_apply", "transformer_init_cache",
+    "transformer_init", "transformer_apply", "transformer_loss",
+    "transformer_init_cache",
     "transformer_prefill", "transformer_prefill_chunk",
     "transformer_decode_step",
     "transformer_decode_step_slots", "layer_flags",

@@ -24,7 +24,10 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_dataplane_kernel.py",
                    "tests/test_torch_ssm_scan.py",
                    "tests/test_torch_ssm_chunked.py",
-                   "tests/test_torch_kvpool.py")
+                   "tests/test_torch_kvpool.py",
+                   "tests/test_torch_collectives.py",
+                   "tests/test_torch_train_attention.py",
+                   "tests/test_torch_train_step.py")
 _STANDING_IN = ("jax", "repro")
 
 

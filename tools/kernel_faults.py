@@ -5,8 +5,8 @@
 
 For each fault (all of them without arguments) it copies
 ``chip_smoke.py`` and ``src/`` into a temporary directory, makes one
-edit to one kernel source there, builds the kernels and runs the phase
-of ``chip_smoke.py`` that checks that kernel.  A fault is caught when the
+edit to one kernel source or wrapper there, builds the kernels and runs
+the phase of ``chip_smoke.py`` that checks that kernel.  A fault is caught when the
 phase fails.  One line per fault gives the error the phase reported; the
 exit code is nonzero when a fault was missed.
 """
@@ -23,6 +23,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 _FLASH = "kernels/flash_attention/csrc/flash_attention.cu"
 _SSM = "kernels/ssm_scan/csrc/ssm_scan.cu"
 _BOUNCE = "kernels/dataplane/csrc/bounce.cu"
+_STALL = "kernels/dataplane/stall.py"
 
 # name -> (source under src/repro_torch, text, replacement, phase)
 FAULTS = {
@@ -90,6 +91,21 @@ FAULTS = {
     "bounce_chain_one_iteration": (
         _BOUNCE, "for (long long i = 0; i < total; ++i)",
         "for (long long i = 0; i < 1; ++i)", "phase_bounce"),
+    # the lse is written in base 2: m + log2 l without the factor ln 2
+    "flash_lse_base_2": (
+        _FLASH,
+        "      if (q0 + ra < Sq) lrow[ra] = (m_a + log2f(fmaxf(l_a, 1e-30f))) "
+        "* kLn2;\n"
+        "      if (q0 + rb < Sq) lrow[rb] = (m_b + log2f(fmaxf(l_b, 1e-30f))) "
+        "* kLn2;\n",
+        "      if (q0 + ra < Sq) lrow[ra] = m_a + log2f(fmaxf(l_a, 1e-30f));\n"
+        "      if (q0 + rb < Sq) lrow[rb] = m_b + log2f(fmaxf(l_b, 1e-30f));\n",
+        "phase_train_kernels"),
+    # the QoS stall reads its trip count once on the host (a stream sync)
+    "stall_trip_count_on_host": (
+        _STALL, "    iters = iters.to(torch.int32).contiguous()\n",
+        "    iters = torch.full((), int(iters.item()), dtype=torch.int32,\n"
+        "                       device=x.device)\n", "phase_train_kernels"),
 }
 
 
