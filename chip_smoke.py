@@ -85,6 +85,32 @@ Phases, one line each; any failure raises and the script exits nonzero:
    wall ms, ``sync_grads`` ms, the psums' bounce time against
    ``torch.clone`` of the same payloads, and peak memory.
 
+6a. the GSPMD step (``make_train_step``) on the same model through
+   phase 5's dataplane on ``make_local_mesh()`` with ``activation_rules``
+   for the train shape, so every edge of the loss crosses the bounce
+   kernel: 3 steps with ``remat="none"`` at global batch 4, seq 256, then
+   one step each with ``"full"`` and ``"dots"`` from the state before the
+   third.  Gates: (a) the loss and all 13 gradients with the dataplane
+   bit for bit those with ``dp=None``; (b) no gradient leaf zero or
+   missing; (c) ``"full"`` and ``"dots"`` against ``"none"``: loss within
+   1e-5 relative, every gradient at cosine > 0.9999; (d) one step's
+   records the same (kind, tag) list in every mode; (e) launches per
+   step in the forward and in the backward exactly
+   ``_gspmd_launches``'s (bounce 186 forward; 1 backward, 183 with
+   remat; flash with lse 26 forward, 26 more backward with remat; no
+   stall); (f) step wall ms, one profiled step's device busy ms, peak
+   memory per mode; the loss/logits edge's bounce (1.07 GB) against its
+   plain version and ``torch.clone``, flash with lse at B=4;
+6b. the launcher, ``repro_torch.launch.train.main(["--full", "steps=3",
+   "seq_len=256", "global_batch=4", "checkpoint_every=2", ...])``, twice:
+   the second resumes from the step-2 checkpoint (12 GB, written async)
+   and its loss is the first run's third within 1e-6 relative; the
+   checkpoint's bytes, write and restore ms;
+6c. ``chunked_psum`` of a rank-stacked R=2 payload of ``embed/tok``'s
+   size (2.42 GB) in 4 chunks under phase 5's QoS bucket, under the sync
+   debug mode "error": bit for bit ``psum``'s, ``chunks`` and
+   ``throttled`` as the CPU's, 8 bounce and 4 stall launches.
+
 ``--profile`` adds torch.profiler tables for one prefill of 256 tokens
 and one 4-slot decode tick of each model.  The line before the last is
 the per-kernel JSON summary; the last line is ``{"ok": true, "device":
@@ -1247,19 +1273,90 @@ TRAIN_LOSS_RTOL = 2e-2   # kernel vs plain forward inside the same function
 TRAIN_GRAD_COS = 0.99
 
 
-def _train_dataplane(dev):
+def _train_dataplane(dev, mesh=None, rules=None):
     """``benchmarks/converged.py``'s dataplane: cord with cost emulation,
-    telemetry, and the train tenant rate-limited by a QoS token bucket."""
+    telemetry, and the train tenant rate-limited by a QoS token bucket;
+    on a ``("data",)`` mesh of TRAIN_RANKS ranks unless ``mesh`` is
+    given."""
     from repro_torch.configs.base import DataplaneConfig
     from repro_torch.core import Dataplane, QoSPolicy, TelemetryPolicy
     from repro_torch.launch.mesh import make_mesh
     return Dataplane(DataplaneConfig(mode="cord", emulate_costs=True),
-                     mesh=make_mesh((TRAIN_RANKS,), ("data",)),
-                     tenant="train", tenants=TRAIN_TENANTS,
+                     mesh=mesh or make_mesh((TRAIN_RANKS,), ("data",)),
+                     rules=rules, tenant="train", tenants=TRAIN_TENANTS,
                      policies=[TelemetryPolicy(),
                                QoSPolicy(rates={"train": 0.25}, burst=2.0,
                                          stall_ns=200.0)],
                      device=dev)
+
+
+def _flash_lse_case(gen, b: int, window: int) -> dict:
+    """The flash kernel with its lse against its plain version at gemma3's
+    train heads (S=256, H=4, KVH=1, D=256) and batch ``b``: lse within
+    LSE_TOL x max(1, |lse|), bf16 output as phase 2 holds it; its time
+    against its bound, its plain version, ATen's flash attention (which
+    also returns the lse) and the plain backward the train step runs."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.layers.attention import flash_attention_bwd
+
+    dev = torch.device("cuda")
+    s, h, kvh, d = TRAIN_SEQ, 4, 1, 256
+    q = (3 * torch.randn(b, s, h, d, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    k = torch.randn(b, s, kvh, d, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    v = (torch.rand(b, s, kvh, d, generator=gen, device=dev) * 3 - 1.5
+         ).to(torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    po, plse = fa.flash_attention_plain(q, k, v, window=window,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    lse_err = (lse - plse).abs().max().item()
+    lse_lim = LSE_TOL * max(1.0, plse.abs().max().item())
+    o_err = (o.float() - po.float()).abs().max().item()
+    rms = po.float().pow(2).mean().sqrt().item()
+    if not (lse.shape == plse.shape == (b, kvh, h // kvh, s)
+            and math.isfinite(lse_err) and lse_err <= lse_lim
+            and o_err <= FLASH_BF16_TOL and rms >= 0.3):
+        raise AssertionError(
+            f"flash with lse at the train shapes, B={b}, window {window}: lse "
+            f"error {lse_err} (limit {lse_lim}), output error {o_err} "
+            f"(limit {FLASH_BF16_TOL}, reference rms {rms})")
+    call = lambda: fa.flash_attention(q, k, v, window=window,  # noqa: E731
+                                      return_lse=True)
+    ms, dev_ms = _cuda_ms(call, n=20), _device_ms(call, n=20)
+    plain = _cuda_ms(lambda: fa.flash_attention_plain(
+        q, k, v, window=window, return_lse=True), n=5)
+    # one library call with the same outputs: aten's flash attention
+    # returns o and the lse; a window of 512 >= S is causal here
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kt = kt.repeat_interleave(h // kvh, dim=1).contiguous()
+    vt = vt.repeat_interleave(h // kvh, dim=1).contiguous()
+    lib = None
+    if window == 0 or window >= s:
+        lib_op = torch.ops.aten._scaled_dot_product_flash_attention
+        lib = _cuda_ms(lambda: lib_op(qt, kt, vt, 0.0, True), n=20)
+    # the backward the train step runs after it: plain torch
+    do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+    bwd_ms = _cuda_ms(lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, causal=True, window=window), n=5)
+    flops = 4 * d * h * b * _pairs(s, s, window, s)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"batch": b, "window": window, "lse_err": lse_err, "o_err": o_err,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+           "library_ms": lib, "plain_bwd_ms": bwd_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    _line(f"  flash+lse B={b} S={s} H={h} KVH={kvh} d={d} w={window}: "
+          f"lse err {lse_err:.3g} (<= {lse_lim:.3g}), o err "
+          f"{o_err:.3g}, {ms:.4f} ms, device "
+          f"{'n/a' if dev_ms is None else f'{dev_ms:.4f} ms'}, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}), "
+          f"aten flash {'n/a' if lib is None else f'{lib:.4f} ms'}, "
+          f"plain {plain:.3f} ms; plain backward {bwd_ms:.3f} ms")
+    return row
 
 
 def phase_train_kernels() -> dict:
@@ -1267,75 +1364,16 @@ def phase_train_kernels() -> dict:
     the train shapes; and the QoS stall on the card: ``x`` itself back,
     no stream sync, and a chain that runs in full."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core import techniques as tech
     from repro_torch.kernels.dataplane import stall as sk
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.layers.attention import flash_attention_bwd
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    b, s, h, kvh, d = TRAIN_BATCH // TRAIN_RANKS, TRAIN_SEQ, 4, 1, 256
-    rows, lse_worst, o_worst = [], 0.0, 0.0
-    for window in (512, 0):           # 5 of 6 gemma3 layers, then global
-        q = (3 * torch.randn(b, s, h, d, generator=gen, device=dev)
-             ).to(torch.bfloat16)
-        k = torch.randn(b, s, kvh, d, generator=gen, device=dev
-                        ).to(torch.bfloat16)
-        v = (torch.rand(b, s, kvh, d, generator=gen, device=dev) * 3 - 1.5
-             ).to(torch.bfloat16)
-        o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
-        po, plse = fa.flash_attention_plain(q, k, v, window=window,
-                                            return_lse=True)
-        torch.cuda.synchronize()
-        lse_err = (lse - plse).abs().max().item()
-        lse_lim = LSE_TOL * max(1.0, plse.abs().max().item())
-        o_err = (o.float() - po.float()).abs().max().item()
-        rms = po.float().pow(2).mean().sqrt().item()
-        if not (lse.shape == plse.shape == (b, kvh, h // kvh, s)
-                and math.isfinite(lse_err) and lse_err <= lse_lim
-                and o_err <= FLASH_BF16_TOL and rms >= 0.3):
-            raise AssertionError(
-                f"flash with lse at the train shapes, window {window}: lse "
-                f"error {lse_err} (limit {lse_lim}), output error {o_err} "
-                f"(limit {FLASH_BF16_TOL}, reference rms {rms})")
-        lse_worst, o_worst = max(lse_worst, lse_err), max(o_worst, o_err)
-        call = lambda: fa.flash_attention(q, k, v, window=window,  # noqa: E731
-                                          return_lse=True)
-        ms, dev_ms = _cuda_ms(call, n=20), _device_ms(call, n=20)
-        plain = _cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, window=window, return_lse=True), n=5)
-        # one library call with the same outputs: aten's flash attention
-        # returns o and the lse; a window of 512 >= S is causal here
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kt = kt.repeat_interleave(h // kvh, dim=1).contiguous()
-        vt = vt.repeat_interleave(h // kvh, dim=1).contiguous()
-        lib = None
-        if window == 0 or window >= s:
-            lib_op = torch.ops.aten._scaled_dot_product_flash_attention
-            lib = _cuda_ms(lambda: lib_op(qt, kt, vt, 0.0, True), n=20)
-        # the backward the train step runs after it: plain torch
-        do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
-        bwd_ms = _cuda_ms(lambda: flash_attention_bwd(
-            q, k, v, o, lse, do, causal=True, window=window), n=5)
-        flops = 4 * d * h * b * _pairs(s, s, window, s)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
-        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({"window": window, "lse_err": lse_err, "o_err": o_err,
-                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
-                     "library_ms": lib, "plain_bwd_ms": bwd_ms,
-                     "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes"})
-        _line(f"  flash+lse B={b} S={s} H={h} KVH={kvh} d={d} w={window}: "
-              f"lse err {lse_err:.3g} (<= {lse_lim:.3g}), o err "
-              f"{o_err:.3g}, {ms:.4f} ms, device "
-              f"{'n/a' if dev_ms is None else f'{dev_ms:.4f} ms'}, bound "
-              f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']}), "
-              f"aten flash {'n/a' if lib is None else f'{lib:.4f} ms'}, "
-              f"plain {plain:.3f} ms; plain backward {bwd_ms:.3f} ms")
-        del q, k, v, o, lse, po, plse, do
+    rows = [_flash_lse_case(gen, TRAIN_BATCH // TRAIN_RANKS, window)
+            for window in (512, 0)]   # 5 of 6 gemma3 layers, then global
+    lse_worst = max(r["lse_err"] for r in rows)
+    o_worst = max(r["o_err"] for r in rows)
 
     # the stall: x itself back, no sync, the chain's slope
     x = torch.randn(1 << 20, generator=gen, device=dev)
@@ -1643,6 +1681,446 @@ def phase_train() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the GSPMD step, the launcher and its checkpoints, chunked_psum
+# ---------------------------------------------------------------------------
+
+GSPMD_MODES = ("none", "full", "dots")
+REMAT_LOSS_RTOL = 1e-5
+REMAT_GRAD_COS = 0.9999
+RESUME_LOSS_RTOL = 1e-6
+PSUM_CHUNKS = 4
+CE_CHUNK = 512            # models/losses.chunked_ce_loss's default chunk
+
+
+def _gspmd_launches(cfg) -> dict:
+    """Launches one GSPMD step must make, read from the model's code:
+    ``{mode: {"forward": {...}, "backward": {...}}}``.  Forward: embed
+    table and output, 7 edges a layer (attn q, k, v, out; mlp hidden, out;
+    layer out), the loss's table and one ``loss/logits`` a cross-entropy
+    chunk, each one bounce launch (cord's cost is on the send side only);
+    flash with lse once a layer.  Backward: the recomputed cross-entropy
+    chunks' ``loss/logits`` edges, and under remat every layer's edges and
+    flash forward again; nothing else (a transpose launches nothing)."""
+    layer = 7 * cfg.num_layers
+    ce = -(-TRAIN_SEQ // min(CE_CHUNK, TRAIN_SEQ))
+    out = {}
+    for mode in GSPMD_MODES:
+        again = mode != "none"
+        fwd = {"bounce": 2 + layer + 1 + ce,
+               "flash_attention": cfg.num_layers,
+               "flash_lse": cfg.num_layers, "bounce_stall": 0, "ssm_scan": 0}
+        bwd = {"bounce": ce + (layer if again else 0),
+               "flash_attention": cfg.num_layers if again else 0,
+               "flash_lse": cfg.num_layers if again else 0,
+               "bounce_stall": 0, "ssm_scan": 0}
+        out[mode] = {"forward": fwd, "backward": bwd}
+    return out
+
+
+def _cos(a, b) -> float:
+    import torch
+    return torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0).item()
+
+
+def phase_train_gspmd() -> dict:
+    """6a: ``make_train_step`` on full-width gemma3-1b through phase 5's
+    dataplane on ``make_local_mesh()`` with ``activation_rules`` for the
+    train shape: gates (a)-(f)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import DataConfig, SyntheticLM, to_torch
+    from repro_torch.kernels.dataplane import bounce as bk
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import activation_rules
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train import step as step_mod
+
+    dev = torch.device("cuda")
+    cfg = get_model_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    state = init_state(model, 0)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH))
+    batches = [to_torch(ds.batch_at(i), dev) for i in range(TRAIN_STEPS)]
+    mesh = make_local_mesh()
+    rules = activation_rules(cfg, ShapeConfig("train", TRAIN_SEQ,
+                                              TRAIN_BATCH, "train"))
+    want = _gspmd_launches(cfg)
+
+    def counts():
+        return {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+
+    # (a) loss and gradients with the dataplane against dp=None, bit for
+    # bit; (b) every gradient leaf there and nonzero
+    def grads(dp):
+        (loss, _), g = step_mod._value_and_grad(
+            lambda p, b: model.loss(p, b, dp=dp), state.params, batches[0])
+        return loss, dict(tree_flatten(g))
+
+    l_bare, g_bare = grads(None)
+    l_dp, g_dp = grads(_train_dataplane(dev, mesh, rules))
+    differ = [p for p in g_bare if not torch.equal(_bits(g_bare[p]),
+                                                   _bits(g_dp[p]))]
+    if differ or not torch.equal(_bits(l_bare), _bits(l_dp)):
+        l_again, g_again = grads(None)
+        repeat = [p for p in g_bare if not torch.equal(
+            _bits(g_bare[p]), _bits(g_again[p]))]
+        raise AssertionError(
+            f"(a) with the dataplane: loss {l_dp.item()!r} against "
+            f"{l_bare.item()!r}, gradients differ in {differ}; dp=None run "
+            f"again: loss {l_again.item()!r}, differs in {repeat}")
+    bad = [p for p, g in g_dp.items()
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    n_leaves = len(tree_flatten(state.params))
+    if bad or len(g_dp) != n_leaves:
+        raise AssertionError(f"(b) gradient leaves zero, not finite or "
+                             f"missing: {bad}; {len(g_dp)} of {n_leaves}")
+    _line(f"  (a) loss {l_dp.item():.6f} and {len(g_dp)} gradients with the "
+          f"dataplane bit for bit those without; (b) none zero")
+    del g_bare, g_dp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: TRAIN_STEPS steps with remat "none", then one step
+    # each with "full" and "dots" from the state before the last one
+    dp = _train_dataplane(dev, mesh, rules)
+    marks = []
+
+    def loss_counted(params, batch, **kw):
+        out = model.loss(params, batch, **kw)
+        marks.append(counts())          # the forward's end
+        return out
+
+    counted = dataclasses.replace(model, loss=loss_counted)
+    captured = {}
+    real_vg = step_mod._value_and_grad
+
+    def capturing(loss_fn, params, batch):
+        out = real_vg(loss_fn, params, batch)
+        captured["loss"], captured["grads"] = out[0][0], dict(
+            tree_flatten(out[1]))
+        return out
+
+    steps = {}
+    for mode in GSPMD_MODES:
+        run = RunConfig(train=TrainConfig(steps=TRAIN_STEPS,
+                                          learning_rate=5e-3, warmup_steps=2,
+                                          remat=mode))
+        step, shard = make_train_step(counted, run, dp)
+        steps[mode] = shard(state, batches[0])
+    st_spec, b_spec = steps["none"].in_specs
+
+    rows = []
+
+    def one(mode, s, batch):
+        dp.telemetry.reset()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = counts()
+        marks.clear()
+        t = time.perf_counter()
+        s, m = steps[mode](s, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        n1 = counts()
+        fwd = {k: marks[0][k] - n0[k] for k in n0}
+        bwd = {k: n1[k] - marks[0][k] for k in n0}
+        rows.append({"remat": mode, "wall_ms": wall, "loss": float(m["loss"]),
+                     "forward": fwd, "backward": bwd,
+                     "records": [(r.kind, r.tag)
+                                 for r in dp.telemetry.records],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "peak_over_held_gb": (torch.cuda.max_memory_allocated()
+                                           - base) / 1e9})
+        return s
+
+    step_mod._value_and_grad = capturing
+    try:
+        _reset_launches()
+        fa.LSE_LAUNCHES = 0
+        s = state
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_STEPS - 1:
+                before_last = s
+            s = one("none", s, batches[i])
+        ref = (captured["loss"], captured["grads"])
+        remat_cmp = {}
+        for mode in ("full", "dots"):
+            one(mode, before_last, batches[-1])
+            rel = abs(captured["loss"].item() - ref[0].item()) / abs(
+                ref[0].item())
+            cos = min(_cos(captured["grads"][p], ref[1][p]) for p in ref[1])
+            remat_cmp[mode] = {"loss_rel": rel, "grad_cos_min": cos}
+            captured.clear()
+        launches = counts()
+    finally:
+        step_mod._value_and_grad = real_vg
+    del ref, before_last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) remat against none; (d) records; (e) launches
+    for mode, c in remat_cmp.items():
+        if not (c["loss_rel"] <= REMAT_LOSS_RTOL
+                and c["grad_cos_min"] > REMAT_GRAD_COS):
+            raise AssertionError(f"(c) remat {mode!r} against 'none': {c}")
+    recs = {r["remat"]: r["records"] for r in rows}
+    if any(r["records"] != rows[0]["records"] for r in rows) or \
+            len(rows[0]["records"]) != want["none"]["forward"]["bounce"]:
+        lens = {k: len(v) for k, v in recs.items()}
+        raise AssertionError(f"(d) records per step differ across remat "
+                             f"modes: {lens}")
+    got = [(r["remat"], r["forward"], r["backward"]) for r in rows]
+    need = [(m, want[m]["forward"], want[m]["backward"])
+            for m in ["none"] * TRAIN_STEPS + ["full", "dots"]]
+    if got != need:
+        raise AssertionError(f"(e) launches per step {got}, want {need}")
+    losses = [r["loss"] for r in rows[:TRAIN_STEPS]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+
+    # (f) one profiled step: the device's busy time in it
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s, _ = steps["none"](s, batches[0])
+        torch.cuda.synchronize()
+    prof_wall = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    busy_ms = _kernel_us(events) / 1e3
+    bounce_dev = sum(e.self_device_time_total for e in events
+                     if "bounce_kernel" in e.key) / 1e3
+    n_launch = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    del s, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernels at this path's shapes: the loss/logits edge's bounce
+    # (4 x 256 x 262144 f32, 1.07 GB) and flash with lse at B = 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), generator=gen,
+                    device=dev)
+    from repro_torch.core import telemetry as tl
+    iters = dp.pipeline.send_delay_iters(tl.OpRecord("constraint", "", 0, ()))
+    out, ctr = bk.mediated_cost(x, iters, 0)
+    p_out, p_ctr = bk.mediated_cost_plain(x, iters, 0)
+    if not (torch.equal(_bits(out), _bits(x)) and torch.equal(
+            _bits(out), _bits(p_out)) and torch.equal(ctr, p_ctr)):
+        raise AssertionError("the logits edge's bounce differs from its "
+                             "plain version")
+    del out, p_out
+    logits_edge = {
+        "bytes": x.nbytes, "iters": iters, "max_abs_err": 0.0,
+        "ms": _cuda_ms(lambda: bk.mediated_cost(x, iters, 0), n=5),
+        "plain_ms": _cuda_ms(lambda: bk.mediated_cost_plain(x, iters, 0),
+                             n=2, warmup=1),
+        "library_ms": _cuda_ms(lambda: x.clone(), n=5),
+        "bound_ms": 2 * x.nbytes / HBM_BYTES_PER_S * 1e3,
+        "device_ms_in_profiled_step": bounce_dev}
+    del x
+    flash_b4 = _flash_lse_case(gen, TRAIN_BATCH, 512)
+    torch.cuda.empty_cache()
+
+    for r in rows:
+        _line(f"  remat {r['remat']:4s}: loss {r['loss']:.5f}, step wall "
+              f"{r['wall_ms']:.1f} ms, launches forward {r['forward']} "
+              f"backward {r['backward']}, peak {r['peak_gb']:.2f} GB "
+              f"({r['peak_over_held_gb']:.2f} over what was held)")
+    _line(f"  (c) {remat_cmp}; (d) {len(rows[0]['records'])} records a step "
+          f"in every mode; specs: embed/tok {st_spec.params['embed']['tok']}, "
+          f"tokens {b_spec['tokens']}")
+    _line(f"  profiled step: {prof_wall:.1f} ms wall, device busy "
+          f"{busy_ms:.1f} ms, bounce {bounce_dev:.2f} ms, {n_launch} "
+          f"cudaLaunchKernel calls")
+    _line(f"  loss/logits edge {logits_edge['bytes'] / 1e9:.2f} GB: bounce "
+          f"{logits_edge['ms']:.4f} ms, clone {logits_edge['library_ms']:.4f} "
+          f"ms, bound {logits_edge['bound_ms']:.4f} ms, plain "
+          f"{logits_edge['plain_ms']:.3f} ms")
+    _line(f"phase 6a GSPMD step {TRAIN_ARCH} ok: gates (a)-(f) held")
+    return {"steps": [{k: v for k, v in r.items() if k != "records"}
+                      for r in rows],
+            "records_per_step": len(rows[0]["records"]),
+            "want_launches": want, "remat": remat_cmp,
+            "loss_with_dp": l_dp.item(), "launches": launches,
+            "profiled_step_wall_ms": prof_wall, "device_busy_ms": busy_ms,
+            "cuda_launches_per_step": n_launch, "logits_edge": logits_edge,
+            "flash_lse_b4": flash_b4}
+
+
+def phase_launcher() -> dict:
+    """6b: ``repro_torch.launch.train.main`` at full width, 3 steps with a
+    checkpoint at step 2, then again: the second run resumes from step 2
+    and its one step's loss is the first run's third."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.launch import train as launch_train
+
+    tmp = tempfile.mkdtemp(prefix="cord_ckpt_")
+    need = 13e9          # params, mu, nu of 999,826,048 f32 each, and more
+    free = shutil.disk_usage(tmp).free
+    _line(f"  checkpoint directory {tmp}: {free / 1e9:.1f} GB free")
+    if free < need:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"{free} bytes free under {tmp}, a checkpoint "
+                             f"needs {need:.0f}")
+    times = {}
+    real_save, real_restore = store.save, store.restore
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        th = real_save(ckpt_dir, step, tree, **kw)
+        times["save_call_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def watch():            # the write ends when the writer does
+            if th is not None:
+                th.join()
+            times["write_ms"] = (time.perf_counter() - t0) * 1e3
+        w = threading.Thread(target=watch)
+        w.start()
+        times["watch"] = w
+        return th
+
+    def timed_restore(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_restore(*args, **kw)
+        torch.cuda.synchronize()
+        times["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    argv = ["--full", f"steps={TRAIN_STEPS}", f"seq_len={TRAIN_SEQ}",
+            f"global_batch={TRAIN_BATCH}", "checkpoint_every=2",
+            f"checkpoint_dir={tmp}", "log_every=1"]
+    store.save, store.restore = timed_save, timed_restore
+    try:
+        t = time.perf_counter()
+        s1, rep1 = launch_train.main(argv)
+        first_s = time.perf_counter() - t
+        times.pop("watch").join()
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(tmp, "step_00000002")
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                     for f in os.listdir(ckpt))
+        t = time.perf_counter()
+        s2, rep2 = launch_train.main(argv)
+        second_s = time.perf_counter() - t
+        # the resumed run ends in the first run's state, bit for bit: the
+        # restored parameters and moments were the checkpointed ones
+        trees = [{"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu,
+                  "step": s.step} for s in (s1, s2)]
+        differ = [p for (p, a), (_, b) in zip(tree_flatten(trees[0]),
+                                              tree_flatten(trees[1]))
+                  if not torch.equal(_bits(a), _bits(b))]
+        del s1, s2, trees
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        store.save, store.restore = real_save, real_restore
+        shutil.rmtree(tmp, ignore_errors=True)
+    l1 = [m["loss"] for m in rep1.metrics]
+    l2 = [m["loss"] for m in rep2.metrics]
+    rel = abs(l2[0] - l1[-1]) / abs(l1[-1]) if l2 else math.inf
+    if not (rep1.steps_run == TRAIN_STEPS and rep1.restores == 0
+            and rep2.restores == 1 and rep2.steps_run == 1
+            and rel <= RESUME_LOSS_RTOL and not differ):
+        raise AssertionError(
+            f"launcher resume: first run {rep1.steps_run} steps, losses "
+            f"{l1}; second run {rep2.restores} restores, {rep2.steps_run} "
+            f"steps, losses {l2} (rel {rel}); final states differ in "
+            f"{differ}")
+    _line(f"  launcher: losses {l1}, resumed {l2} (rel {rel:.2e} <= "
+          f"{RESUME_LOSS_RTOL}), the same final state bit for bit; "
+          f"checkpoint {nbytes:,} bytes, write "
+          f"{times['write_ms']:.0f} ms ({times['save_call_ms']:.0f} ms "
+          f"blocking the loop), restore {times['restore_ms']:.0f} ms; runs "
+          f"{first_s:.1f} s and {second_s:.1f} s")
+    _line("phase 6b launcher ok: resumed from step 2")
+    return {"losses": l1, "resumed_losses": l2, "resume_rel": rel,
+            "checkpoint_bytes": nbytes, "write_ms": times["write_ms"],
+            "save_blocking_ms": times["save_call_ms"],
+            "restore_ms": times["restore_ms"],
+            "step_ms_first": [t * 1e3 for t in rep1.step_times],
+            "run_s": [first_s, second_s]}
+
+
+def phase_chunked_psum() -> dict:
+    """6c: ``chunked_psum`` of a rank-stacked R = 2 payload of the
+    ``embed/tok`` leaf's size in 4 chunks under phase 5's QoS bucket: bit
+    for bit ``dp.psum``'s, ``chunks`` and ``throttled`` as on the CPU, and
+    no stream sync."""
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.core.chunking import chunked_psum
+
+    dev = torch.device("cuda")
+    cfg = get_model_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((TRAIN_RANKS, cfg.vocab_size, cfg.d_model),
+                    generator=gen, device=dev)
+    reports, res = {}, {}
+    for where in ("cuda", "cpu"):
+        d = torch.device(where)
+        dp = _train_dataplane(d)
+        xd = x if where == "cuda" else x.cpu()
+        whole, _ = dp.psum(xd, "data")
+        rt = dp.runtime_init()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            n0 = _launches()
+            t = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, rt = chunked_psum(dp, xd, "data", num_chunks=PSUM_CHUNKS,
+                                   state=rt)
+        finally:
+            if where == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            res["ms"] = (time.perf_counter() - t) * 1e3
+            res["launches"] = _delta(n0)
+        if not torch.equal(_bits(out), _bits(whole)):
+            raise AssertionError(f"chunked_psum on {where} differs from psum")
+        rep = dp.runtime_report(rt)["train"]
+        reports[where] = {k: rep[k] for k in ("ops", "bytes", "chunks",
+                                              "throttled")}
+        del whole, out, xd
+    if reports["cuda"] != reports["cpu"] or \
+            reports["cuda"]["chunks"] != PSUM_CHUNKS:
+        raise AssertionError(f"chunked_psum reports: card {reports['cuda']}, "
+                             f"CPU {reports['cpu']}")
+    want = {"bounce": TRAIN_RANKS * PSUM_CHUNKS, "bounce_stall": PSUM_CHUNKS}
+    if any(res["launches"][k] != v for k, v in want.items()):
+        raise AssertionError(f"chunked_psum launches {res['launches']}, want "
+                             f"{want}")
+    _line(f"  chunked_psum of {x.nbytes / 1e9:.2f} GB (R={TRAIN_RANKS}, "
+          f"{PSUM_CHUNKS} chunks): bit for bit psum, report {reports['cuda']} "
+          f"as on the CPU, no stream sync, {res['ms']:.2f} ms, launches "
+          f"{res['launches']}")
+    _line("phase 6c chunked_psum ok")
+    return {"bytes": x.nbytes, "report": reports["cuda"], **res}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1684,6 +2162,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     train_k = phase_train_kernels()
     train = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gspmd = phase_train_gspmd()
+    launcher = phase_launcher()
+    cpsum = phase_chunked_psum()
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -1759,6 +2242,28 @@ def main(argv=None) -> int:
          "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
          "bound_by": "operations", "library_ms": None},
     ]
+    # phase 6a's path: the GSPMD step's constraint edges and flash forwards
+    edge, f4 = gspmd["logits_edge"], gspmd["flash_lse_b4"]
+    kernels += [
+        {"name": "bounce (train GSPMD: constraint edges; timed on the "
+                 "loss/logits edge)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": gspmd["launches"]["bounce"],
+         "max_abs_err": edge["max_abs_err"], "ms": edge["ms"],
+         "plain_ms": edge["plain_ms"], "bound_ms": edge["bound_ms"],
+         "bound_by": "bytes", "library_ms": edge["library_ms"]},
+        {"name": "flash_attention (train GSPMD forward with lse, B=4)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+         "launches": gspmd["launches"]["flash_lse"],
+         "max_abs_err": f4["lse_err"], "ms": f4["ms"],
+         "device_ms": f4["device_ms"], "plain_ms": f4["plain_ms"],
+         "bound_ms": f4["bound_ms"], "bound_by": f4["bound_by"],
+         "library_ms": f4["library_ms"]},
+    ]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1767,6 +2272,8 @@ def main(argv=None) -> int:
                                    "bounce": bounce, "flash": flash,
                                    "ssm_scan": ssm, "serve": serve,
                                    "train_kernels": train_k, "train": train,
+                                   "gspmd": gspmd, "launcher": launcher,
+                                   "chunked_psum": cpsum,
                                    "profile": prof or None,
                                    "kernels": kernels},
                                   indent=1))

@@ -38,6 +38,7 @@ Technique toggles in :class:`DataplaneConfig` override the mode presets.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Sequence
 
@@ -120,6 +121,7 @@ class Dataplane:
             # calibrate now, outside any timed region
             tech.calibrate(device=self.device)
         self.pipeline = build_pipeline(self)
+        self._recomputing = 0
 
     @property
     def telemetry(self) -> tl.Telemetry:
@@ -172,6 +174,19 @@ class Dataplane:
         for p in self.policies:
             p.on_op(ctx)    # raises PolicyViolation to refuse the op
 
+    @contextlib.contextmanager
+    def recomputing(self):
+        """Run a recomputed forward (``torch.utils.checkpoint``'s second
+        pass): its edges still run the pipeline, so the cost kernel
+        launches again, as XLA reruns a rematerialised body; but nothing
+        is recorded and no policy sees the edge twice.  ``repro`` records
+        an edge when it traces it, once however often it runs."""
+        self._recomputing += 1
+        try:
+            yield
+        finally:
+            self._recomputing -= 1
+
     def _record(self, kind: str, tag: str, x, axes, qos: str = "default",
                 mr: str | None = None, count: int = 1,
                 tenant: str | None = None,
@@ -181,7 +196,8 @@ class Dataplane:
                           axes=tl.normalize_axes(axes),
                           shape=shape, dtype=dtype, mode=self.cfg.mode,
                           qos=qos, count=count, precharged=precharged)
-        self._policy_pass(rec, x, mr, tenant or self.tenant)
+        if not self._recomputing:
+            self._policy_pass(rec, x, mr, tenant or self.tenant)
         return rec
 
     def spec(self, names: Sequence[str | None | tuple]) -> tuple:

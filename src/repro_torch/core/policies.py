@@ -157,6 +157,10 @@ class QoSPolicy(Policy):
     def __post_init__(self):
         self._stall_iters = 0
 
+    def priority(self, qos_class: str) -> int:
+        """Issue priority of a class (lower is sooner; unknown: 100)."""
+        return self.classes.get(qos_class, 100)
+
     def on_op(self, ctx: PolicyContext) -> None:
         ctx.rec.qos = ctx.rec.qos or "default"
 
@@ -191,6 +195,20 @@ class QoSPolicy(Policy):
                 throttled=(~ok).to(torch.float32))
             state = {**state, "counters": ctrs}
         return x, state
+
+    def on_chunk_runtime(self, x, state, rec, tenant, tenant_idx):
+        """The bucket consulted once per chunk of a chunked collective
+        (``core/chunking.chunked_psum``): one token a chunk, and a chunk
+        that meets a dry bucket stalls on the deficit and is counted as
+        throttled before it is issued.  The token arithmetic is
+        :meth:`on_op_runtime`'s, so N chunks cost what N ops do; the
+        chunks are issued ``precharged`` so the pipeline does not debit
+        them again."""
+        return self.on_op_runtime(x, state, rec, tenant, tenant_idx)
+
+    def governs(self, tenant: str) -> bool:
+        """True if this policy rate-limits ``tenant``."""
+        return bool(self.rates.get(tenant))
 
 
 def default_policies() -> list[Policy]:

@@ -24,6 +24,9 @@ A wrapper given a CPU tensor runs the kernel's plain version (roll /
 roll-back copies as in ``core/techniques.staged_copy``, the delay chain on
 the host, counters from the same chunk split); given a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+Given a tensor that wants a gradient, either wrapper goes through an
+autograd function whose backward is the identity on ``x``, so a mediated
+edge inside a loss passes its gradient on unchanged.
 """
 
 from __future__ import annotations
@@ -137,12 +140,40 @@ def _kernel(x: torch.Tensor, copies: int, delay_iters: int,
     return out, ctrs
 
 
-def _launch(x, *, copies: int, delay_iters: int, chunk_elems: int):
+def _run(x, copies: int, delay_iters: int, chunk_elems: int):
     if x.is_cuda:
-        return _kernel(x, int(copies), int(delay_iters), int(chunk_elems))
+        return _kernel(x, copies, delay_iters, chunk_elems)
     if x.device.type != "cpu":
         raise ValueError(f"no dataplane kernel for device {x.device}")
-    return _plain(x, int(copies), int(delay_iters), int(chunk_elems))
+    return _plain(x, copies, delay_iters, chunk_elems)
+
+
+class _Mediated(torch.autograd.Function):
+    """A launch with a gradient: the output is a copy of ``x``, so the
+    cotangent crosses unchanged, as through ``repro``'s ``tie`` and
+    ``staged_copy``.  The backward launches nothing: a transpose burns no
+    delay.  The counters carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, copies, delay_iters, chunk_elems):
+        # an edge in a backward graph may see a view the serve path never
+        # does: the kernel copies a flat payload
+        out, ctrs = _run(x.contiguous(), copies, delay_iters, chunk_elems)
+        ctx.mark_non_differentiable(ctrs)
+        return out, ctrs
+
+    @staticmethod
+    def backward(ctx, g_out, g_ctrs):
+        return g_out, None, None, None
+
+
+def _launch(x, *, copies: int, delay_iters: int, chunk_elems: int):
+    """The kernel (or its plain version on a CPU tensor); through
+    :class:`_Mediated` when ``x`` wants a gradient."""
+    args = (int(copies), int(delay_iters), int(chunk_elems))
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Mediated.apply(x, *args)
+    return _run(x, *args)
 
 
 def bounce_copy(x: torch.Tensor, copies: int = 1, *,

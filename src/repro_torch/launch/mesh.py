@@ -43,4 +43,29 @@ def make_mesh(shape, axes) -> Mesh:
     return Mesh(tuple(axes), tuple(int(s) for s in shape))
 
 
-__all__ = ["Mesh", "make_mesh"]
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """``repro``'s production mesh as a descriptor: 16 x 16 ``(data,
+    model)``, or 2 x 16 x 16 with a leading ``pod`` axis.  The port runs
+    none of its ranks; the descriptor sizes sharding rules and specs."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
+
+
+def make_local_mesh(n: int | None = None, model: int = 1) -> Mesh:
+    """The ``(data, model)`` mesh of a measured run: ``n`` ranks (default
+    one, the card), ``n // model`` over data.  ``n > 1`` puts that many
+    ranks on the one card, each a slice of a rank-stacked tensor."""
+    n = 1 if n is None else int(n)
+    if n % model:
+        raise ValueError(f"{n} ranks do not split into model groups of "
+                         f"{model}")
+    return make_mesh((n // model, model), ("data", "model"))
+
+
+def mesh_axis_sizes(mesh: Mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+__all__ = ["Mesh", "make_mesh", "make_local_mesh", "make_production_mesh",
+           "mesh_axis_sizes"]

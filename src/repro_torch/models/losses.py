@@ -1,23 +1,26 @@
 """Loss functions.  Cross-entropy is computed in sequence chunks, each
-under ``torch.utils.checkpoint``, so the (B, chunk, vocab) float32 logits
-are recomputed in the backward instead of saved: at vocab 262144 one
-chunk of 2 x 256 positions is 0.54 GB."""
+rematerialised (``models/remat.py``), so the (B, chunk, vocab) float32
+logits are recomputed in the backward instead of saved: at vocab 262144
+one chunk of 4 x 256 positions is 1.07 GB.  Each chunk's logits cross
+the dataplane as ``loss/logits``, as in ``repro``."""
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.layers.common import constrain
+from repro_torch.models.remat import remat
 
 
-def _chunk_terms(xi, li, table, softcap_val: float):
+def _chunk_terms(xi, li, table, softcap_val: float, dp=None):
     """(sum nll, correct, count) of one chunk: float32 logits of the
     working-dtype hiddens against the table cast to the working dtype
     (``preferred_element_type=float32`` in ``repro``)."""
     logits = torch.matmul(xi.float(), table.to(xi.dtype).float().t())
     if softcap_val > 0:
         logits = softcap_val * torch.tanh(logits / softcap_val)
+    logits = constrain(dp, logits, ("batch", "seq", "vocab"),
+                       tag="loss/logits")
     mask = li >= 0
     safe = torch.where(mask, li, torch.zeros_like(li)).long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -44,8 +47,8 @@ def chunked_ce_loss(x: torch.Tensor, table: torch.Tensor,
     correct = torch.zeros((), dtype=torch.int32, device=x.device)
     count = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(0, s, ck):
-        terms = checkpoint(_chunk_terms, x[:, i:i + ck], labels[:, i:i + ck],
-                           table, softcap_val, use_reentrant=False)
+        terms = remat("full", dp, _chunk_terms, x[:, i:i + ck],
+                      labels[:, i:i + ck], table, softcap_val, dp)
         loss = loss + terms[0]
         correct = correct + terms[1]
         count = count + terms[2]

@@ -42,6 +42,7 @@ from repro_torch.layers.kvcache import (
 )
 from repro_torch.layers.mlp import mlp, mlp_init
 from repro_torch.models.losses import ce_metrics, chunked_ce_loss
+from repro_torch.models.remat import REMAT_MODES, remat
 
 CACHE_AXES = ("batch", "kv_seq", "kv_heads", "cache_head_dim")
 
@@ -167,15 +168,20 @@ def _layer(lp, x, *, cfg, dp, positions, window, theta, mode,
 
 
 def _run_layers(params, cfg, x, *, dp, positions, mode, cache,
-                cache_pos=None, impl="flash"):
+                cache_pos=None, impl="flash", remat_mode="none"):
     window_arr, theta_arr = layer_flags(cfg)
     for i in range(cfg.num_layers):
-        x = _layer(_layer_params(params["layers"], i), x, cfg=cfg, dp=dp,
-                   positions=positions, window=int(window_arr[i]),
-                   theta=float(theta_arr[i]), mode=mode,
-                   cache_k=None if cache is None else cache["k"][i],
-                   cache_v=None if cache is None else cache["v"][i],
-                   cache_pos=cache_pos, impl=impl)
+        kw = dict(cfg=cfg, dp=dp, positions=positions,
+                  window=int(window_arr[i]), theta=float(theta_arr[i]),
+                  mode=mode,
+                  cache_k=None if cache is None else cache["k"][i],
+                  cache_v=None if cache is None else cache["v"][i],
+                  cache_pos=cache_pos, impl=impl)
+        lp = _layer_params(params["layers"], i)
+        if remat_mode == "none":
+            x = _layer(lp, x, **kw)
+        else:
+            x = remat(remat_mode, dp, _layer, lp, x, **kw)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -185,20 +191,20 @@ def transformer_apply(params, cfg: ModelConfig, batch: dict, *, dp=None,
     prefill and fills the cache in place; without, the training forward
     (``repro``'s ``mode="train"``).  Returns (final_hiddens, cache).
 
-    ``remat="none"`` only: the ``"full"`` and ``"dots"`` rematerialisation
-    policies are ported with a later slice.  ``impl`` picks the
-    whole-sequence attention (``layers/attention.attend``)."""
-    if remat != "none":
-        raise NotImplementedError(f"remat={remat!r} is ported with a later "
-                                  f"slice; the port trains with "
-                                  f"remat='none'")
+    ``remat`` is ``"none"``, ``"full"`` or ``"dots"``: each layer body
+    rematerialised as ``repro``'s ``jax.checkpoint`` does it
+    (``models/remat.py``).  ``impl`` picks the whole-sequence attention
+    (``layers/attention.attend``)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                         f"{remat!r}")
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = embed(params["embed"], tokens, dtype_of(cfg.dtype), dp=dp)
     positions = prefill_positions(s, tokens.device)
     x = _run_layers(params, cfg, x, dp=dp, positions=positions,
                     mode="prefill" if cache is not None else "train",
-                    cache=cache, impl=impl)
+                    cache=cache, impl=impl, remat_mode=remat)
     return x, cache
 
 

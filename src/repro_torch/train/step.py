@@ -1,4 +1,13 @@
-"""The explicit data-parallel train step — the measured CoRD path.
+"""Train-step builders: the GSPMD step and the explicit data-parallel
+step, the measured CoRD path.
+
+:func:`make_train_step` is ``repro``'s pjit/GSPMD step: every
+communication edge inside the model, the loss included, crosses the
+dataplane as a constraint (``model.loss(..., dp=dp)``), and with a mesh
+and cost emulation each launches the dataplane kernel, whose autograd
+function passes the gradient across unchanged.  ``repro`` jits it with
+in/out shardings from ``parallel/sharding.py``; on one card the specs are
+derived and checked against the shapes, and placement is the identity.
 
 ``repro``'s ``make_explicit_dp_step`` runs under ``shard_map`` over the
 data axis: each device computes its shard's gradients, the gradient
@@ -11,7 +20,7 @@ gradients land in slice ``r`` of rank-stacked (R, ...) buffers, and
 ``psum``.  The loss and metrics are the mean over ranks (``pmean``), and
 AdamW runs once on the mean gradients, which every rank holds equal.
 The microbatches of ``_accumulate`` are a Python loop in ``repro``'s
-order.  The GSPMD ``make_train_step`` is ported with a later slice.
+order.
 """
 
 from __future__ import annotations
@@ -21,7 +30,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.optim.adamw import adamw_init, adamw_update, warmup_cosine
+from repro_torch.parallel.sharding import P, batch_specs, param_specs
 from repro_torch.train.gradsync import err_state_init, sync_grads
 
 
@@ -119,6 +130,91 @@ def _pmean(values: list) -> torch.Tensor:
     return total / len(values)
 
 
+# ---------------------------------------------------------------------------
+# the GSPMD step
+# ---------------------------------------------------------------------------
+
+def _check_specs(specs, tree, sizes: dict, what: str) -> None:
+    """Each spec fits its leaf: no more entries than dims, known mesh
+    axes, and every sharded dim a multiple of its axes' ranks (what jit's
+    in/out shardings require)."""
+    for (path, spec), (_, leaf) in zip(tree_flatten(specs),
+                                       tree_flatten(tree)):
+        if len(spec) > leaf.ndim:
+            raise ValueError(f"{what} {'/'.join(path)}: spec {spec} has "
+                             f"more entries than dims {tuple(leaf.shape)}")
+        for dim, entry in enumerate(spec):
+            axes = () if entry is None else (
+                tuple(entry) if isinstance(entry, (tuple, list)) else
+                (entry,))
+            n = 1
+            for a in axes:
+                if a not in sizes:
+                    raise ValueError(f"{what} {'/'.join(path)}: no mesh axis "
+                                     f"{a!r} in {tuple(sizes)}")
+                n *= sizes[a]
+            if leaf.shape[dim] % n:
+                raise ValueError(f"{what} {'/'.join(path)}: dim {dim} of "
+                                 f"{tuple(leaf.shape)} does not split over "
+                                 f"{axes} ({n} ranks)")
+
+
+def make_train_step(model, run, dp, *, total_steps: int | None = None,
+                    fsdp: bool = False, jit: bool = True):
+    """The GSPMD step: ``step(state, batch) -> (state, metrics)``, the
+    loss ``model.loss(params, batch, dp=dp, remat=run.train.remat)``
+    through ``_accumulate`` and AdamW.
+
+    As ``repro``'s: with ``jit=False`` or a dataplane with no mesh it
+    returns the step alone; otherwise ``(step, shard_fn)``, where
+    ``shard_fn(state_like, batch_like)`` derives the state specs
+    (``param_specs`` with ``fsdp``) and the batch specs (``batch_specs``
+    with ``dp.rules``), checks them against the shapes, and returns the
+    step with the specs as its ``in_specs``."""
+    tcfg = run.train
+    schedule = warmup_cosine(tcfg, total_steps)
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch, dp=dp, remat=tcfg.remat)
+
+    def step_fn(state: TrainState, batch):
+        (loss, metrics), grads = _accumulate(loss_fn, state.params, batch,
+                                             tcfg.microbatch)
+        new_params, new_opt, stats = adamw_update(
+            grads, state.opt, state.params, tcfg, schedule)
+        metrics = {**metrics, **stats}
+        return TrainState(params=new_params, opt=new_opt,
+                          step=state.step + 1, err=state.err), metrics
+
+    if not jit or dp.mesh is None:
+        return step_fn
+    sizes = mesh_axis_sizes(dp.mesh)
+
+    def shard_fn(state_like: TrainState, batch_like):
+        pspec = param_specs(state_like.params, fsdp=fsdp, mesh_sizes=sizes)
+        _check_specs(pspec, state_like.params, sizes, "parameter")
+        err = None if state_like.err is None else param_specs(
+            state_like.err, fsdp=fsdp, mesh_sizes=sizes)
+        st_spec = TrainState(
+            params=pspec,
+            opt=type(state_like.opt)(step=P(), mu=pspec, nu=pspec),
+            step=P(), err=err)
+        b_spec = batch_specs(batch_like, dp.rules)
+        _check_specs(b_spec, batch_like, sizes, "batch")
+
+        def step(state: TrainState, batch):
+            return step_fn(state, batch)
+
+        step.in_specs = (st_spec, b_spec)
+        return step
+
+    return step_fn, shard_fn
+
+
+# ---------------------------------------------------------------------------
+# the explicit data-parallel step
+# ---------------------------------------------------------------------------
+
 def make_explicit_dp_step(model, run, dp, *, axis: str = "data",
                           total_steps: int | None = None,
                           runtime_accounting: bool = False):
@@ -162,5 +258,5 @@ def make_explicit_dp_step(model, run, dp, *, axis: str = "data",
     return stateless_step
 
 
-__all__ = ["TrainState", "init_state", "make_explicit_dp_step",
-           "rank_grads"]
+__all__ = ["TrainState", "init_state", "make_train_step",
+           "make_explicit_dp_step", "rank_grads"]

@@ -27,7 +27,9 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_kvpool.py",
                    "tests/test_torch_collectives.py",
                    "tests/test_torch_train_attention.py",
-                   "tests/test_torch_train_step.py")
+                   "tests/test_torch_train_step.py",
+                   "tests/test_torch_mediated_grad.py",
+                   "tests/test_torch_chunking.py")
 _STANDING_IN = ("jax", "repro")
 
 

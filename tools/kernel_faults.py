@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Planted faults in the port's CUDA kernels; chip_smoke.py must catch each.
+"""Planted faults in the port's CUDA kernels and in the code around them
+(the dataplane kernel's autograd function, the loss's edges, recompute
+telemetry, checkpoint restore); chip_smoke.py must catch each.
 
     python3 tools/kernel_faults.py [fault ...]   # on a machine with a card
 
@@ -106,6 +108,27 @@ FAULTS = {
         _STALL, "    iters = iters.to(torch.int32).contiguous()\n",
         "    iters = torch.full((), int(iters.item()), dtype=torch.int32,\n"
         "                       device=x.device)\n", "phase_train_kernels"),
+    # the dataplane kernel's autograd function drops the gradient
+    "bounce_backward_zeros": (
+        "kernels/dataplane/bounce.py",
+        "        return g_out, None, None, None\n",
+        "        return torch.zeros_like(g_out), None, None, None\n",
+        "phase_train_gspmd"),
+    # the cross entropy's logits no longer cross the dataplane
+    "loss_logits_edge_dropped": (
+        "models/losses.py",
+        "    logits = constrain(dp, logits, (\"batch\", \"seq\", \"vocab\"),\n"
+        "                       tag=\"loss/logits\")\n", "",
+        "phase_train_gspmd"),
+    # a recomputed forward records its edges again
+    "records_kept_in_recompute": (
+        "core/dataplane.py", "        if not self._recomputing:\n",
+        "        if True:\n", "phase_train_gspmd"),
+    # restore leaves the second moments as the fresh state holds them
+    "restore_skips_nu": (
+        "checkpoint/store.py", "        out.append(t.to(dev))\n",
+        "        out.append(ref if path.startswith(\".opt.nu\") else "
+        "t.to(dev))\n", "phase_launcher"),
 }
 
 
