@@ -111,6 +111,35 @@ Phases, one line each; any failure raises and the script exits nonzero:
    debug mode "error": bit for bit ``psum``'s, ``chunks`` and
    ``throttled`` as the CPU's, 8 bounce and 4 stall launches.
 
+7a. the verbs transport (``core/verbs.py``) on a ``("rank",)`` mesh of 2
+   ranks on the card through a cord dataplane with cost emulation:
+   ``windowed_send`` of 64 messages, window 16, 64 credits: RC send /
+   write / read at 64 KiB and 1 MiB, UD send at 4 KiB.  Gates: each
+   delivery bit for bit the input; the QP and the runtime report equal
+   to the same transfer on the CPU (its delay slope pinned to the
+   card's) and with ``pallas_dataplane="off"``; bounce launches exactly
+   64 (+ 1 for the receive grant of a send), nothing else launched; no
+   stream sync in the loop (sync debug mode "error").  The synchronous
+   path (16 posts, flush, poll) reports each rank's own state;
+7b. the same RC send at 64 KiB under ``WireFault(drop_rate=0.1,
+   corrupt_rate=0.05, seed=9)``: bit for bit the lossless run,
+   retransmits > 0, the report as the CPU's, launches as the CPU run's
+   delay chains count them; the port's hash against ``repro``'s schedule
+   (``GOLDEN_*``); a transfer quiesced halfway, snapshotted (``repro``'s
+   ring layout, checked row by row), restored into a fresh QP and
+   finished, bit for bit the uninterrupted run; ``connection_churn`` at
+   ``repro``'s defaults (13 rounds x 8 QPs x 4 messages of 256 B under the
+   same loss), every round bit for bit; then bounce at one WR (4 KiB and
+   1 MiB uint8 with cord's syscall chain) against its plain version and
+   ``torch.clone``;
+7c. perftest (``repro_torch.bench.perftest.run_all(fast=False)``): the
+   calibration, fig1 over 64 B - 1 MiB, fig3 and fig5 at 4 KiB, fig4,
+   the window sweep at 4 KiB and 64 KiB over windows 1-16, the credit
+   ablation and the churn, each row printed; then 5 repetitions of
+   fig3's BP->BP and CD->CD latencies with medians and spreads.  Two
+   ranks share the card, so the "wire" is a device copy and a latency
+   is not an RDMA latency: the claim is the relative-overhead structure.
+
 ``--profile`` adds torch.profiler tables for one prefill of 256 tokens
 and one 4-slot decode tick of each model.  The line before the last is
 the per-kernel JSON summary; the last line is ``{"ok": true, "device":
@@ -2121,6 +2150,445 @@ def phase_chunked_psum() -> dict:
     return {"bytes": x.nbytes, "report": reports["cuda"], **res}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the verbs transport and perftest
+# ---------------------------------------------------------------------------
+
+VERBS_RANKS = 2          # mesh ("rank",) of 2 ranks on the one card
+VERBS_N = 64             # messages a windowed transfer
+VERBS_WINDOW = 16
+VERBS_CASES = (("RC", "send", 65_536), ("RC", "write", 65_536),
+               ("RC", "read", 65_536), ("RC", "send", 1_048_576),
+               ("RC", "write", 1_048_576), ("RC", "read", 1_048_576),
+               ("UD", "send", 4096))
+LOSSY = dict(drop_rate=0.1, corrupt_rate=0.05, seed=9)
+# repro's WireFault(**LOSSY) over wr < 64, attempt < 4: the flat indices
+# wr * 4 + attempt that it drops and corrupts (tests/test_torch_wirefault.py
+# holds these to repro's own)
+GOLDEN_GRID = (64, 4)
+GOLDEN_DROPS = (3, 4, 6, 29, 45, 48, 50, 75, 112, 130, 145, 147, 156, 158,
+                159, 160, 162, 167, 174, 177, 190, 225, 227, 231, 252)
+GOLDEN_CORRUPTS = (17, 19, 33, 64, 81, 131, 160, 229)
+FIG3_REPS = 5
+REPORT_KEYS = ("ops", "bytes", "credits", "completions", "stalls",
+               "cq_depth")
+
+
+def _verbs_dp(device, pallas: str = "auto"):
+    from repro_torch.configs.base import DataplaneConfig
+    from repro_torch.core.dataplane import Dataplane
+    from repro_torch.launch.mesh import make_mesh
+    return Dataplane(DataplaneConfig(mode="cord", emulate_costs=True,
+                                     pallas_dataplane=pallas),
+                     mesh=make_mesh((VERBS_RANKS,), ("rank",)),
+                     device=device)
+
+
+def _verbs_payload(gen, n: int, msg_bytes: int):
+    """(R, n, msg_bytes) uint8 on the card: random bytes on every rank
+    (rank 1's are READ's remote memory)."""
+    import torch
+    return torch.randint(0, 256, (VERBS_RANKS, n, msg_bytes), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+
+
+def _windowed(device, transport, op, msg_bytes, msgs, *, pallas="auto",
+              fault=None, credits=VERBS_N, no_sync=False):
+    """One windowed transfer src 0 → dst 1 (credits granted first for a
+    send); returns (out, QP snapshot, report, launches, seconds)."""
+    import torch
+    from repro_torch.core import verbs
+    dp = _verbs_dp(device, pallas)
+    cfg = verbs.QPConfig(transport=transport, msg_bytes=msg_bytes,
+                         depth=VERBS_WINDOW, max_outstanding=VERBS_WINDOW)
+    m = msgs.to(device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    qp = verbs.qp_init(cfg, device=device)
+    rt = dp.runtime_init()
+    if op == "send":
+        qp, rt = verbs.post_recv(dp, cfg, qp, dst=1, n=credits, state=rt)
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, qp, rt = verbs.windowed_send(dp, cfg, qp, m, 0, 1, op=op,
+                                          state=rt, fault=fault)
+    finally:
+        if no_sync:
+            torch.cuda.set_sync_debug_mode(0)
+    if cuda:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    rep = dp.runtime_report(verbs.allreduce_state(rt))["default"]
+    return out, verbs.qp_snapshot(qp), rep, launches, secs
+
+
+def _same_snap(a: dict, b: dict) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _count_chains(fn):
+    """``fn()`` on the CPU, counting the delay chains it runs with work:
+    each is one bounce launch on the card (cord's fused send side and a
+    stall or backoff tick both run exactly one chain)."""
+    from repro_torch.core import techniques as tech
+    orig, n = tech.delay_chain, [0]
+
+    def counting(x, iters):
+        n[0] += iters > 0
+        return orig(x, iters)
+
+    tech.delay_chain = counting
+    try:
+        out = fn()
+    finally:
+        tech.delay_chain = orig
+    return out, n[0]
+
+
+def phase_verbs() -> dict:
+    """7a and 7b: windowed transfers through a cord dataplane with cost
+    emulation on a ("rank",) mesh of 2 ranks on the card, held against
+    the same transfers on the CPU (the CPU's delay slope pinned to the
+    card's, so the kernel's counters compare too)."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import perftest
+    from repro_torch.core import techniques as tech
+    from repro_torch.core import verbs
+    from repro_torch.runtime.fault import WireFault
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    probe = ("cpu", 200_000)          # techniques.calibrate()'s key
+    had = tech._CALIBRATION.get(probe)
+    tech._CALIBRATION[probe] = tech.calibrate(device=dev)
+    res = {"cases": [], "launches": 0}
+    try:
+        # -- 7a: bit identity, reports, pallas off, exact launches --------
+        for transport, op, size in VERBS_CASES:
+            msgs = _verbs_payload(gen, VERBS_N, size)
+            src, dst = (1, 0) if op == "read" else (0, 1)
+            got, snap, rep, launches, secs = _windowed(
+                "cuda", transport, op, size, msgs, no_sync=True)
+            res["launches"] += launches["bounce"]
+            want_launches = VERBS_N + (op == "send")
+            if not torch.equal(got[dst], msgs[src]) or got[src].any():
+                raise AssertionError(f"verbs {transport} {op} {size}: "
+                                     f"delivery differs from the input")
+            if launches["bounce"] != want_launches or \
+                    sum(launches.values()) != want_launches:
+                raise AssertionError(f"verbs {transport} {op} {size}: "
+                                     f"launches {launches}, want bounce "
+                                     f"{want_launches} and nothing else")
+            off = _windowed("cuda", transport, op, size, msgs, pallas="off")
+            cpu = _windowed("cpu", transport, op, size, msgs.cpu())
+            for name, o in (("pallas off", off), ("cpu", cpu)):
+                if not (torch.equal(o[0].cpu(), got.cpu())
+                        and _same_snap(o[1], snap) and o[2] == rep):
+                    raise AssertionError(
+                        f"verbs {transport} {op} {size}: the card's run and "
+                        f"{name} differ: {rep} against {o[2]}")
+            if off[3]["bounce"] != want_launches:
+                raise AssertionError(f"pallas off launches {off[3]}")
+            if rep["ops"] != want_launches or rep["completions"] != VERBS_N \
+                    or rep["credits"] != (VERBS_N if op == "send" else 0):
+                raise AssertionError(f"verbs report {rep}")
+            ticks = VERBS_N + rep["completions"] + rep["stalls"]
+            row = {"transport": transport, "op": op, "bytes": size,
+                   "launches": launches["bounce"], "ticks": int(ticks),
+                   "wall_ms": secs * 1e3,
+                   "host_us_per_tick": secs * 1e6 / ticks,
+                   "report": {k: rep[k] for k in REPORT_KEYS},
+                   "kernel_iters": rep["kernel_iters"],
+                   "win_hwm": int(snap["win_hwm"]),
+                   "cq_hwm": int(snap["cq_hwm"])}
+            res["cases"].append(row)
+            _line(f"  verbs {transport} {op} {size} B x {VERBS_N}: bit for bit,"
+                  f" as the CPU's and with pallas off; {launches['bounce']} "
+                  f"bounce launches, no sync; {secs * 1e3:.2f} ms, "
+                  f"{row['host_us_per_tick']:.1f} us a tick over {ticks:.0f} "
+                  f"ticks; report {row['report']}")
+            del msgs, got, off, cpu
+
+        # the synchronous path: each rank's pipeline on its own state
+        n_sync = 16
+        msgs = _verbs_payload(gen, n_sync, 65_536)
+        reps = {}
+        for where in ("cuda", "cpu"):
+            dp = _verbs_dp(where)
+            cfg = verbs.QPConfig(msg_bytes=65_536, depth=n_sync)
+            qp, rt = verbs.qp_init(cfg, device=where), dp.runtime_init()
+            m = msgs.to(where)
+            for i in range(n_sync):
+                qp, rt = verbs.post_send(dp, cfg, qp, m[:, i], src=0,
+                                         state=rt)
+            qp, rt = verbs.flush_send(dp, cfg, qp, src=0, dst=1, state=rt)
+            done, qp, rt = verbs.poll_cq(dp, cfg, qp, poller=1, state=rt)
+            reps[where] = dp.runtime_report(verbs.allreduce_state(rt))[
+                "default"]
+            if done != n_sync or not torch.equal(qp["recv_ring"][1].cpu(),
+                                                 msgs[0].cpu()):
+                raise AssertionError(f"sync path on {where}: {done} done")
+        want = {"ops": n_sync + VERBS_RANKS, "completions": n_sync}
+        if reps["cuda"] != reps["cpu"] or \
+                any(reps["cuda"][k] != v for k, v in want.items()):
+            raise AssertionError(f"sync path report {reps}, want {want}")
+        _line(f"  verbs sync path: {n_sync} posts + flush + poll, report "
+              f"ops {reps['cuda']['ops']:.0f} (each rank's own state), as "
+              f"on the CPU")
+        res["post_host_us"] = _post_host_us()
+        _line("phase 7a verbs ok")
+
+        # -- 7b: loss, migration, churn -----------------------------------
+        fault = WireFault(**LOSSY)
+        n, a = GOLDEN_GRID
+        w = torch.arange(n).repeat_interleave(a)
+        t = torch.arange(a).repeat(n)
+        for name, golden in (("drops_wr", GOLDEN_DROPS),
+                             ("corrupts_wr", GOLDEN_CORRUPTS)):
+            hit = getattr(fault, name)(w, t)
+            ints = [k for k in range(n * a)
+                    if getattr(fault, name)(k // a, k % a)]
+            if tuple(torch.nonzero(hit).flatten().tolist()) != golden or \
+                    tuple(ints) != golden:
+                raise AssertionError(f"WireFault.{name} differs from "
+                                     f"repro's schedule")
+        msgs = _verbs_payload(gen, VERBS_N, 65_536)
+        clean = _windowed("cuda", "RC", "send", 65_536, msgs)
+        lossy = _windowed("cuda", "RC", "send", 65_536, msgs, fault=fault,
+                          no_sync=True)
+        res["launches"] += lossy[3]["bounce"]
+        cpu, chains = _count_chains(lambda: _windowed(
+            "cpu", "RC", "send", 65_536, msgs.cpu(), fault=fault))
+        lrep = lossy[2]
+        if not torch.equal(lossy[0], clean[0]) or lrep["retransmits"] <= 0:
+            raise AssertionError(f"lossy transfer: bit-identical "
+                                 f"{torch.equal(lossy[0], clean[0])}, "
+                                 f"report {lrep}")
+        if not (_same_snap(cpu[1], lossy[1]) and cpu[2] == lrep):
+            raise AssertionError(f"lossy transfer: card {lrep}, CPU {cpu[2]}")
+        if lossy[3]["bounce"] != chains:
+            raise AssertionError(f"lossy launches {lossy[3]['bounce']}, the "
+                                 f"code gives {chains}")
+        res["lossy"] = {"report": {k: lrep[k] for k in REPORT_KEYS
+                                   + ("retransmits", "timeouts",
+                                      "cqe_errors")},
+                        "launches": lossy[3]["bounce"],
+                        "wall_ms": lossy[4] * 1e3,
+                        "lossless_wall_ms": clean[4] * 1e3}
+        _line(f"  verbs lossy RC send 64 KiB x {VERBS_N} under {LOSSY}: bit "
+              f"for bit the lossless run, report as the CPU's "
+              f"({res['lossy']['report']}), {chains} bounce launches as the "
+              f"code gives; {lossy[4] * 1e3:.2f} ms against lossless "
+              f"{clean[4] * 1e3:.2f} ms")
+
+        # a windowed transfer quiesced halfway, snapshotted, restored into
+        # a fresh QP and finished
+        mesh = perftest.make_mesh2()
+        dp = _verbs_dp("cuda")
+        parts = perftest.build_migratable(mesh, dp, 65_536, VERBS_WINDOW,
+                                          credits=VERBS_N)
+        _reset_launches()
+        qp, _ = parts["init"](dp.runtime_init())
+        k = VERBS_N // 2
+        out1, qp, _ = parts["xfer"](msgs[:, :k], qp, dp.runtime_init())
+        qp, _ = parts["quiesce"](qp, dp.runtime_init())
+        snap = verbs.qp_snapshot(qp)
+        depth = parts["cfg"].depth
+        for key in ("send_ring", "recv_ring"):
+            rows = snap[key]
+            if rows.shape != (VERBS_RANKS * depth, 65_536) or any(
+                    not np.array_equal(rows[r * depth:(r + 1) * depth],
+                                       qp[key][r].cpu().numpy())
+                    for r in range(VERBS_RANKS)):
+                raise AssertionError(f"snapshot {key}: not repro's "
+                                     f"(R*depth, slot) layout")
+        if snap["cq_head"] != snap["cq_tail"] or \
+                snap["sq_head"] != snap["cq_sent"]:
+            raise AssertionError("quiesce left the CQ or window open")
+        qp2 = verbs.qp_restore(snap, mesh, device="cuda")
+        out2, qp2, _ = parts["xfer"](msgs[:, k:], qp2, dp.runtime_init())
+        torch.cuda.synchronize()
+        res["launches"] += _launches()["bounce"]
+        moved = torch.cat([out1[1], out2[1]])
+        if not torch.equal(moved, clean[0][1]):
+            raise AssertionError("migrated transfer differs from the "
+                                 "uninterrupted one")
+        _line(f"  verbs migration: {k} of {VERBS_N} messages, quiesce, "
+              f"snapshot ({snap['send_ring'].shape} rings), restore, the "
+              f"rest: bit for bit the uninterrupted run")
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        churn = perftest.connection_churn(mesh, device="cuda")[0]
+        torch.cuda.synchronize()
+        res["launches"] += _launches()["bounce"]
+        churn["wall_s"] = time.perf_counter() - t0
+        if churn["qps_churned"] < 104 or not churn["bit_identical"] or \
+                churn["retransmits"] <= 0:
+            raise AssertionError(f"churn {churn}")
+        res["churn"] = churn
+        _line(f"  verbs churn: {churn}")
+        _line("phase 7b verbs loss, migration and churn ok")
+    finally:
+        if had is None:
+            tech._CALIBRATION.pop(probe, None)
+        else:
+            tech._CALIBRATION[probe] = had
+    res["bounce"] = _verbs_bounce_timing()
+    return res
+
+
+def _post_host_us() -> dict:
+    """Where a post tick's host time goes: host us per call (no sync) of
+    cord's send side on a 64 KiB slice with a runtime state (the kernel
+    launch and the counter bumps), without one (the launch alone), and
+    one counter bump."""
+    import torch
+    from repro_torch.core import telemetry as tl
+    dp = _verbs_dp("cuda")
+    x = torch.zeros(65_536, dtype=torch.uint8, device="cuda")
+    rec = tl.OpRecord(kind="verbs", tag="verbs/post", bytes=x.numel(),
+                      axes=("rank",), shape=tuple(x.shape), dtype="uint8")
+    st = dp.runtime_init()
+    out = {"send_side_with_state": _host_us(
+               lambda: dp.pipeline.send(x, rec, st, 0)),
+           "send_side_no_state": _host_us(
+               lambda: dp.pipeline.send(x, rec, None, 0)),
+           "counter_bump": _host_us(lambda: tl.tenant_counters_bump(
+               st["counters"], 0, ops=1, bytes=x.numel()))}
+    _line("  verbs post host us a call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def _verbs_bounce_timing() -> dict:
+    """The bounce kernel at one mediated WR's shape: a 4 KiB and a 1 MiB
+    uint8 payload with cord's syscall chain, against its plain version and
+    ``torch.clone``."""
+    import torch
+    from repro_torch.core import techniques as tech
+    from repro_torch.kernels.dataplane import bounce as bk
+    dev = torch.device("cuda")
+    iters = tech.iters_for_ns(400.0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    out = {}
+    for label, nbytes in (("4KiB", 4096), ("1MiB", 1 << 20)):
+        x = torch.randint(0, 256, (nbytes,), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        got, gctr = bk.mediated_cost(x, iters, 0)
+        want, wctr = bk.mediated_cost_plain(x, iters, 0)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(gctr, wctr)):
+            raise AssertionError(f"bounce verbs WR {label} differs from the "
+                                 f"plain version")
+        call = lambda: bk.mediated_cost(x, iters, 0)  # noqa: E731
+        clone = lambda: torch.clone(x)                # noqa: E731
+        t_bytes = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        chunks = int(gctr.shape[0])
+        t_ops = 2 * chunks * -(-iters // chunks) / F32_FLOPS * 1e3
+        out[label] = {
+            "bytes": nbytes, "iters": iters,
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "ms": _cuda_ms(call, n=50), "device_ms": _device_ms(call, n=20),
+            "host_us": _host_us(call),
+            "plain_ms": _wall_ms(lambda: bk.mediated_cost_plain(x, iters, 0),
+                                 n=5),
+            "library_ms": _cuda_ms(clone, n=50),
+            "library_device_ms": _device_ms(clone, n=20),
+            "library_host_us": _host_us(clone),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        r = out[label]
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
+        _line(f"  bounce verbs WR {label}: {r['ms']:.4f} ms, device "
+              f"{fmt(r['device_ms'])} ms, host {r['host_us']:.2f} us/call "
+              f"(bound {r['bound_ms']:.6f} ms, {r['bound_by']}); clone "
+              f"{r['library_ms']:.4f} ms, device "
+              f"{fmt(r['library_device_ms'])}, host "
+              f"{r['library_host_us']:.2f} us; plain {r['plain_ms']:.3f} ms")
+    return out
+
+
+def phase_perftest() -> dict:
+    """7c: the perftest tables on the card (``run_all(fast=False)``), each
+    row printed, then FIG3_REPS repetitions of fig3's BP→BP and CD→CD
+    latencies with their medians and spreads."""
+    import statistics
+
+    import torch
+    from repro_torch.bench import perftest
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    rows = perftest.run_all(fast=False, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches()["bounce"]
+    for row in rows:
+        _line("  perftest " + json.dumps(row))
+    for row in rows:
+        vals = [v for v in row.values() if isinstance(v, float)]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"perftest row not finite: {row}")
+    tables = {r["table"] for r in rows}
+    need = {"calibration", "fig1", "fig3", "fig4", "window", "credits",
+            "churn", "fig5_lat", "fig5_bw"}
+    if not need <= tables:
+        raise AssertionError(f"perftest tables {tables}, missing "
+                             f"{need - tables}")
+    sizes = {r["bytes"] for r in rows if r["table"] == "fig1"}
+    if sizes != set(perftest.MSG_SIZES):
+        raise AssertionError(f"fig1 sizes {sorted(sizes)}")
+    for r in rows:
+        if r["table"] == "credits" and r["completions"] != 32:
+            raise AssertionError(f"credit row lost messages: {r}")
+        if r["table"] == "credits" and r["rx_credits"] < 8 and \
+                not r["stalls"] > 0:
+            raise AssertionError(f"credit starvation without stalls: {r}")
+    cal = rows[0]
+    preset = perftest.CostPreset(
+        "L", syscall_ns=cal["syscall_ns"], interrupt_us=cal["interrupt_us"],
+        socket_ns=0.0)
+    mesh = perftest.make_mesh2()
+    reps = {}
+    _reset_launches()
+    for transport, op in (("RC", "send"), ("RC", "read"), ("RC", "write"),
+                          ("UD", "send")):
+        for cm, sm in (("BP", "BP"), ("CD", "CD")):
+            mk = lambda m: perftest._dp(  # noqa: E731
+                "cord" if m == "CD" else "bypass", emulate=True,
+                syscall_ns=preset.syscall_ns,
+                interrupt_us=preset.interrupt_us, mesh=mesh, device="cuda")
+            lat = [perftest.pingpong_latency_us(mesh, mk(cm), mk(sm), 4096,
+                                                iters=20,
+                                                transport=transport, op=op)
+                   for _ in range(FIG3_REPS)]
+            q = statistics.quantiles(lat, n=4)
+            reps[f"{transport} {op} {cm}->{sm}"] = {
+                "latency_us": lat, "median_us": statistics.median(lat),
+                "iqr_us": q[2] - q[0], "range_us": max(lat) - min(lat)}
+    torch.cuda.synchronize()
+    launches += _launches()["bounce"]
+    for key, r in reps.items():
+        _line(f"  fig3 x{FIG3_REPS} {key}: median {r['median_us']:.3f} us, "
+              f"IQR {r['iqr_us']:.3f}, range {r['range_us']:.3f} "
+              f"({', '.join(f'{v:.3f}' for v in r['latency_us'])})")
+    _line(f"phase 7c perftest ok: {len(rows)} rows in {secs:.1f} s, "
+          f"{launches} bounce launches")
+    return {"rows": rows, "fig3_reps": reps, "secs": secs,
+            "launches": launches}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2167,6 +2635,10 @@ def main(argv=None) -> int:
     gspmd = phase_train_gspmd()
     launcher = phase_launcher()
     cpsum = phase_chunked_psum()
+    gc.collect()
+    torch.cuda.empty_cache()
+    verbs = phase_verbs()
+    perf = phase_perftest()
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -2264,6 +2736,21 @@ def main(argv=None) -> int:
          "bound_ms": f4["bound_ms"], "bound_by": f4["bound_by"],
          "library_ms": f4["library_ms"]},
     ]
+    # phase 7's path: every mediated WR of the verbs transport and perftest
+    vb = verbs["bounce"]
+    small = vb["4KiB"]
+    kernels.append(
+        {"name": "bounce (verbs: per-WR mediation)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": verbs["launches"] + perf["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in vb.values()),
+         "ms": small["ms"], "device_ms": small["device_ms"],
+         "host_us": small["host_us"], "plain_ms": small["plain_ms"],
+         "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
+         "library_ms": small["library_ms"],
+         "library_device_ms": small["library_device_ms"],
+         "at_1MiB": vb["1MiB"]})
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2274,6 +2761,7 @@ def main(argv=None) -> int:
                                    "train_kernels": train_k, "train": train,
                                    "gspmd": gspmd, "launcher": launcher,
                                    "chunked_psum": cpsum,
+                                   "verbs": verbs, "perftest": perf,
                                    "profile": prof or None,
                                    "kernels": kernels},
                                   indent=1))

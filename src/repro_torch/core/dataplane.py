@@ -18,10 +18,12 @@ leading dim is rank ``r``'s shard.  Each is one :meth:`_mediate`, as in
 the pipeline's send and complete sides once per rank on that rank's
 slice (so the dataplane kernel launches once per rank and side with
 work, and its counters cover one shard as in ``repro``); the collective
-itself over the leading dim in plain torch.  Rank 0 carries the runtime
-state; ranks 1..R-1 run the same pipeline from the same incoming state
-and their result state is dropped, as ``out_specs=P()`` keeps one of
-``repro``'s replicated copies.
+itself over the leading dim in plain torch.  Given one runtime state,
+rank 0 carries it; ranks 1..R-1 run the same pipeline from the same
+incoming state and their result state is dropped, as ``out_specs=P()``
+keeps one of ``repro``'s replicated copies.  Given a list of R states,
+one per rank (the verbs transport's, whose ranks diverge by design),
+each rank's pipeline runs on its own state and the R results come back.
 
 Three modes (paper Fig. 2):
 
@@ -251,18 +253,25 @@ class Dataplane:
         """One dataplane op: record (one rank's shard) → pipeline.send per
         rank → collective → pipeline.complete per rank.  All five explicit
         collectives are this.  ``collective`` maps the list of the ranks'
-        sent shards to the list of their outputs."""
+        sent shards to the list of their outputs.  ``state`` is one state
+        (rank 0's result is returned) or a list of R, one per rank (the
+        list of results is returned)."""
         r = self.axis_size(axis)
         if x.dim() < 1 or x.shape[0] != r:
             raise ValueError(f"{kind} over {axis!r} wants a rank-stacked "
                              f"tensor with leading dim {r}, got "
                              f"{tuple(x.shape)}")
+        per_rank = isinstance(state, (list, tuple))
+        if per_rank and len(state) != r:
+            raise ValueError(f"{kind} over {axis!r} wants {r} per-rank "
+                             f"states, got {len(state)}")
         rec = self._record(kind, tag, x[0], axis, qos, mr, tenant=tenant,
                            precharged=precharged)
         ti = self.tenant_index(tenant)
         sent, states = [], []
         for i in range(r):
-            xi, st = self.pipeline.send(x[i], rec, state, ti)
+            xi, st = self.pipeline.send(x[i], rec,
+                                        state[i] if per_rank else state, ti)
             sent.append(xi)
             states.append(st)
         outs = collective(sent)
@@ -271,7 +280,7 @@ class Dataplane:
             oi, st = self.pipeline.complete(outs[i], rec, states[i], ti)
             done.append(oi)
             states[i] = st
-        return _stack_ranks(done), states[0]
+        return _stack_ranks(done), (states if per_rank else states[0])
 
     def psum(self, x, axis, tag: str = "psum", mr: str | None = None,
              state=None, qos: str = "default", tenant: str | None = None,

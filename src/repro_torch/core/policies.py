@@ -210,6 +210,56 @@ class QoSPolicy(Policy):
         """True if this policy rate-limits ``tenant``."""
         return bool(self.rates.get(tenant))
 
+    # ---- connection-table plane (core/verbs.py conn_send) ---------------
+    # The multi-QP transport arbitrates post order across tenants' QPs
+    # with this same bucket; the winning QP is known only at run time, so
+    # the static on_op_runtime hook cannot serve it.
+
+    def rates_for(self, tenants: tuple[str, ...]) -> tuple[float, ...]:
+        """Per-QP refill rates (0.0 = ungoverned) in QP order."""
+        return tuple(float(self.rates.get(t) or 0.0) for t in tenants)
+
+    def arb_scores(self, state, tenant_idx_arr, rates_arr):
+        """Tokens-after-refill per QP, the score ``conn_send`` ranks posts
+        by.  Ungoverned QPs (rate 0) score above any governed bucket, so
+        QoS only ever demotes governed tenants.  Reads the same
+        ``state["qos"]["tokens"]`` the token-bucket stage debits."""
+        tokens = state[self.name]["tokens"]
+        tk = torch.clamp(tokens[tenant_idx_arr] + rates_arr,
+                         max=float(self.burst))
+        return torch.where(rates_arr > 0, tk,
+                           torch.full_like(tk, float(self.burst) + 1.0))
+
+    def charge_wr(self, state, tenant_idx, rate, mask, bump_mask=None):
+        """Token-bucket refill and debit for one arbitrated WR.
+        ``tenant_idx`` is an int or a 0-d integer tensor; ``rate``, ``mask``
+        and ``bump_mask`` are Python values or tensors.  ``mask`` gates the
+        token update, which the caller applies to every rank's state (the
+        bucket is connection state for the arbitration loop);
+        ``bump_mask`` also gates the ``throttled`` bump (runtime state, the
+        active rank only).  No stall: arbitration already prefers
+        token-rich QPs, and a dry winner is only counted."""
+        if state is None or self.name not in state:
+            return state
+        m = mask & (rate > 0)
+        if m is False:
+            return state
+        tokens = state[self.name]["tokens"]
+        tk = torch.clamp(tokens[tenant_idx] + rate, max=float(self.burst))
+        ok = tk >= 1.0
+        new_tk = torch.where(ok, tk - 1.0, torch.zeros_like(tk))
+        tokens = tokens.clone()
+        tokens[tenant_idx] = new_tk if m is True else \
+            torch.where(m, new_tk, tokens[tenant_idx])
+        state = {**state, self.name: {"tokens": tokens}}
+        bm = m if bump_mask is None else (m & bump_mask)
+        if "counters" in state and bm is not False:
+            ctrs = tl.tenant_counters_bump(
+                state["counters"], tenant_idx,
+                throttled=(bm & ~ok).to(torch.float32))
+            state = {**state, "counters": ctrs}
+        return state
+
 
 def default_policies() -> list[Policy]:
     return [TelemetryPolicy()]

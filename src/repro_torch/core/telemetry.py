@@ -143,25 +143,45 @@ def tenant_counters_init(num_tenants: int, device=None) -> torch.Tensor:
                        device=device)
 
 
-def tenant_counters_bump(ctrs: torch.Tensor, tenant_idx: int,
+def tenant_counters_bump(ctrs: torch.Tensor, tenant_idx,
                          **bumps) -> torch.Tensor:
-    """Return ``ctrs`` with one tenant's row bumped.  Each bump value is a
-    Python number or a 0-d tensor, taken as float32 before the add (as
-    ``repro`` converts with ``jnp.asarray(v, float32)``).  A Python
-    number is added as a scalar and a tensor in place on a copy, so a
-    bump on the card copies nothing from the host and never waits for
-    the device."""
+    """Return ``ctrs`` with one tenant's row bumped.  ``tenant_idx`` is an
+    int or a 0-d integer tensor (a winner picked on the device, as
+    ``repro``'s traced index).  Each bump value is a Python number or a
+    0-d tensor, taken as float32 before the add (as ``repro`` converts
+    with ``jnp.asarray(v, float32)``).  A Python number is added as a
+    scalar and a tensor in place on a copy, so a bump on the card copies
+    nothing from the host and never waits for the device."""
     unknown = set(bumps) - set(_BUMP_FIELDS)
     if unknown:
         raise TypeError(f"unknown counter bump(s): {sorted(unknown)}")
     out = ctrs.clone()
-    row = out[tenant_idx]
+    if isinstance(tenant_idx, torch.Tensor):
+        row = torch.zeros_like(out[0])
+    else:
+        row = out[tenant_idx]
     for name, v in bumps.items():
         j = COUNTER_NAMES.index(name)
         if isinstance(v, torch.Tensor):
             row[j] += v.to(torch.float32).reshape(())
         elif v:
             row[j] += v
+    if isinstance(tenant_idx, torch.Tensor):
+        out.index_add_(0, tenant_idx.reshape(1).long(), row[None])
+    return out
+
+
+def tenant_counters_peak(ctrs: torch.Tensor, tenant_idx: int, *,
+                         cq_depth) -> torch.Tensor:
+    """Fold a completion-queue occupancy sample (a Python number or a 0-d
+    tensor) into one tenant's ``cq_depth`` high-water mark: a max, unlike
+    every additive counter."""
+    out = ctrs.clone()
+    cell = out[tenant_idx, CTR_CQ_DEPTH]
+    if isinstance(cq_depth, torch.Tensor):
+        cell.copy_(torch.maximum(cell, cq_depth.to(torch.float32)))
+    else:
+        cell.clamp_(min=float(cq_depth))
     return out
 
 
@@ -209,7 +229,8 @@ def normalize_axes(axes) -> tuple[str, ...]:
 
 
 __all__ = [
-    "OpRecord", "Telemetry", "KEEP_RECORDS", "tenant_counters_init", "tenant_counters_bump",
+    "OpRecord", "Telemetry", "KEEP_RECORDS", "tenant_counters_init",
+    "tenant_counters_bump", "tenant_counters_peak",
     "tenant_counters_report", "nbytes", "describe", "dtype_name",
     "normalize_axes", "CTR_OPS", "CTR_BYTES", "CTR_DENIED", "CTR_CHUNKS",
     "CTR_THROTTLED", "CTR_STALLS", "CTR_CREDITS", "CTR_COMPLETIONS",

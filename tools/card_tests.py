@@ -29,7 +29,10 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_train_attention.py",
                    "tests/test_torch_train_step.py",
                    "tests/test_torch_mediated_grad.py",
-                   "tests/test_torch_chunking.py")
+                   "tests/test_torch_chunking.py",
+                   "tests/test_torch_verbs.py",
+                   "tests/test_torch_transport.py",
+                   "tests/test_torch_conn.py")
 _STANDING_IN = ("jax", "repro")
 
 

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Planted faults in the port's CUDA kernels and in the code around them
 (the dataplane kernel's autograd function, the loss's edges, recompute
-telemetry, checkpoint restore); chip_smoke.py must catch each.
+telemetry, checkpoint restore) and in the verbs transport (a post that
+skips mediation, a reversed READ, an unmasked WireFault hash, a snapshot
+in another ring layout, rank 0's state kept for every rank);
+chip_smoke.py must catch each.
 
     python3 tools/kernel_faults.py [fault ...]   # on a machine with a card
 
@@ -124,6 +127,34 @@ FAULTS = {
     "records_kept_in_recompute": (
         "core/dataplane.py", "        if not self._recomputing:\n",
         "        if True:\n", "phase_train_gspmd"),
+    # a windowed post skips the sender's mediation (no syscall, no launch)
+    "verbs_post_skips_mediation": (
+        "core/verbs.py",
+        "    wire = _side(dp, \"send\", ps, src, tag, states, tenant)\n",
+        "    wire = ps\n", "phase_verbs"),
+    # READ's data flows the way a write's does (src to dst)
+    "verbs_read_perm_reversed": (
+        "core/verbs.py",
+        "    a, b = (dst, src) if op == \"read\" else (src, dst)\n",
+        "    a, b = (src, dst)\n", "phase_verbs"),
+    # the WireFault hash keeps a 64-bit product in its finaliser
+    "wirefault_hash_unmasked": (
+        "runtime/fault.py", "        h = (h * 0x85ebca6b) & _U32\n",
+        "        h = h * 0x85ebca6b\n", "phase_verbs"),
+    # a snapshot interleaves the ranks' ring rows
+    "snapshot_ring_layout": (
+        "core/verbs.py",
+        "        return a.reshape((-1,) + a.shape[2:])      # ranks folded "
+        "into rows\n",
+        "        return a.swapaxes(0, 1).reshape((-1,) + a.shape[2:])\n",
+        "phase_verbs"),
+    # flush_send's ppermute hands every rank rank 0's state
+    "flush_send_keeps_rank0_state": (
+        "core/dataplane.py",
+        "        return _stack_ranks(done), (states if per_rank else "
+        "states[0])\n",
+        "        return _stack_ranks(done), ([states[0]] * r if per_rank else "
+        "states[0])\n", "phase_verbs"),
     # restore leaves the second moments as the fresh state holds them
     "restore_skips_nu": (
         "checkpoint/store.py", "        out.append(t.to(dev))\n",
