@@ -140,6 +140,35 @@ Phases, one line each; any failure raises and the script exits nonzero:
    ranks share the card, so the "wire" is a device copy and a latency
    is not an RDMA latency: the claim is the relative-overhead structure.
 
+8a. timelines on the serve path: phase 3's 8 requests on full-width
+   gemma3-1b with ``Engine(..., obs=CounterTimeline(...))`` and without.
+   Gates: identical tokens, one sample a decode tick holding the
+   engine's counters, an artifact that validates, the same stream syncs
+   (sync debug mode "warn") with the timeline and without; it prints the
+   median tick ms of both and the host us of one ``snapshot_block`` and
+   one ``ThresholdWatcher.observe`` (1,000 calls).  Then ``repro``'s
+   exact-resume budget cycle under ``ServeElasticController``: 3
+   requests of 8 tokens, 10 new each, ``max_batch=3``, shrink at tick 3,
+   grow at tick 14; every request's tokens those of an undisturbed run,
+   one shrink and one grow, the budget back at 3;
+8b. the launcher with ``--timeline --timeline-sink --timeline-rotate
+   --elastic`` at ``--ranks 4`` (global batch 4, seq 256, 6 steps, phase
+   5's dataplane: cost emulation and a QoS bucket), metered by
+   ``elastic.meter_quota_bytes`` under one step's psums: a trigger and a
+   remesh to 2 ranks, then ``remesh-skipped`` for ``max_remesh``; bounce,
+   stall and flash-with-lse launches per psum / layer follow the ranks
+   (4 before the move, 2 after); every loss within 1e-4 relative of the
+   same launcher at 4 ranks without the flags; the rotated sink read
+   back equals the artifact.  Then 3 steps at 2 ranks with
+   ``--timeline`` and 3 without: params and moments bit for bit; step
+   ms on and off, one snapshot's ms with its device-to-host read, the
+   stall's host us a call;
+8c. ``bench.control_plane.control_plane_smoke`` (two 2-rank hosts, a
+   WatcherGroup over the merged pod timeline, a QP migration there and
+   back, a slot-budget shrink and grow) with host 1's engine on
+   full-width gemma3-1b, and ``elastic_smoke``: ``repro``'s storyline,
+   bit-identical migrated transfers, a validating pod artifact.
+
 ``--profile`` adds torch.profiler tables for one prefill of 256 tokens
 and one 4-slot decode tick of each model.  The line before the last is
 the per-kernel JSON summary; the last line is ``{"ok": true, "device":
@@ -2589,6 +2618,493 @@ def phase_perftest() -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: timelines and the control plane
+# ---------------------------------------------------------------------------
+
+CTL_LENGTHS = (16, 300, 40, 129, 77, 256, 24, 200)   # phase 3's traffic
+CTL_RANKS = 4            # 8b's launcher starts on 4 ranks, shrinks to 2
+CTL_STEPS = 6
+CTL_QUOTA = 1_000_000_000   # bytes: under one step's 4.0 GB of psums
+REMESH_LOSS_RTOL = 1e-4  # the quickstart trajectory's tolerance
+OBS_CALLS = 1000
+
+
+def _count_syncs(fn):
+    """``fn()`` under the sync debug mode "warn": returns its result and
+    the stream synchronisations it made (one warning each)."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+
+
+def phase_control_serve() -> dict:
+    """8a: phase 3's serve with a timeline and without (tokens, samples,
+    the artifact, stream syncs a tick), the host cost of a snapshot and of
+    a watcher's observe, and ``repro``'s exact-resume budget cycle under
+    the serve controller, all at gemma3-1b's full width."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import (DataplaneConfig, ElasticConfig,
+                                          ServeConfig)
+    from repro_torch.core import (CounterTimeline, Dataplane,
+                                  ThresholdWatcher, validate_timeline)
+    from repro_torch.core import telemetry as tl
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ServeElasticController
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_model_config("gemma3-1b")
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    mesh = make_mesh((1,), ("data",))
+
+    def dataplane():
+        return Dataplane(DataplaneConfig(mode="cord", emulate_costs=True),
+                         mesh=mesh, tenant="alice", tenants=("alice", "bob"))
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in CTL_LENGTHS]
+    scfg = ServeConfig(max_batch=4, kv_cache_len=640, max_new_tokens=16)
+
+    def serve(obs, count: bool):
+        eng = Engine(model, params, cfg, scfg, dp=dataplane(), eos_id=-1,
+                     obs=obs)
+        stamps = []
+        real = eng._obs_snapshot
+
+        def stamped(**kw):        # the end of every decode tick
+            real(**kw)
+            stamps.append(time.perf_counter())
+
+        eng._obs_snapshot = stamped
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16,
+                        tenant=("alice", "bob")[i % 2])
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        if count:
+            done, syncs = _count_syncs(lambda: eng.run(reqs))
+        else:
+            done, syncs = eng.run(reqs), None
+        tick_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        return {r.rid: list(r.out_tokens) for r in done}, eng, syncs, \
+            tick_ms, len(stamps)
+
+    _reset_launches()
+    timeline = CounterTimeline(source="serve/gemma3-1b")
+    # the syncs under the debug mode "warn", which records each one
+    tok_on, eng_on, syncs_on, _, ticks = serve(timeline, True)
+    tok_off, _, syncs_off, _, ticks_off = serve(None, True)
+    # the ticks' times apart from it: off, on, on, off
+    ms_on, ms_off = [], []
+    for on in (False, True, True, False):
+        tok, _, _, ms, _ = serve(
+            CounterTimeline(source="serve/gemma3-1b") if on else None, False)
+        (ms_on if on else ms_off).extend(ms)
+        if tok != tok_on:
+            raise AssertionError("a timed serve changed the served tokens")
+    launches = _launches()
+    if tok_on != tok_off or len(tok_on) != len(prompts):
+        raise AssertionError("a timeline changed the served tokens")
+    if not all(len(t) == 16 and all(0 <= x < cfg.vocab_size for x in t)
+               for t in tok_on.values()):
+        raise AssertionError("bad tokens")
+    ctrs, tenants = eng_on.runtime_counters()
+    last = timeline.samples[-1] if timeline.samples else None
+    if not (len(timeline.samples) == ticks == ticks_off
+            == eng_on._obs_tick_no and last["step"] == ticks
+            and last["tenants"] == tl.tenant_counters_report(ctrs, tenants)
+            and set(last["gauges"]) == {"active_slots", "queued"}):
+        raise AssertionError(f"{len(timeline.samples)} samples for {ticks} "
+                             f"ticks; last {last}")
+    if syncs_on != syncs_off:
+        raise AssertionError(f"stream syncs {syncs_on} with a timeline, "
+                             f"{syncs_off} without")
+    tmp = tempfile.mkdtemp(prefix="cord_obs_")
+    try:
+        validate_timeline(CounterTimeline.load(timeline.save(
+            os.path.join(tmp, "gemma3-1b_serve_timeline.json"))))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # host cost: one snapshot of the serve counter block, one watcher
+    # observe of one new window (OBS_CALLS calls each)
+    blk = CounterTimeline(source="blk")
+    t0 = time.perf_counter()
+    for i in range(OBS_CALLS):
+        blk.snapshot_block(i, ctrs, tenants,
+                           gauges={"active_slots": 4, "queued": 2})
+    snap_us = (time.perf_counter() - t0) * 1e6 / OBS_CALLS
+    watcher = ThresholdWatcher({"throttled_pct": 50.0}, sustain=2,
+                               cooldown=1, release={"throttled_pct": 10.0})
+    obs_tl, spent = CounterTimeline(source="watch"), 0.0
+    for i in range(OBS_CALLS + 1):
+        obs_tl.snapshot(i, {t: {"ops": 4.0 * i, "throttled": 2.0 * i}
+                            for t in ("alice", "bob", "train")}, t=float(i))
+        t0 = time.perf_counter()
+        watcher.observe(obs_tl)
+        spent += time.perf_counter() - t0
+    observe_us = spent * 1e6 / OBS_CALLS
+
+    # repro's exact-resume budget cycle (tests/test_control_plane.py)
+    sc3 = ServeConfig(max_batch=3, max_new_tokens=10, kv_cache_len=64)
+
+    def requests():
+        return [Request(rid=i, prompt=np.asarray((np.arange(8) + 3 * i)
+                                                 % 100, np.int32),
+                        max_new_tokens=10, tenant="alice") for i in range(3)]
+
+    base = {r.rid: r.out_tokens for r in Engine(
+        model, params, cfg, sc3, dp=dataplane(), eos_id=-1).run(requests())}
+    cyc_tl = CounterTimeline(source="elastic-serve")
+    eng = Engine(model, params, cfg, sc3, dp=dataplane(), eos_id=-1,
+                 obs=cyc_tl)
+    ctl = ServeElasticController(
+        ElasticConfig(enabled=True, shrink_factor=2,
+                      thresholds=("throttled_pct=50",),
+                      release_thresholds=("throttled_pct=10",)), cyc_tl, eng)
+    n = {"tick": 0}
+
+    def hook(_eng):
+        n["tick"] += 1
+        ev = {"step": n["tick"], "tenant": "alice", "detail": {}}
+        if n["tick"] == 3:
+            ctl.respond([{**ev, "kind": "trigger"}])
+        elif n["tick"] == 14:
+            ctl.respond([{**ev, "kind": "recover"}])
+
+    eng.on_tick = hook
+    _reset_launches()
+    cyc = {r.rid: r.out_tokens for r in eng.run(requests())}
+    launches = {k: v + launches[k] for k, v in _launches().items()}
+    dirs = [e["detail"]["direction"] for e in cyc_tl.events
+            if e["kind"] == "budget"]
+    pre = cyc_tl.samples[-1]["tenants"]["alice"]
+    if not (cyc == base and all(len(o) == 10 for o in cyc.values())
+            and ctl.shrinks == ctl.grows == 1 and eng.slot_budget() == 3
+            and dirs == ["shrink", "grow"] and pre["preemptions"] >= 1
+            and pre["restores"] >= 1):
+        raise AssertionError(f"budget cycle: tokens equal {cyc == base}, "
+                             f"shrinks {ctl.shrinks}, grows {ctl.grows}, "
+                             f"budget {eng.slot_budget()}, events {dirs}, "
+                             f"counters {pre}")
+    if launches["bounce"] <= 0 or launches["flash_attention"] <= 0:
+        raise AssertionError(f"8a launches {launches}")
+    res = {"ticks": ticks, "samples": len(timeline.samples),
+           "syncs_on": syncs_on, "syncs_off": syncs_off,
+           "syncs_per_tick": syncs_on / ticks,
+           "tick_ms_on": statistics.median(ms_on),
+           "tick_ms_off": statistics.median(ms_off),
+           "snapshot_block_us": snap_us, "observe_us": observe_us,
+           "budget_cycle": {"preemptions": pre["preemptions"],
+                            "restores": pre["restores"],
+                            "samples": len(cyc_tl.samples)},
+           "launches": launches}
+    _line(f"  8a: {ticks} decode ticks, {len(timeline.samples)} samples, "
+          f"tokens identical with the timeline on and off; stream syncs "
+          f"{syncs_on} on / {syncs_off} off; tick ms (median of "
+          f"{len(ms_on)} / {len(ms_off)}, two serves each, no debug mode) "
+          f"{res['tick_ms_on']:.2f} on / {res['tick_ms_off']:.2f} off; "
+          f"snapshot_block {snap_us:.2f} us, "
+          f"observe {observe_us:.2f} us a call ({OBS_CALLS} calls)")
+    _line(f"  8a budget cycle: shrink at tick 3, grow at tick 14, exact "
+          f"resume, {pre['preemptions']:.0f} preemptions, "
+          f"{pre['restores']:.0f} restores; launches {launches}")
+    del model, params, eng, eng_on
+    return res
+
+
+def phase_control_train() -> dict:
+    """8b: the flash kernel with its lse against its plain version at the
+    per-rank batch of 4 ranks; the launcher with ``--timeline
+    --timeline-sink --timeline-rotate --elastic`` at 4 ranks (a remesh to
+    2), the same launcher at 4 ranks and at 2 without them (losses: the
+    remesh against each rank count throughout), then 3 steps with
+    ``--timeline`` and 3 without at 2 ranks (bit identity)."""
+    import contextlib
+    import dataclasses
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.core import (CounterTimeline, QoSPolicy,
+                                  TelemetryPolicy)
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.dataplane import stall as sk
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train as launch_train
+
+    # 4 ranks give each rank one sequence: the lse kernel at B=1 (2 ranks
+    # after the remesh give phase 5a's B=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    flash_b1 = [_flash_lse_case(gen, TRAIN_BATCH // CTL_RANKS, window)
+                for window in (512, 0)]
+
+    real_dp, real_loop = launch_train.Dataplane, launch_train.run_loop
+    real_ctl = launch_train.ElasticController
+    built: list = []
+    per_step: list = []
+    timing = {"drive_ms": [], "build_ms": []}
+
+    def converged_dp(cfg, mesh=None, policies=None, device=None, **kw):
+        """phase 5's dataplane: cost emulation and the tenant's QoS
+        bucket, beside the launcher's own policies."""
+        pol = list(policies) if policies is not None else [TelemetryPolicy()]
+        if not any(isinstance(p, QoSPolicy) for p in pol):
+            pol.append(QoSPolicy(rates={"default": 0.25}, burst=2.0,
+                                 stall_ns=200.0))
+        t0 = time.perf_counter()
+        dp = real_dp(dataclasses.replace(cfg, emulate_costs=True), mesh=mesh,
+                     policies=pol, device=device, **kw)
+        timing["build_ms"].append((time.perf_counter() - t0) * 1e3)
+        built.append(dp)
+        return dp
+
+    def counted_loop(step_fn, *a, **kw):
+        def counted(s, b):
+            n0 = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+            out = step_fn(s, b)
+            per_step.append({k: v - n0[k] for k, v in
+                             {**_launches(),
+                              "flash_lse": fa.LSE_LAUNCHES}.items()})
+            return out
+        return real_loop(counted, *a, **kw)
+
+    class TimedController(real_ctl):
+        def drive(self, state, step):
+            t0 = time.perf_counter()
+            out = super().drive(state, step)
+            timing["drive_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    tmp = tempfile.mkdtemp(prefix="cord_ctl_")
+    cwd = os.getcwd()
+    sink = os.path.join(tmp, "sink.jsonl")
+    size = [f"steps={CTL_STEPS}", f"seq_len={TRAIN_SEQ}",
+            f"global_batch={TRAIN_BATCH}", "log_every=1"]
+    elastic = ["--timeline", "--timeline-sink", sink, "--timeline-rotate",
+               "1024", "--elastic", f"elastic.meter_quota_bytes={CTL_QUOTA}",
+               "elastic.thresholds=denied_pct=50", "elastic.sustain=2",
+               "elastic.cooldown=1", "elastic.min_devices=2"]
+    launch_train.Dataplane = converged_dp
+    launch_train.run_loop = counted_loop
+    launch_train.ElasticController = TimedController
+    try:
+        os.chdir(tmp)
+        with open(os.devnull, "w") as devnull, \
+                contextlib.redirect_stdout(devnull):
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            fa.LSE_LAUNCHES = 0
+            state, rep = launch_train.main(["--full", "--ranks",
+                                            str(CTL_RANKS), *elastic, *size])
+            del state
+            launches = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            el_steps, el_ms = list(per_step), [t * 1e3 for t in rep.step_times]
+            losses = [m["loss"] for m in rep.metrics]
+            doc = CounterTimeline.load("runs/torch/gemma3-1b_timeline.json")
+            back = CounterTimeline.read_rotated(sink)
+            rotations = sum(1 for f in os.listdir(tmp)
+                            if f.startswith("sink.jsonl."))
+            del rep
+            gc.collect()
+            torch.cuda.empty_cache()
+            state, rep = launch_train.main(["--full", "--ranks",
+                                            str(CTL_RANKS), *size])
+            base = [m["loss"] for m in rep.metrics]
+            del state, rep
+            gc.collect()
+            torch.cuda.empty_cache()
+            state, rep = launch_train.main(["--full", "--ranks",
+                                            str(CTL_RANKS // 2), *size])
+            base2 = [m["loss"] for m in rep.metrics]
+            del state, rep
+            gc.collect()
+            torch.cuda.empty_cache()
+            per_step.clear()
+            short = ["--full", "--ranks", "2", "steps=3",
+                     f"seq_len={TRAIN_SEQ}", f"global_batch={TRAIN_BATCH}"]
+            s_on, rep_on = launch_train.main(["--timeline", *short])
+            s_off, rep_off = launch_train.main(short)
+    finally:
+        os.chdir(cwd)
+        launch_train.Dataplane, launch_train.run_loop = real_dp, real_loop
+        launch_train.ElasticController = real_ctl
+    differ = [p for (p, a), (_, b) in zip(
+        tree_flatten({"params": s_on.params, "mu": s_on.opt.mu,
+                      "nu": s_on.opt.nu}),
+        tree_flatten({"params": s_off.params, "mu": s_off.opt.mu,
+                      "nu": s_off.opt.nu}))
+        if not torch.equal(_bits(a), _bits(b))]
+    on_ms = [t * 1e3 for t in rep_on.step_times]
+    off_ms = [t * 1e3 for t in rep_off.step_times]
+    del s_on, s_off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kinds = [e["kind"] for e in doc["events"]]
+    remesh = next(e for e in doc["events"] if e["kind"] == "remesh")
+    ops = [s["tenants"]["default"]["ops"] for s in doc["samples"]]
+    psums = [b - a for a, b in zip([0.0] + ops, ops)]
+    at = remesh["step"]
+    ranks = [CTL_RANKS if i < at else CTL_RANKS // 2
+             for i in range(CTL_STEPS)]
+    per_psum = [st["bounce"] / n for st, n in zip(el_steps, psums)]
+    stall_per = [st["bounce_stall"] / n for st, n in zip(el_steps, psums)]
+    layers = get_model_config(TRAIN_ARCH).num_layers
+    lse_per = [st["flash_lse"] / layers for st in el_steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+    # the cause of a gap: the rank count (2 against 4 throughout) or the
+    # move (the remesh run against 2 ranks throughout, after the move)
+    rel_ranks = [abs(a - b) / abs(b) for a, b in zip(base2, base)]
+    rel_moved = [abs(a - b) / abs(b) for a, b in zip(losses, base2)]
+    if kinds != ["trigger", "remesh", "trigger", "remesh-skipped"] or not (
+            remesh["detail"]["direction"] == "shrink"
+            and remesh["detail"]["devices_before"] == CTL_RANKS
+            and remesh["detail"]["devices_after"] == CTL_RANKS // 2
+            and "max_remesh" in doc["events"][-1]["detail"]["reason"]):
+        raise AssertionError(f"8b events {doc['events']}")
+    if per_psum != ranks or stall_per != ranks or lse_per != ranks:
+        raise AssertionError(f"8b launches per psum {per_psum} (stall "
+                             f"{stall_per}, flash with lse {lse_per}), want "
+                             f"{ranks}")
+    if len(losses) != CTL_STEPS or max(rel) > REMESH_LOSS_RTOL:
+        raise AssertionError(f"8b losses {losses} against {base}: rel {rel}")
+    if losses[:at] != base[:at]:
+        raise AssertionError(f"8b losses before the move {losses[:at]} are "
+                             f"not those of 4 ranks throughout {base[:at]}")
+    if back.samples != doc["samples"] or back.events != doc["events"] or \
+            rotations < 1:
+        raise AssertionError(f"the rotated sink ({rotations} segments) "
+                             f"reads back other samples or events")
+    if differ:
+        raise AssertionError(f"--timeline changed {differ}")
+
+    # one snapshot on the card: the counter block's device-to-host read
+    # and the sample, OBS_CALLS of them; then the QoS stall's host time
+    dp = built[-1]
+    rt = dp.runtime_init()
+    tl_ = CounterTimeline(source="snap")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(OBS_CALLS):
+        tl_.snapshot(i, dp.runtime_report(rt))
+    snap_ms = (time.perf_counter() - t0) * 1e3 / OBS_CALLS
+    one = torch.zeros(1, device="cuda")
+    trip = torch.full((), 1, dtype=torch.int32, device="cuda")
+    stall_host_us = _host_us(lambda: sk.stall(one, trip), n=OBS_CALLS)
+    shutil.rmtree(tmp, ignore_errors=True)
+    res = {"flash_lse_b1": flash_b1,
+           "lse_b1_worst_err": max(r["lse_err"] for r in flash_b1),
+           "losses": losses, "baseline_losses": base, "loss_rel": rel,
+           "ranks2_losses": base2, "loss_rel_ranks2_vs_4": rel_ranks,
+           "loss_rel_remesh_vs_ranks2": rel_moved,
+           "events": kinds, "remesh_step": at,
+           "launches_per_step": el_steps, "bounce_per_psum": per_psum,
+           "launches": launches, "step_ms": el_ms, "peak_gb": peak_gb,
+           "drive_ms": timing["drive_ms"],
+           "dataplane_build_ms": timing["build_ms"],
+           "sink_segments": rotations + 1,
+           "step_ms_timeline_on": on_ms, "step_ms_timeline_off": off_ms,
+           "step_ms_on_median": statistics.median(on_ms),
+           "step_ms_off_median": statistics.median(off_ms),
+           "snapshot_ms": snap_ms, "stall_host_us": stall_host_us}
+    fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs)  # noqa: E731
+    _line(f"  8b: events {kinds}; remesh {CTL_RANKS} -> {CTL_RANKS // 2} "
+          f"ranks at step {at}; bounce launches per psum {per_psum}; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} (max rel "
+          f"{max(rel):.2e} against 4 ranks throughout, equal before the "
+          f"move); 2 ranks throughout against 4: rel "
+          f"{', '.join(f'{x:.2e}' for x in rel_ranks)}; the remesh run "
+          f"against 2 ranks throughout: rel "
+          f"{', '.join(f'{x:.2e}' for x in rel_moved)}; step ms "
+          f"{fmt(el_ms)}; drive ms {fmt(timing['drive_ms'])}; peak "
+          f"{peak_gb:.2f} GB; sink in {rotations + 1} segments")
+    _line(f"  8b: 3 steps at 2 ranks, --timeline on / off: step ms "
+          f"{fmt(on_ms)} / {fmt(off_ms)}, params and moments bit for bit; "
+          f"one snapshot {snap_ms:.4f} ms; stall host {stall_host_us:.2f} "
+          f"us a call")
+    return res
+
+
+def phase_control_pod() -> dict:
+    """8c: the pod storyline (``bench.control_plane.control_plane_smoke``)
+    with host 1's engine on full-width gemma3-1b, then ``elastic_smoke``;
+    both hold their own gates and raise on a miss."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.bench import control_plane
+
+    tmp = tempfile.mkdtemp(prefix="cord_pod_")
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            pod = control_plane.control_plane_smoke(
+                device="cuda", smoke=False,
+                out_path=os.path.join(tmp, "control_plane_timeline.json"))
+            el = control_plane.elastic_smoke(
+                device="cuda",
+                out_path=os.path.join(tmp, "elastic_timeline.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    if launches["bounce"] <= 0 or launches["flash_attention"] <= 0:
+        raise AssertionError(f"8c launches {launches}")
+    doc = pod["doc"]
+    events = [(e["kind"], e["detail"].get("direction"))
+              for e in doc["events"] if e["kind"] in ("remesh", "budget")]
+    _line(f"  8c: storyline {pod['storyline']}; moves {events}; elastic "
+          f"smoke trigger at step {el['trigger_step']}; migrations bit for "
+          f"bit; launches {launches}; {secs:.1f} s")
+    return {"storyline": pod["storyline"], "moves": events,
+            "elastic_trigger_step": el["trigger_step"],
+            "launches": launches, "secs": secs}
+
+
+def phase_control() -> dict:
+    """Phase 8: 8a, 8b and 8c, with the kernels' launches of each."""
+    import torch
+    t0 = time.perf_counter()
+    serve = phase_control_serve()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_control_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pod = phase_control_pod()
+    secs = time.perf_counter() - t0
+    _line(f"phase 8 control plane ok in {secs:.1f} s")
+    return {"serve": serve, "train": train, "pod": pod, "secs": secs}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2639,6 +3155,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     verbs = phase_verbs()
     perf = phase_perftest()
+    gc.collect()
+    torch.cuda.empty_cache()
+    control = phase_control()
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -2751,6 +3270,49 @@ def main(argv=None) -> int:
          "library_ms": small["library_ms"],
          "library_device_ms": small["library_device_ms"],
          "at_1MiB": vb["1MiB"]})
+    # phase 8's path: the control loop's serve, train and pod runs
+    c_serve, c_train, c_pod = (control["serve"], control["train"],
+                               control["pod"])
+    lse_b1 = c_train["flash_lse_b1"][0]          # window 512: 5 of 6 layers
+    c_launch = {k: c_serve["launches"][k] + c_train["launches"][k]
+                + c_pod["launches"][k] for k in c_serve["launches"]}
+    kernels += [
+        {"name": "bounce (control plane: 8a serve, 8b psums across the "
+                 "remesh, 8c pod; timed on phase 5's psums)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": c_launch["bounce"],
+         "max_abs_err": train["psum_bounce_err"],
+         "ms": train["psum_bounce_ms"],
+         "device_ms": train["psum_bounce_device_ms"],
+         "plain_ms": train["psum_bounce_plain_ms"],
+         "bound_ms": train["psum_bounce_bound_ms"], "bound_by": "bytes",
+         "library_ms": train["psum_clone_ms"]},
+        {"name": "flash_attention (control plane: 8a prefills, 8b forward "
+                 "with lse; timed on 8b's B=1 at 4 ranks, window 512)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+         "launches": c_launch["flash_attention"],
+         "max_abs_err": max(c_train["lse_b1_worst_err"],
+                            train_k["lse_worst_err"]),
+         "ms": lse_b1["ms"], "device_ms": lse_b1["device_ms"],
+         "plain_ms": lse_b1["plain_ms"], "bound_ms": lse_b1["bound_ms"],
+         "bound_by": lse_b1["bound_by"],
+         "library_ms": c_train["flash_lse_b1"][1]["library_ms"]},
+        {"name": "bounce_stall (QoS stall; control plane: 8b)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/core/techniques.py:75 (delay_chain_dyn, an "
+                     "XLA loop beside the Pallas kernel)",
+         "launches": c_launch["bounce_stall"], "max_abs_err": 0.0,
+         "ms": train["stall_ms"], "host_us": c_train["stall_host_us"],
+         "plain_ms": train["stall_plain_ms"],
+         "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
+         "bound_by": "operations", "library_ms": None},
+    ]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2762,6 +3324,7 @@ def main(argv=None) -> int:
                                    "gspmd": gspmd, "launcher": launcher,
                                    "chunked_psum": cpsum,
                                    "verbs": verbs, "perftest": perf,
+                                   "control": control,
                                    "profile": prof or None,
                                    "kernels": kernels},
                                   indent=1))

@@ -1,5 +1,6 @@
 """CoRD core in PyTorch: the Converged Dataplane, its mediation pipeline,
-policies, memory regions and telemetry."""
+policies, memory regions, telemetry and the per-tenant counter timelines
+(core/obs.py) with their threshold watchers."""
 
 from repro_torch.core.dataplane import Dataplane
 from repro_torch.core.mediation import (
@@ -9,6 +10,15 @@ from repro_torch.core.mediation import (
     build_pipeline,
 )
 from repro_torch.core.mr import MemoryRegion, MRError, MRRegistry
+from repro_torch.core.obs import (
+    CounterTimeline,
+    ThresholdWatcher,
+    WatcherGroup,
+    merge_timelines,
+    sparkline,
+    TIMELINE_SCHEMA,
+    validate_timeline,
+)
 from repro_torch.core.policies import (
     Policy,
     PolicyContext,
@@ -25,6 +35,9 @@ __all__ = [
     "MediationPipeline", "MediationStage", "build_pipeline",
     "HostTokenBucket",
     "MemoryRegion", "MRError", "MRRegistry",
+    "CounterTimeline", "ThresholdWatcher", "WatcherGroup",
+    "merge_timelines", "sparkline", "TIMELINE_SCHEMA",
+    "validate_timeline",
     "Policy", "PolicyContext", "PolicyViolation",
     "QoSPolicy", "QuotaPolicy", "SecurityPolicy", "TelemetryPolicy",
     "OpRecord", "Telemetry",

@@ -47,9 +47,15 @@ ticks of the other slots, and each chunk pays its mediation edges like a
 decode tick.  A slot preempted mid-prefill replays its chunks from the
 start.
 
-``scheduler="gang"`` keeps the batch-to-completion baseline.  Timelines
-(``obs``) arrive in a later slice; asking for them raises
-:class:`ServeError`.
+``scheduler="gang"`` keeps the batch-to-completion baseline.
+
+**Timelines** (``Engine(..., obs=CounterTimeline(...))``, core/obs.py):
+every ``obs_every``-th decode tick appends one snapshot of the serve
+counter block (:meth:`Engine.runtime_counters`, host arithmetic) with
+the ``active_slots`` / ``queued`` (and, paged, ``free_blocks``) gauges,
+and only then calls the control-plane hook ``on_tick(engine)``; without
+a timeline the hook is never called.  A snapshot reads no tensor, so
+served tokens are the same with a timeline or without.
 """
 
 from __future__ import annotations
@@ -150,9 +156,6 @@ class WFQScheduler:
 class Engine:
     def __init__(self, model, params, cfg: ModelConfig, serve: ServeConfig,
                  dp=None, eos_id: int = 1, obs=None, obs_every: int = 1):
-        if obs is not None:
-            raise ServeError("per-tenant timelines (obs) are ported with "
-                             "the timelines slice; pass obs=None")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -160,10 +163,13 @@ class Engine:
         self.dp = dp
         self.eos_id = eos_id
         self.device = model.device
+        # optional CounterTimeline: one snapshot of the per-tenant serve
+        # counter block + run gauges every ``obs_every``-th decode tick
+        self.obs = obs
         self.obs_every = max(int(obs_every), 1)
-        self._tick_no = 0
-        # control-plane hook: called as ``on_tick(engine)`` every
-        # ``obs_every``-th engine tick, between decode steps
+        self._obs_tick_no = 0
+        # control-plane hook: called as ``on_tick(engine)`` right after a
+        # timeline snapshot lands, between decode ticks
         self.on_tick = None
         self._budget_cap = 0             # 0 = use scfg.max_slots_per_tenant
         qos = next((p for p in (dp.policies if dp is not None else [])
@@ -283,11 +289,23 @@ class Engine:
                 return admitted, deferred
         return queue[:1], queue[1:]
 
-    def _tick(self) -> None:
-        """End of an engine tick: run the control-plane hook every
-        ``obs_every``-th tick."""
-        self._tick_no += 1
-        if self.on_tick is not None and self._tick_no % self.obs_every == 0:
+    def _obs_snapshot(self, *, active: int, queued: int) -> None:
+        """Feed the attached timeline one engine tick: the serve counter
+        block (WFQ grants / tokens / occupancy / deferrals in telemetry
+        column layout, host numbers) plus slot-level run gauges, then the
+        control-plane hook."""
+        if self.obs is None:
+            return
+        self._obs_tick_no += 1
+        if self._obs_tick_no % self.obs_every:
+            return
+        ctrs, tenants = self.runtime_counters()
+        gauges = {"active_slots": active, "queued": queued}
+        if self.paged and getattr(self, "_alloc", None) is not None:
+            gauges["free_blocks"] = self._alloc.free_blocks
+        self.obs.snapshot_block(self._obs_tick_no, ctrs, tenants,
+                                gauges=gauges)
+        if self.on_tick is not None:
             self.on_tick(self)
 
     # ------------------------------------------------------------------
@@ -722,7 +740,8 @@ class Engine:
                     self._finish(r, done)
                     slots[i] = None
                     self._release_slot(i, vecs)
-            self._tick()
+            self._obs_snapshot(active=int(vecs["active"].sum()),
+                               queued=len(queue))
         return done
 
     # ------------------------------------------------------------------
@@ -767,7 +786,8 @@ class Engine:
                         if arr[j] == self.eos_id or \
                                 len(r.out_tokens) >= limits[j]:
                             active[j] = False
-                self._tick()
+                self._obs_snapshot(active=int(active.sum()),
+                                   queued=len(queue))
             for r in batch_reqs:
                 self._finish(r, done)
         return done

@@ -101,7 +101,9 @@ def sync_grads(dp, grads: dict, axis: str, *, bucket_bytes: int = 1 << 22,
             else:
                 r, state = dp.psum(g, axis, tag=f"grads/bucket{bi}",
                                    qos="grads", state=state)
-                out = r / n
+                # one sum seen by every rank (a broadcast view) is divided
+                # once and stays a view, not R copies of the mean
+                out = r / n if r.stride(0) else (r[0] / n).expand_as(r)
                 flat_err[li] = (torch.zeros(g.shape, dtype=torch.float32,
                                             device=dev)
                                 if compression == "int8" else

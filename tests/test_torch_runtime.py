@@ -9,11 +9,15 @@ run with a hard failure equals ``repro``'s ``run_loop`` over its
 explicit step, replayed steps included, at float32 2e-5 relative.  The
 launcher on the CPU trains, checkpoints, and a second run resumes from
 the checkpoint and gives the first run's last loss exactly (the same
-state, bit for bit, after the same steps)."""
+state, bit for bit, after the same steps); with ``--timeline``,
+``--elastic`` or a JSONL sink it writes an artifact ``repro`` validates."""
+
+import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_model_config as jget
@@ -21,6 +25,7 @@ from repro.configs.base import DataplaneConfig as JCfg
 from repro.configs.base import RunConfig as JRun
 from repro.configs.base import TrainConfig as JTrain
 from repro.core import compat
+from repro.core import obs as jobs
 from repro.core.dataplane import Dataplane as JDataplane
 from repro.data import DataConfig as JDataConfig
 from repro.data import ShardedLoader as JLoader
@@ -36,6 +41,7 @@ from repro_torch.configs import get_model_config as tget
 from repro_torch.configs.base import DataplaneConfig as TCfg
 from repro_torch.configs.base import RunConfig as TRun
 from repro_torch.configs.base import TrainConfig as TTrain
+from repro_torch.core import CounterTimeline
 from repro_torch.core.dataplane import Dataplane as TDataplane
 from repro_torch.core.tree import tree_flatten
 from repro_torch.data import DataConfig, ShardedLoader, SyntheticLM, to_torch
@@ -136,11 +142,28 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
     assert "done: 1 steps, final loss" in out and "all_reduce" in out
 
 
-def test_launcher_refuses_later_slices():
-    for flag in (["--timeline"], ["--elastic"], ["--timeline-sink", "x"]):
-        try:
-            launch_train.main(["--device", "cpu", *flag])
-        except NotImplementedError as e:
-            assert "Queue 1 items 3 and 5" in str(e)
-        else:
-            raise AssertionError(f"{flag} did not raise")
+@pytest.mark.parametrize("flags", [
+    ["--timeline"], ["--elastic", "--ranks", "2"],
+    ["--timeline-sink", "sink.jsonl", "--timeline-rotate", "1500"]])
+def test_launcher_timeline_flags_run(flags, tmp_path, monkeypatch):
+    """``--timeline``, ``--elastic`` and the JSONL sink train on the CPU
+    and write a timeline artifact that ``repro``'s validator accepts;
+    the sink's segments read back as the artifact's samples."""
+    monkeypatch.chdir(tmp_path)
+    _, rep = launch_train.main(["--device", "cpu", *flags, "steps=3",
+                                "seq_len=16", "global_batch=2"])
+    assert rep.steps_run == 3
+    with open(tmp_path / "runs" / "torch" / "gemma3-1b_timeline.json") as f:
+        doc = json.load(f)
+    assert jobs.validate_timeline(doc) is doc
+    assert [s["step"] for s in doc["samples"]] == [1, 2, 3]
+    assert all(v > 0 for v in doc["rates"]["default"]["ops_s"])
+    if "--timeline-sink" in flags:
+        back = CounterTimeline.read_rotated(str(tmp_path / "sink.jsonl"))
+        assert back.samples == doc["samples"] and back.events == []
+        assert (tmp_path / "sink.jsonl.1").exists()
+
+
+def test_launcher_refuses_model_overrides():
+    with pytest.raises(NotImplementedError, match="model"):
+        launch_train.main(["--device", "cpu", "model.n_layers=2"])

@@ -8,6 +8,8 @@ the same parameters, and serve the same mixed-length requests from two
 tenants at temperature 0.  Tolerance: exact — token streams, tenant
 reports and counter blocks are equal."""
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from repro.configs import get_model_config as jget
 from repro.configs.base import DataplaneConfig as JCfg
 from repro.configs.base import ServeConfig as JServe
 from repro.core.dataplane import Dataplane as JDataplane
+from repro.core import obs as jobs
 from repro.core import policies as jpol
 from repro.models import build_model as jbuild
 from repro.serve import Engine as JEngine
@@ -25,6 +28,7 @@ from repro.serve import WFQScheduler as JWFQ
 from repro_torch.configs import get_model_config as tget
 from repro_torch.configs.base import DataplaneConfig as TCfg
 from repro_torch.configs.base import ServeConfig as TServe
+from repro_torch.core import CounterTimeline
 from repro_torch.core.dataplane import Dataplane as TDataplane
 from repro_torch.core import policies as tpol
 from repro_torch.launch.mesh import make_mesh
@@ -67,13 +71,13 @@ def _requests(cls, lengths=LENGTHS, max_new=(6, 4, 6, 5, 6, 3)):
             for i, (n, m) in enumerate(zip(lengths, max_new))]
 
 
-def _torch_engine(smoke, **serve):
+def _torch_engine(smoke, obs=None, **serve):
     _, _, _, tcfg, tm, tp = smoke
     dp = TDataplane(TCfg(mode="cord", emulate_costs=True),
                     mesh=make_mesh((8,), ("data",)), tenant="train",
                     tenants=TENANTS, policies=_policies(tpol), device="cpu")
     return TEngine(tm, tp, tcfg, TServe(**{**SERVE, **serve}), dp=dp,
-                   eos_id=-1)
+                   eos_id=-1, obs=obs)
 
 
 def test_engine_matches_jax_through_cord_dataplane(smoke, mesh8, monkeypatch):
@@ -122,13 +126,14 @@ def test_budget_preemption_resumes_exactly(smoke):
     calm = _torch_engine(smoke)
     want = {r.rid: r.out_tokens for r in calm.run(_requests(TRequest))}
 
-    eng = _torch_engine(smoke)
+    # the hook rides the timeline: it runs right after each snapshot
+    eng = _torch_engine(smoke, obs=CounterTimeline(source="squeeze"))
     reqs = _requests(TRequest)
     for r in reqs:
         r.tenant = "alice"
 
     def squeeze(e):
-        if e._tick_no == 2:
+        if e._obs_tick_no == 2:
             e.set_slot_budget(1)
 
     eng.on_tick = squeeze
@@ -139,17 +144,40 @@ def test_budget_preemption_resumes_exactly(smoke):
     assert eng.slot_budget() == 1
 
 
+def test_on_tick_never_fires_without_a_timeline(smoke):
+    """As in ``repro``, the control-plane hook is called only after a
+    timeline snapshot lands: with ``obs=None`` it never runs."""
+    eng = _torch_engine(smoke)
+    calls = []
+    eng.on_tick = calls.append
+    done = eng.run(_requests(TRequest))
+    assert len(done) == len(LENGTHS) and calls == []
+    assert eng._obs_tick_no == 0
+
+
 def test_unported_options_raise(smoke):
     _, _, _, tcfg, tm, tp = smoke
-    with pytest.raises(ServeError, match="timelines"):
-        TEngine(tm, tp, tcfg, TServe(), obs=object())
-    for flag in ("--timeline", "--elastic"):
-        with pytest.raises(ServeError, match="timelines"):
-            serve_main([flag, "--device", "cpu"])
     eng = TEngine(tm, tp, tcfg, TServe(max_batch=1, kv_cache_len=16,
                                        max_new_tokens=4))
     with pytest.raises(ServeError, match="cache positions"):
         eng.run([TRequest(rid=0, prompt=np.arange(12, dtype=np.int32))])
+
+
+@pytest.mark.parametrize("flags", [["--timeline"], ["--elastic"]])
+def test_launcher_timeline_flags_run(flags, tmp_path, monkeypatch):
+    """``--timeline`` and ``--elastic`` serve on the CPU and write a
+    timeline artifact that ``repro``'s validator accepts."""
+    monkeypatch.chdir(tmp_path)
+    eng, done, timeline = serve_main(
+        [*flags, "--device", "cpu", "--requests", "4",
+         "--max-new-tokens", "5"])
+    assert len(done) == 4 and len(timeline.samples) > 0
+    with open(tmp_path / "runs" / "torch" /
+              "gemma3-1b_serve_timeline.json") as f:
+        doc = json.load(f)
+    assert jobs.validate_timeline(doc) is doc
+    assert doc["source"] == "serve/gemma3-1b"
+    assert set(doc["gauges"]) == {"active_slots", "queued"}
 
 
 def test_wfq_and_buckets_match_jax():

@@ -27,6 +27,7 @@ from repro.serve import Request as JRequest
 from repro_torch.configs import get_model_config as tget
 from repro_torch.configs.base import DataplaneConfig as TCfg
 from repro_torch.configs.base import ServeConfig as TServe
+from repro_torch.core import CounterTimeline
 from repro_torch.core.dataplane import Dataplane as TDataplane
 from repro_torch.core import policies as tpol
 from repro_torch.launch.mesh import make_mesh
@@ -66,13 +67,13 @@ def _requests(cls, lengths=LENGTHS, max_new=(6, 4, 6, 5, 6, 3)):
             for i, (n, m) in enumerate(zip(lengths, max_new))]
 
 
-def _torch_engine(smoke, model=None, **serve):
+def _torch_engine(smoke, model=None, obs=None, **serve):
     _, _, _, tcfg, tm, tp = smoke
     dp = TDataplane(TCfg(mode="cord", emulate_costs=True),
                     mesh=make_mesh((8,), ("data",)), tenant="train",
                     tenants=TENANTS, policies=_policies(tpol), device="cpu")
     return TEngine(model or tm, tp, tcfg, TServe(**{**SERVE, **serve}),
-                   dp=dp, eos_id=-1)
+                   dp=dp, eos_id=-1, obs=obs)
 
 
 def _recording(model, lengths):
@@ -139,13 +140,15 @@ def test_budget_preemption_resumes_exactly(smoke):
     want = {r.rid: r.out_tokens for r in calm.run(_requests(TRequest))}
 
     seen = []
-    eng = _torch_engine(smoke, _recording(tm, seen))
+    # the hook rides the timeline: it runs right after each snapshot
+    eng = _torch_engine(smoke, _recording(tm, seen),
+                        obs=CounterTimeline(source="squeeze"))
     reqs = _requests(TRequest)
     for r in reqs:
         r.tenant = "alice"
 
     def squeeze(e):
-        if e._tick_no == 2:
+        if e._obs_tick_no == 2:
             e.set_slot_budget(1)
 
     eng.on_tick = squeeze

@@ -32,7 +32,9 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_chunking.py",
                    "tests/test_torch_verbs.py",
                    "tests/test_torch_transport.py",
-                   "tests/test_torch_conn.py")
+                   "tests/test_torch_conn.py",
+                   "tests/test_torch_serve_obs.py",
+                   "tests/test_torch_elastic.py")
 _STANDING_IN = ("jax", "repro")
 
 
