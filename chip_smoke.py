@@ -169,6 +169,45 @@ Phases, one line each; any failure raises and the script exits nonzero:
    full-width gemma3-1b, and ``elastic_smoke``: ``repro``'s storyline,
    bit-identical migrated transfers, a validating pod artifact.
 
+9a. grok-1-314b serving at full width (d_model 6144, 48 heads over 8 kv
+   heads, head_dim 128, d_ff 32768, 8 experts top-2 GeGLU, vocab
+   131072, soft cap 30) cut to 2 of 64 layers (10.65 B f32 parameters),
+   random weights from seed 0, bf16 compute, phase 3's dataplane: phase
+   3's 8 requests on the continuous engine, a repeat and a run with
+   ``pallas_dataplane="off"`` (identical tokens), then a 1,100-token
+   prompt prefilled whole and in 512-token chunks (last logits at cosine
+   > 0.99).  Gates: every token in vocab; flash 2 launches per whole
+   prefill and none per chunk or tick; bounce launches per prefill,
+   chunk and tick equal to the dataplane records that call made, and
+   each of the six ``moe/*`` edges crossed once a layer a call.  It
+   prints prefill ms, decode ms a tick, one profiled tick's device busy
+   ms and peak memory;
+9b. grok-1-314b training, 1 layer (22.9 GB of f32 parameters, as much
+   in gradients): one forward and backward of ``Model.loss`` at batch 1
+   x 256 (fixed capacity, C = 80 a block) through phase 6a's dataplane
+   with ``activation_rules``.  Gates: (a) the loss and every gradient bit
+   for bit those with ``dp=None``; (b) the kernel forward against the
+   plain one inside the same autograd function, loss within 2e-2
+   relative, every gradient at cosine > 0.99; (c) the aux loss finite and
+   > 0; (d) no gradient leaf zero or missing, the router's included; (e)
+   flash with lse once in the forward;
+9c. llava-next-34b at full width (d_model 7168, 56 heads over 8 kv
+   heads, head_dim 128, d_ff 20480, vocab 64000, 2,880 patches of 1024)
+   cut to 16 of 60 layers (9.84 B parameters): one ``Model.prefill`` of
+   the patches and 256 text tokens (S = 3,136) and 16 greedy
+   ``decode_step``s, the same prefill with the patches + 1.0 and with
+   ``impl="plain"``, and phase 3's 8 text-only requests on the engine,
+   twice.  Gates: flash 16 launches a prefill, bounce one a record;
+   kernel against plain prefill at cosine > 0.99; shifted patches move
+   the text logits; the engine's tokens identical on repeat.  Then
+   bounce on grok's ``moe/hidden`` payload (268 MB bf16) against its
+   plain version and ``torch.clone``.  Phase 2 holds the flash kernel at
+   grok's (S 256 and 1,100) and llava's (S 3,136) heads, and phase 5a
+   with its lse at grok's.
+
+Phase 9 runs alone after phase 0:
+``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_moe_vlm()"``.
+
 ``--profile`` adds torch.profiler tables for one prefill of 256 tokens
 and one 4-slot decode tick of each model.  The line before the last is
 the per-kernel JSON summary; the last line is ``{"ok": true, "device":
@@ -202,8 +241,16 @@ SSM_F32_TOL = 2e-5
 SSM_FLOPS_PER_STATE_STEP = 6    # dt*a, exp, *h, dx*b, +, *c (+ reduction)
 
 
+CARD = "card not read"   # nvidia-smi's name and power limit (phase 0)
+
+
 def _line(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _on_card() -> str:
+    """The card's name and power limit, to stand beside a number."""
+    return f" [{CARD}]"
 
 
 def _cuda_ms(fn, n: int = 10, warmup: int = 2) -> float:
@@ -266,6 +313,8 @@ def phase_build() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    CARD = card
     _line(card)
     _line(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -524,6 +573,13 @@ def phase_flash() -> dict:
               gemma + (512, 0, 0, 0.0), gemma + (512, 0, 130, 0.0)]
     # the other head dims the wrapper takes in bf16 (16 and 32 padded to
     # 64), and the f32 CUDA-core path
+    # phase 9's prefills: grok-1 (D 128, a GQA group of 6, soft cap 30) at
+    # a 256-token bucket and the 1,100-token prompt, llava-next (a group
+    # of 7) over its 2,880-patch prefix and 256 text tokens
+    grok = ("grok-1-314b", torch.bfloat16, 48, 8, 128)
+    llava = ("llava-next-34b", torch.bfloat16, 56, 8, 128)
+    cases += [grok + (s, 0, None, 30.0) for s in (256, MOE_LONG_PROMPT)]
+    cases += [llava + (3136, 0, None, 0.0)]
     cases += [("bf16-d128", torch.bfloat16, 4, 2, 128, 300, 0, None, 0.0),
               ("bf16-d32", torch.bfloat16, 4, 2, 32, 200, 8, None, 0.0),
               ("bf16-d16", torch.bfloat16, 4, 1, 16, 200, 8, None, 0.0),
@@ -1348,27 +1404,29 @@ def _train_dataplane(dev, mesh=None, rules=None):
                      device=dev)
 
 
-def _flash_lse_case(gen, b: int, window: int) -> dict:
-    """The flash kernel with its lse against its plain version at gemma3's
-    train heads (S=256, H=4, KVH=1, D=256) and batch ``b``: lse within
-    LSE_TOL x max(1, |lse|), bf16 output as phase 2 holds it; its time
-    against its bound, its plain version, ATen's flash attention (which
-    also returns the lse) and the plain backward the train step runs."""
+def _flash_lse_case(gen, b: int, window: int, heads=(4, 1, 256),
+                    cap: float = 0.0) -> dict:
+    """The flash kernel with its lse against its plain version at the train
+    sequence (S=256), batch ``b`` and ``heads`` (H, KVH, D; gemma3's by
+    default): lse within LSE_TOL x max(1, |lse|), bf16 output as phase 2
+    holds it; its time against its bound, its plain version, ATen's flash
+    attention (which also returns the lse; none applies a soft cap) and
+    the plain backward the train step runs."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.layers.attention import flash_attention_bwd
 
     dev = torch.device("cuda")
-    s, h, kvh, d = TRAIN_SEQ, 4, 1, 256
+    s, (h, kvh, d) = TRAIN_SEQ, heads
     q = (3 * torch.randn(b, s, h, d, generator=gen, device=dev)
          ).to(torch.bfloat16)
     k = torch.randn(b, s, kvh, d, generator=gen, device=dev
                     ).to(torch.bfloat16)
     v = (torch.rand(b, s, kvh, d, generator=gen, device=dev) * 3 - 1.5
          ).to(torch.bfloat16)
-    o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
-    po, plse = fa.flash_attention_plain(q, k, v, window=window,
-                                        return_lse=True)
+    kw = dict(window=window, logit_cap=cap, return_lse=True)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    po, plse = fa.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     lse_err = (lse - plse).abs().max().item()
     lse_lim = LSE_TOL * max(1.0, plse.abs().max().item())
@@ -1381,33 +1439,33 @@ def _flash_lse_case(gen, b: int, window: int) -> dict:
             f"flash with lse at the train shapes, B={b}, window {window}: lse "
             f"error {lse_err} (limit {lse_lim}), output error {o_err} "
             f"(limit {FLASH_BF16_TOL}, reference rms {rms})")
-    call = lambda: fa.flash_attention(q, k, v, window=window,  # noqa: E731
-                                      return_lse=True)
+    call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     ms, dev_ms = _cuda_ms(call, n=20), _device_ms(call, n=20)
-    plain = _cuda_ms(lambda: fa.flash_attention_plain(
-        q, k, v, window=window, return_lse=True), n=5)
+    plain = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), n=5)
     # one library call with the same outputs: aten's flash attention
     # returns o and the lse; a window of 512 >= S is causal here
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     kt = kt.repeat_interleave(h // kvh, dim=1).contiguous()
     vt = vt.repeat_interleave(h // kvh, dim=1).contiguous()
     lib = None
-    if window == 0 or window >= s:
+    if (window == 0 or window >= s) and cap == 0.0:
         lib_op = torch.ops.aten._scaled_dot_product_flash_attention
         lib = _cuda_ms(lambda: lib_op(qt, kt, vt, 0.0, True), n=20)
     # the backward the train step runs after it: plain torch
     do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
     bwd_ms = _cuda_ms(lambda: flash_attention_bwd(
-        q, k, v, o, lse, do, causal=True, window=window), n=5)
+        q, k, v, o, lse, do, causal=True, window=window, logit_cap=cap), n=5)
     flops = 4 * d * h * b * _pairs(s, s, window, s)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"batch": b, "window": window, "lse_err": lse_err, "o_err": o_err,
+    row = {"batch": b, "h": h, "kvh": kvh, "d": d, "window": window,
+           "logit_cap": cap, "lse_err": lse_err, "o_err": o_err,
            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
            "library_ms": lib, "plain_bwd_ms": bwd_ms,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    _line(f"  flash+lse B={b} S={s} H={h} KVH={kvh} d={d} w={window}: "
+    _line(f"  flash+lse B={b} S={s} H={h} KVH={kvh} d={d} w={window} "
+          f"cap={cap}: "
           f"lse err {lse_err:.3g} (<= {lse_lim:.3g}), o err "
           f"{o_err:.3g}, {ms:.4f} ms, device "
           f"{'n/a' if dev_ms is None else f'{dev_ms:.4f} ms'}, bound "
@@ -1430,8 +1488,10 @@ def phase_train_kernels() -> dict:
     gen.manual_seed(5)
     rows = [_flash_lse_case(gen, TRAIN_BATCH // TRAIN_RANKS, window)
             for window in (512, 0)]   # 5 of 6 gemma3 layers, then global
-    lse_worst = max(r["lse_err"] for r in rows)
-    o_worst = max(r["o_err"] for r in rows)
+    # phase 9b's forward: grok-1's heads and soft cap at B=1
+    grok = _flash_lse_case(gen, 1, 0, heads=(48, 8, 128), cap=30.0)
+    lse_worst = max(r["lse_err"] for r in rows + [grok])
+    o_worst = max(r["o_err"] for r in rows + [grok])
 
     # the stall: x itself back, no sync, the chain's slope
     x = torch.randn(1 << 20, generator=gen, device=dev)
@@ -1462,7 +1522,8 @@ def phase_train_kernels() -> dict:
           f"iterations, chain slope {ns:.3f} ns/iteration")
     _line(f"phase 5a train kernels ok: lse error {lse_worst:.3g} <= "
           f"{LSE_TOL} x max(1, |lse|), stall slope {ns:.3f} ns")
-    return {"flash_lse": rows, "lse_worst_err": lse_worst,
+    return {"flash_lse": rows, "flash_lse_grok": grok,
+            "lse_worst_err": lse_worst,
             "o_worst_err": o_worst, "stall_ms_zero": ms0,
             "stall_ns_per_iter": ns}
 
@@ -1776,10 +1837,16 @@ def _gspmd_launches(cfg) -> dict:
     return out
 
 
-def _cos(a, b) -> float:
+def _cos(a, b, chunk: int = 1 << 26) -> float:
+    """Cosine of two tensors' values, summed in float64 a chunk at a time
+    (a whole grok-1 expert leaf in float64 would take 12.9 GB)."""
     import torch
-    return torch.nn.functional.cosine_similarity(
-        a.flatten().double(), b.flatten().double(), dim=0).item()
+    a, b = a.flatten(), b.flatten()
+    dot = na = nb = torch.zeros((), dtype=torch.float64, device=a.device)
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+        dot, na, nb = dot + x @ y, na + x @ x, nb + y @ y
+    return (dot / torch.clamp(na.sqrt() * nb.sqrt(), min=1e-8)).item()
 
 
 def phase_train_gspmd() -> dict:
@@ -2707,6 +2774,17 @@ def phase_control_serve() -> dict:
         return {r.rid: list(r.out_tokens) for r in done}, eng, syncs, \
             tick_ms, len(stamps)
 
+    # one prefill and one tick first: the constants a forward makes once
+    # per device (RoPE's frequencies, the embedding scale) are then made
+    # before the syncs are counted, whichever serve comes first
+    warm = model.init_cache(1, 16)
+    model.prefill(params, {"tokens": torch.zeros((1, 16), dtype=torch.long,
+                                                 device="cuda")}, warm)
+    model.decode_step_slots(params, torch.zeros((1, 1), dtype=torch.long,
+                                                device="cuda"), warm,
+                            torch.tensor([15], device="cuda"))
+    torch.cuda.synchronize()
+    del warm
     _reset_launches()
     timeline = CounterTimeline(source="serve/gemma3-1b")
     # the syncs under the debug mode "warn", which records each one
@@ -2737,6 +2815,34 @@ def phase_control_serve() -> dict:
     if syncs_on != syncs_off:
         raise AssertionError(f"stream syncs {syncs_on} with a timeline, "
                              f"{syncs_off} without")
+    # the forward uploads no constant: RoPE's frequencies and the
+    # embedding scale, once made for the card, make no stream sync; the
+    # same serve with both made afresh at every call (the cache bypassed)
+    # gives the same tokens
+    from repro_torch.layers import embedding as emb_mod
+    from repro_torch.layers import rope as rope_mod
+    cached = rope_mod._rope_freqs, emb_mod._embed_scale
+    rope_mod._rope_freqs = cached[0].__wrapped__
+    emb_mod._embed_scale = cached[1].__wrapped__
+    try:
+        tok_fresh = serve(None, False)[0]
+    finally:
+        rope_mod._rope_freqs, emb_mod._embed_scale = cached
+    if tok_fresh != tok_on:
+        raise AssertionError("the cached RoPE and embedding constants "
+                             "changed the served tokens")
+    xq = torch.zeros((4, 1, cfg.attention.num_heads, cfg.head_dim),
+                     dtype=torch.bfloat16, device="cuda")
+    at = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    one = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    constants = lambda: (  # noqa: E731
+        rope_mod.apply_rope(xq, at, 10_000.0),
+        emb_mod.embed(params["embed"], one, torch.bfloat16))
+    constants()
+    _, const_syncs = _count_syncs(constants)
+    if const_syncs:
+        raise AssertionError(f"RoPE and the embedding made {const_syncs} "
+                             f"stream syncs once warm")
     tmp = tempfile.mkdtemp(prefix="cord_obs_")
     try:
         validate_timeline(CounterTimeline.load(timeline.save(
@@ -2810,6 +2916,7 @@ def phase_control_serve() -> dict:
     res = {"ticks": ticks, "samples": len(timeline.samples),
            "syncs_on": syncs_on, "syncs_off": syncs_off,
            "syncs_per_tick": syncs_on / ticks,
+           "rope_embed_syncs": const_syncs,
            "tick_ms_on": statistics.median(ms_on),
            "tick_ms_off": statistics.median(ms_off),
            "snapshot_block_us": snap_us, "observe_us": observe_us,
@@ -2819,7 +2926,9 @@ def phase_control_serve() -> dict:
            "launches": launches}
     _line(f"  8a: {ticks} decode ticks, {len(timeline.samples)} samples, "
           f"tokens identical with the timeline on and off; stream syncs "
-          f"{syncs_on} on / {syncs_off} off; tick ms (median of "
+          f"{syncs_on} on / {syncs_off} off ({syncs_on / ticks:.1f} a tick; "
+          f"none from RoPE and the embedding once warm, whose cached "
+          f"constants serve the same tokens); tick ms (median of "
           f"{len(ms_on)} / {len(ms_off)}, two serves each, no debug mode) "
           f"{res['tick_ms_on']:.2f} on / {res['tick_ms_off']:.2f} off; "
           f"snapshot_block {snap_us:.2f} us, "
@@ -3105,6 +3214,497 @@ def phase_control() -> dict:
     return {"serve": serve, "train": train, "pod": pod, "secs": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the moe and vlm families at full width
+# ---------------------------------------------------------------------------
+
+GROK_SERVE_LAYERS = 2    # of grok-1-314b's 64: 10.65 B f32 params, 42.6 GB
+GROK_TRAIN_LAYERS = 1    # 22.9 GB of f32 params and as much in gradients
+LLAVA_LAYERS = 16        # of llava-next-34b's 60: 9.84 B params, 39.4 GB
+MOE_LONG_PROMPT = 1100   # prefilled whole, then in 512-token chunks
+LLAVA_TEXT = 256         # text tokens behind llava's 2,880-patch prefix
+LLAVA_DECODE = 16
+
+
+def _cut(arch: str, layers: int):
+    """``arch`` at full width with its depth cut to ``layers``."""
+    import dataclasses
+    from repro_torch.configs import get_model_config
+    return dataclasses.replace(get_model_config(arch), num_layers=layers)
+
+
+def _serve_dataplane(**kw):
+    """Phase 3's dataplane: cord with cost emulation on a one-card mesh,
+    tenants alice and bob."""
+    from repro_torch.configs.base import DataplaneConfig
+    from repro_torch.core import Dataplane
+    from repro_torch.launch.mesh import make_mesh
+    return Dataplane(DataplaneConfig(mode="cord", emulate_costs=True, **kw),
+                     mesh=make_mesh((1,), ("data",)), tenant="alice",
+                     tenants=("alice", "bob"))
+
+
+def _ops(dp) -> int:
+    return sum(v["ops"] for v in dp.telemetry.by_kind().values())
+
+
+def _counted_model(model, dp, rows: list):
+    """The model with prefill, prefill chunks and slot decode timed
+    (synchronised), each call's kernel launches and dataplane records
+    (through ``dp``) counted into ``rows``."""
+    import dataclasses
+
+    import torch
+
+    def wrap(kind, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            n0, r0, t0 = _launches(), _ops(dp), time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rows.append({"kind": kind, "s": int(args[1].shape[1]
+                                                if kind == "decode" else
+                                                args[1]["tokens"].shape[1]),
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": _delta(n0), "records": _ops(dp) - r0})
+            return out
+        return call
+
+    return dataclasses.replace(
+        model, prefill=wrap("prefill", model.prefill),
+        prefill_chunk=wrap("chunk", model.prefill_chunk),
+        decode_step_slots=wrap("decode", model.decode_step_slots))
+
+
+def _check_calls(rows, n_layers: int, what: str) -> None:
+    """Whole prefills launch flash once a layer, chunks and ticks never;
+    every call launches bounce once a dataplane record."""
+    for r in rows:
+        flash = n_layers if r["kind"] == "prefill" else 0
+        if r["launches"]["flash_attention"] != flash or \
+                r["launches"]["bounce"] != r["records"] or r["records"] <= 0:
+            raise AssertionError(f"{what}: a {r['kind']} launched "
+                                 f"{r['launches']} for {r['records']} "
+                                 f"records (flash wanted {flash})")
+
+
+def _engine_tokens(model, params, cfg, dp, prompts):
+    """Phase 3's requests on the continuous engine: every token in vocab."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve import Engine, Request
+    eng = Engine(model, params, cfg, ServeConfig(max_batch=4,
+                                                 kv_cache_len=640,
+                                                 max_new_tokens=16),
+                 dp=dp, eos_id=-1)
+    done = eng.run([Request(rid=i, prompt=p, max_new_tokens=16,
+                            tenant=("alice", "bob")[i % 2])
+                    for i, p in enumerate(prompts)])
+    tokens = {r.rid: list(r.out_tokens) for r in done}
+    if len(tokens) != len(prompts) or not all(
+            len(t) == 16 and all(0 <= x < cfg.vocab_size for x in t)
+            for t in tokens.values()):
+        raise AssertionError(f"{cfg.name}: a request did not finish with 16 "
+                             f"in-vocab tokens")
+    return tokens
+
+
+def _prompts(cfg):
+    """Phase 3's 8 prompts for ``cfg``'s vocabulary."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in CTL_LENGTHS]
+
+
+def _params_line(cfg, params, t0, cut: str) -> int:
+    n = sum(t.numel() for t in _leaves(params))
+    _line(f"  {cfg.name}: {cut}, d_model {cfg.d_model}, {n / 1e9:.3f} B f32 "
+          f"params ({4 * n / 1e9:.1f} GB) initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return n
+
+
+def phase_moe_serve() -> dict:
+    """9a: grok-1-314b serving at full width, 2 of 64 layers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import build_model
+
+    cfg = _cut("grok-1-314b", GROK_SERVE_LAYERS)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = _params_line(cfg, params, t0, f"{GROK_SERVE_LAYERS} of 64 "
+                            f"layers, {cfg.moe.num_experts} experts top-"
+                            f"{cfg.moe.top_k}")
+    prompts = _prompts(cfg)
+
+    # the main path: phase 3's 8 requests through the cord dataplane
+    dp, rows = _serve_dataplane(), []
+    _reset_launches()
+    t0 = time.perf_counter()
+    tokens = _engine_tokens(_counted_model(model, dp, rows), params, cfg, dp,
+                            prompts)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    _check_calls(rows, cfg.num_layers, "9a")
+    n_calls = len(rows)
+    moe_tags = ("moe/tokens", "moe/dispatch", "moe/expert_in", "moe/hidden",
+                "moe/expert_out", "moe/out")
+    by_tag = dp.telemetry.by_tag()
+    if any(by_tag.get(t, {}).get("ops") != cfg.num_layers * n_calls
+           for t in moe_tags):
+        raise AssertionError(f"9a: the moe edges were not crossed once a "
+                             f"layer a call: {by_tag}")
+    if _engine_tokens(model, params, cfg, _serve_dataplane(),
+                      prompts) != tokens:
+        raise AssertionError("9a: a second run gave other tokens")
+    if _engine_tokens(model, params, cfg,
+                      _serve_dataplane(pallas_dataplane="off"),
+                      prompts) != tokens:
+        raise AssertionError("9a: cuda-on and off gave other tokens")
+    pre = [r for r in rows if r["kind"] == "prefill"]
+    dec = [r["ms"] for r in rows if r["kind"] == "decode"]
+    _line(f"  9a engine: {len(pre)} prefills, {len(dec)} ticks, "
+          f"{sum(map(len, tokens.values()))} tokens in {wall:.2f} s; prefill "
+          f"{np.mean([r['ms'] for r in pre]):.1f} ms mean, decode "
+          f"{np.median(dec):.2f} ms/tick median; launches {launches}; "
+          f"tokens identical on repeat and with pallas_dataplane=off"
+          f"{_on_card()}")
+
+    # a long prompt prefilled whole and in 512-token chunks (the last one
+    # padded), through the same counted calls
+    gen = torch.Generator("cuda").manual_seed(3)
+    long = torch.randint(0, cfg.vocab_size, (1, MOE_LONG_PROMPT),
+                         generator=gen, device="cuda")
+    last = torch.tensor([MOE_LONG_PROMPT - 1], device="cuda")
+    lrows = []
+    counted = _counted_model(model, dp, lrows)
+    whole, _ = counted.prefill(params, {"tokens": long},
+                               model.init_cache(1, MOE_LONG_PROMPT), dp=dp)
+    n_chunks = -(-MOE_LONG_PROMPT // CHUNK)
+    padded = torch.zeros((1, n_chunks * CHUNK), dtype=long.dtype,
+                         device="cuda")
+    padded[:, :MOE_LONG_PROMPT] = long
+    # twice: the first chunk ever run in the process pays one-time costs
+    for _ in range(2):
+        cache = model.init_cache(1, n_chunks * CHUNK)
+        for off in range(0, n_chunks * CHUNK, CHUNK):
+            out, cache = counted.prefill_chunk(
+                params, {"tokens": padded[:, off:off + CHUNK]}, cache, off,
+                dp=dp, last_pos=last)
+            if off <= MOE_LONG_PROMPT - 1 < off + CHUNK:
+                chunked = out
+        a, b = whole[0, -1].float(), chunked[0, -1].float()
+        cos = _cos(a, b)
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()
+                and cos > 0.99):
+            raise AssertionError(f"9a: chunked vs whole prefill of "
+                                 f"{MOE_LONG_PROMPT} tokens: cosine {cos}")
+    _check_calls(lrows, cfg.num_layers, "9a long prompt")
+    first_ms = [r["ms"] for r in lrows[1:1 + n_chunks]]
+    chunk_ms = [r["ms"] for r in lrows[1 + n_chunks:]]
+    _line(f"  9a {MOE_LONG_PROMPT}-token prompt: whole {lrows[0]['ms']:.1f} "
+          f"ms, {n_chunks} chunks of {CHUNK}: "
+          f"{', '.join(f'{ms:.1f}' for ms in chunk_ms)} ms (the first pass "
+          f"{', '.join(f'{ms:.1f}' for ms in first_ms)}); last logits "
+          f"cosine {cos:.5f}{_on_card()}")
+
+    # one profiled 4-slot decode tick
+    cache = model.init_cache(4, 640)
+    tok = torch.full((4, 1), 7, dtype=torch.long, device="cuda")
+    pos = torch.tensor([256, 300, 40, 129], dtype=torch.int32, device="cuda")
+    tick = lambda: model.decode_step_slots(  # noqa: E731
+        params, tok, cache, pos, dp=_serve_dataplane())
+    tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        tick_wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = _kernel_us(events) / 1e3
+    from torch.autograd import DeviceType
+    top = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                  for e in events if e.device_type == DeviceType.CUDA),
+                 key=lambda t: -t[2])[:6]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  9a profiled tick: wall {tick_wall:.2f} ms, device busy "
+          f"{busy:.2f} ms; peak memory {peak:.2f} GB{_on_card()}")
+    for key, count, ms in top:
+        _line(f"    device {ms:8.3f} ms {count:5d}x {key[:70]}")
+    _line(f"phase 9a grok-1 serve ok: {cfg.num_layers} layers, every moe "
+          f"edge through bounce, flash {cfg.num_layers} a prefill")
+    return {"layers": cfg.num_layers, "params": n_params,
+            "launches": launches, "long_launches": _sum_launches(lrows),
+            "prefills": len(pre), "ticks": len(dec),
+            "prefill_ms_by_len": sorted((r["s"], r["ms"]) for r in pre),
+            "prefill_ms_mean": float(np.mean([r["ms"] for r in pre])),
+            "decode_ms_median": float(np.median(dec)),
+            "decode_ms_mean": float(np.mean(dec)), "wall_s": wall,
+            "long_whole_ms": lrows[0]["ms"], "long_chunk_ms": chunk_ms,
+            "long_first_pass_chunk_ms": first_ms,
+            "long_cosine": cos, "tick_wall_ms": tick_wall,
+            "tick_device_ms": busy, "tick_top_device": top,
+            "peak_gb": peak}
+
+
+def _sum_launches(rows) -> dict:
+    out: dict = {}
+    for r in rows:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_moe_train() -> dict:
+    """9b: one forward and backward of grok-1-314b's loss at full width,
+    1 layer, batch 1 x 256, through phase 6a's dataplane."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import DataConfig, SyntheticLM, to_torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import activation_rules
+    from repro_torch.train import step as step_mod
+
+    dev = torch.device("cuda")
+    cfg = _cut("grok-1-314b", GROK_TRAIN_LAYERS)
+    model = build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = _params_line(cfg, params, t0, f"{GROK_TRAIN_LAYERS} of 64 "
+                            f"layers")
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=1))
+    batch = to_torch(ds.batch_at(0), dev)
+    rules = activation_rules(cfg, ShapeConfig("train", TRAIN_SEQ, 1,
+                                              "train"))
+    n_leaves = len(tree_flatten(params))
+
+    def grads(dp, impl="flash"):
+        t = time.perf_counter()
+        (loss, m), g = step_mod._value_and_grad(
+            lambda p, b: model.loss(p, b, dp=dp, impl=impl), params, batch)
+        torch.cuda.synchronize()
+        return loss, m, dict(tree_flatten(g)), (time.perf_counter() - t) * 1e3
+
+    # (a) the reference without a dataplane, kept on the host
+    l_bare, _, g, _ = grads(None)
+    ref = {p: t.cpu() for p, t in g.items()}
+    del g
+    # the main path: the loss through the dataplane
+    dp = _train_dataplane(dev, make_local_mesh(), rules)
+    _reset_launches()
+    lse0 = fa.LSE_LAUNCHES
+    l_dp, m_dp, g_dp, ms = grads(dp)
+    launches = {**_launches(), "flash_lse": fa.LSE_LAUNCHES - lse0}
+    differ = [p for p in ref if not torch.equal(
+        _bits(g_dp[p]), _bits(ref[p].to(dev)))]
+    if differ or not torch.equal(_bits(l_bare), _bits(l_dp)):
+        raise AssertionError(f"9b (a): with the dataplane loss "
+                             f"{l_dp.item()!r} against {l_bare.item()!r}, "
+                             f"gradients differ in {differ}")
+    # (c) the aux loss; (d) every gradient leaf there, finite and nonzero
+    aux = float(m_dp["aux"])
+    bad = [p for p, t in g_dp.items()
+           if not (torch.isfinite(t).all() and t.abs().max() > 0)]
+    if not (math.isfinite(aux) and aux > 0):
+        raise AssertionError(f"9b (c): aux loss {aux}")
+    if bad or len(g_dp) != n_leaves or \
+            ("layers", "moe", "router") not in g_dp:
+        raise AssertionError(f"9b (d): gradient leaves zero, not finite or "
+                             f"missing: {bad}; {len(g_dp)} of {n_leaves}")
+    # (e) flash with lse once in the forward (the backward is plain)
+    if launches["flash_lse"] != cfg.num_layers or launches["bounce"] <= 0:
+        raise AssertionError(f"9b (e): launches {launches}")
+    del g_dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the plain forward inside the same autograd function
+    l_plain, _, g_plain, _ = grads(None, impl="plain")
+    rel = abs(l_dp.item() - l_plain.item()) / abs(l_plain.item())
+    cos = {"/".join(p): _cos(g_plain[p], ref[p].to(dev)) for p in ref}
+    if not (math.isfinite(l_dp.item()) and rel <= TRAIN_LOSS_RTOL
+            and min(cos.values()) > TRAIN_GRAD_COS):
+        raise AssertionError(f"9b (b): kernel vs plain forward loss rel "
+                             f"{rel:.3g}, gradient cosines {cos}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  9b loss {l_dp.item():.5f} (aux {aux:.5f}) and {n_leaves} "
+          f"gradients through the dataplane bit for bit those without (a); "
+          f"kernel vs plain forward rel {rel:.2e}, min cosine "
+          f"{min(cos.values()):.6f} (b); forward + backward {ms:.1f} ms; "
+          f"launches {launches}; peak memory {peak:.2f} GB{_on_card()}")
+    _line(f"phase 9b grok-1 train ok: gates (a)-(e) held")
+    del g_plain, ref, params
+    return {"layers": cfg.num_layers, "params": n_params,
+            "loss": l_dp.item(), "aux": aux, "plain_rel": rel,
+            "min_cos": min(cos.values()), "fwd_bwd_ms": ms,
+            "launches": launches, "peak_gb": peak}
+
+
+def phase_vlm() -> dict:
+    """9c: llava-next-34b at full width, 16 of 60 layers: a prefill of
+    2,880 patches and 256 text tokens, 16 greedy decode steps, the same
+    prefill with shifted patches and with ``impl="plain"``, and phase 3's
+    text-only requests on the engine."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+
+    cfg = _cut("llava-next-34b", LLAVA_LAYERS)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = _params_line(cfg, params, t0, f"{LLAVA_LAYERS} of 60 layers, "
+                            f"{cfg.num_patches} patches")
+    gen = torch.Generator("cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, LLAVA_TEXT), generator=gen,
+                         device="cuda")
+    patches = torch.randn(1, cfg.num_patches, cfg.frontend_dim, generator=gen,
+                          device="cuda")
+    s = cfg.num_patches + LLAVA_TEXT
+    dp = _serve_dataplane()
+
+    def prefill(p, impl="flash"):
+        cache = model.init_cache(1, s + LLAVA_DECODE)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks, "patches": p},
+                                      cache, dp=dp, impl=impl)
+        torch.cuda.synchronize()
+        return logits, cache, (time.perf_counter() - t) * 1e3
+
+    # the main path: the prefill and 16 greedy decode steps
+    _reset_launches()
+    r0 = _ops(dp)
+    logits, cache, pre_ms = prefill(patches)
+    pre_launch, pre_records = _launches(), _ops(dp) - r0
+    if pre_launch["flash_attention"] != cfg.num_layers or \
+            pre_launch["bounce"] != pre_records:
+        raise AssertionError(f"9c prefill launches {pre_launch} for "
+                             f"{pre_records} records")
+    tok = logits.argmax(-1)
+    dec_ms = []
+    for i in range(LLAVA_DECODE):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, cache = model.decode_step(params, tok, cache, s + i, dp=dp)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t) * 1e3)
+        tok = out.argmax(-1)
+        if not (0 <= int(tok) < cfg.vocab_size):
+            raise AssertionError(f"9c decode token {int(tok)} out of vocab")
+    main_launches = _launches()
+    if main_launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"9c decode launched flash: {main_launches}")
+    shifted, _, _ = prefill(patches + 1.0)
+    plain, _, plain_ms = prefill(patches, impl="plain")
+    a, b = logits[0, -1].float(), plain[0, -1].float()
+    cos = _cos(a, b)
+    moved = (shifted[0, -1].float() - a).abs().max().item()
+    if not (torch.isfinite(a).all() and cos > 0.99):
+        raise AssertionError(f"9c kernel vs plain prefill: cosine {cos}")
+    if not moved > 1e-3:
+        raise AssertionError(f"9c shifted patches moved the text logits by "
+                             f"{moved}")
+    _line(f"  9c prefill of {cfg.num_patches} patches + {LLAVA_TEXT} tokens "
+          f"(S={s}): {pre_ms:.1f} ms (plain {plain_ms:.1f} ms), flash "
+          f"{pre_launch['flash_attention']} launches, bounce "
+          f"{pre_launch['bounce']} for {pre_records} records; decode "
+          f"{np.median(dec_ms):.2f} ms/step median; kernel vs plain cosine "
+          f"{cos:.5f}; shifted patches move the logits by {moved:.4f}"
+          f"{_on_card()}")
+    # phase 3's text-only requests on the engine, twice
+    _reset_launches()
+    prompts = _prompts(cfg)
+    eng_dp = _serve_dataplane()
+    tokens = _engine_tokens(model, params, cfg, eng_dp, prompts)
+    eng_launches = _launches()
+    if _engine_tokens(model, params, cfg, _serve_dataplane(),
+                      prompts) != tokens:
+        raise AssertionError("9c: the engine's second run gave other tokens")
+    if eng_launches["bounce"] != _ops(eng_dp):
+        raise AssertionError(f"9c engine: {eng_launches} for "
+                             f"{_ops(eng_dp)} records")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  9c engine: 8 text-only requests, tokens identical on repeat; "
+          f"launches {eng_launches}; peak memory {peak:.2f} GB"
+          f"{_on_card()}")
+    _line(f"phase 9c llava-next ok: {cfg.num_layers} layers, flash "
+          f"{cfg.num_layers} a prefill")
+    launches = {k: main_launches[k] + eng_launches[k] for k in main_launches}
+    return {"layers": cfg.num_layers, "params": n_params, "seq": s,
+            "prefill_ms": pre_ms, "plain_prefill_ms": plain_ms,
+            "decode_ms_median": float(np.median(dec_ms)),
+            "plain_cosine": cos, "shift_moved": moved,
+            "launches": launches, "peak_gb": peak}
+
+
+def _moe_bounce_timing() -> dict:
+    """Bounce on grok's ``moe/hidden`` payload at a 256-token prefill, (4,
+    8, 128, 32768) bf16, with cord's syscall chain: bit for bit its plain
+    version, its time against its bound and ``torch.clone``."""
+    import torch
+    from repro_torch.core import techniques as tech
+    from repro_torch.kernels.dataplane import bounce as bk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((4, 8, 128, 32768), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    iters = tech.iters_for_ns(400.0, device=dev)
+    got, gctr = bk.mediated_cost(x, iters, 0)
+    want, wctr = bk.mediated_cost_plain(x, iters, 0)
+    torch.cuda.synchronize()
+    if not (torch.equal(_bits(got), _bits(want))
+            and torch.equal(gctr, wctr)):
+        raise AssertionError("bounce moe/hidden: output or counters differ "
+                             "from the plain version")
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    nbytes = x.numel() * x.element_size()
+    call = lambda: bk.mediated_cost(x, iters, 0)  # noqa: E731
+    row = {"bytes": nbytes, "max_abs_err": err, "ms": _cuda_ms(call, n=10),
+           "device_ms": _device_ms(call, n=10),
+           "plain_ms": _wall_ms(lambda: bk.mediated_cost_plain(x, iters, 0),
+                                n=2),
+           "library_ms": _cuda_ms(lambda: torch.clone(x), n=10),
+           "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
+    _line(f"  bounce moe/hidden {nbytes / 1e6:.0f} MB bf16: bit-exact, "
+          f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms), "
+          f"torch.clone {row['library_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.2f} ms{_on_card()}")
+    return row
+
+
+def phase_moe_vlm() -> dict:
+    """Phase 9: 9a, 9b and 9c, then bounce on the moe payload."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn in (("serve", phase_moe_serve), ("train", phase_moe_train),
+                     ("vlm", phase_vlm)):
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["bounce_hidden"] = _moe_bounce_timing()
+    out["secs"] = time.perf_counter() - t0
+    _line(f"phase 9 moe and vlm ok in {out['secs']:.1f} s{_on_card()}")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3158,6 +3758,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     control = phase_control()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe_vlm()
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -3313,6 +3916,53 @@ def main(argv=None) -> int:
          "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
          "bound_by": "operations", "library_ms": None},
     ]
+    # phase 9's path: grok-1 serving and training, llava-next
+    m_serve, m_train, m_vlm = moe["serve"], moe["train"], moe["vlm"]
+    hid, g_lse = moe["bounce_hidden"], train_k["flash_lse_grok"]
+    f_grok = next(r for r in flash["cases"]
+                  if r["model"] == "grok-1-314b" and r["s"] == 256)
+    f_llava = next(r for r in flash["cases"] if r["model"] == "llava-next-34b")
+    flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu")
+    flash_tpu = "src/repro/kernels/flash_attention/flash_attention.py:36"
+    kernels += [
+        {"name": "bounce (moe and vlm: 9a-9c edges, the six moe/* edges a "
+                 "layer among them; timed on grok's moe/hidden, 268 MB "
+                 "bf16)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": sum(r["launches"]["bounce"]
+                         for r in (m_serve, m_train, m_vlm)),
+         "max_abs_err": hid["max_abs_err"], "ms": hid["ms"],
+         "device_ms": hid["device_ms"], "plain_ms": hid["plain_ms"],
+         "bound_ms": hid["bound_ms"], "bound_by": "bytes",
+         "library_ms": hid["library_ms"]},
+        {"name": "flash_attention (9a grok-1 prefills: D 128, 48 over 8 "
+                 "heads, soft cap 30; timed at S=256)", "route": "cuda",
+         "source": flash_src, "replaces": flash_tpu,
+         "launches": m_serve["launches"]["flash_attention"],
+         "max_abs_err": f_grok["max_abs_err"], "ms": f_grok["ms"],
+         "device_ms": f_grok["device_ms"], "plain_ms": f_grok["plain_ms"],
+         "bound_ms": f_grok["bound_ms"], "bound_by": f_grok["bound_by"],
+         "library_ms": f_grok["library_ms"]},
+        {"name": "flash_attention (9c llava-next prefills: D 128, 56 over 8 "
+                 "heads; timed at S=3136)", "route": "cuda",
+         "source": flash_src, "replaces": flash_tpu,
+         "launches": m_vlm["launches"]["flash_attention"],
+         "max_abs_err": f_llava["max_abs_err"], "ms": f_llava["ms"],
+         "device_ms": f_llava["device_ms"], "plain_ms": f_llava["plain_ms"],
+         "bound_ms": f_llava["bound_ms"], "bound_by": f_llava["bound_by"],
+         "library_ms": f_llava["library_ms"],
+         "library_device_ms": f_llava["library_device_ms"]},
+        {"name": "flash_attention (9b grok-1 train forward with lse, B=1 "
+                 "S=256)", "route": "cuda",
+         "source": flash_src, "replaces": flash_tpu,
+         "launches": m_train["launches"]["flash_lse"],
+         "max_abs_err": g_lse["lse_err"], "ms": g_lse["ms"],
+         "device_ms": g_lse["device_ms"], "plain_ms": g_lse["plain_ms"],
+         "bound_ms": g_lse["bound_ms"], "bound_by": g_lse["bound_by"],
+         "library_ms": g_lse["library_ms"]},
+    ]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -3324,7 +3974,7 @@ def main(argv=None) -> int:
                                    "gspmd": gspmd, "launcher": launcher,
                                    "chunked_psum": cpsum,
                                    "verbs": verbs, "perftest": perf,
-                                   "control": control,
+                                   "control": control, "moe_vlm": moe,
                                    "profile": prof or None,
                                    "kernels": kernels},
                                   indent=1))

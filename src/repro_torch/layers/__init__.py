@@ -22,4 +22,5 @@ from repro_torch.layers.embedding import embed, embedding_init, logits
 from repro_torch.layers.kvcache import kv_cache_init, kv_update
 from repro_torch.layers.mamba import mamba, mamba_init, mamba_state_init
 from repro_torch.layers.mlp import mlp, mlp_init
+from repro_torch.layers.moe import moe, moe_init, route
 from repro_torch.layers.rope import apply_rope

@@ -80,8 +80,10 @@ def make_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     None means no window (global layers)."""
     qp = q_pos[:, None]
     kp = k_pos[None, :]
-    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
-                      dtype=torch.bool, device=q_pos.device)
+    # the shape written out: torch.broadcast_shapes imports torch._refs on
+    # its first call, a one-time stall of seconds on the host
+    mask = torch.ones((qp.shape[0], kp.shape[1]), dtype=torch.bool,
+                      device=q_pos.device)
     if causal:
         mask &= kp <= qp
     if window:

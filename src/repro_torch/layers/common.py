@@ -46,7 +46,7 @@ def dense_init(gen: torch.Generator, in_dim: int, *out_dims: int,
                device=None, scale: float | None = None) -> torch.Tensor:
     """Truncated-normal fan-in init for a (in_dim, *out_dims) kernel."""
     std = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    return _trunc_normal((in_dim, *out_dims), gen, device) * std
+    return _trunc_normal((in_dim, *out_dims), gen, device).mul_(std)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,9 +24,18 @@ def embed(params: dict, tokens: torch.Tensor, dtype, *, scale: bool = True,
     # gather, then cast: the same values as casting the whole table first
     x = tab[tokens].to(dtype)
     if scale:  # gemma-style sqrt(d) embedding scale, rounded to the dtype
-        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=dtype,
-                             device=x.device)
+        x = x * _embed_scale(x.shape[-1], dtype, x.device)
     return constrain(dp, x, ("batch", "seq", "embed"), tag="embed/out")
+
+
+@functools.lru_cache(maxsize=16)
+def _embed_scale(dim: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """sqrt(dim) rounded to ``dtype``, as a 0-dim tensor on ``device``
+    made once and never written (so a forward uploads no constant).  A
+    raw Python ``sqrt(dim)`` would multiply with the unrounded value."""
+    with torch.inference_mode(False):    # a normal tensor, whoever asks
+        return torch.tensor(math.sqrt(dim), dtype=dtype, device=device)
 
 
 def logits(params: dict, x: torch.Tensor, dp=None,

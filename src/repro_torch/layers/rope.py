@@ -3,15 +3,27 @@ base on global layers than on sliding-window layers)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies (head_dim//2,), computed in float32."""
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                            device=device) / head_dim
-    base = torch.tensor(float(theta), dtype=torch.float32, device=device)
-    return 1.0 / (base ** exponent)
+    """Inverse frequencies (head_dim//2,), computed in float32 on
+    ``device``.  One tensor per (head_dim, theta, device), computed once
+    and never written: a layer's forward uploads no constant."""
+    return _rope_freqs(int(head_dim), float(theta), torch.device(
+        "cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):    # a normal tensor, whoever asks
+        exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                device=device) / head_dim
+        base = torch.tensor(theta, dtype=torch.float32, device=device)
+        return 1.0 / (base ** exponent)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

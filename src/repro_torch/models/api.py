@@ -1,20 +1,27 @@
-"""Unified model interface.
+"""Unified model interface and input specs.
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 have the same signatures as ``repro``'s, bound to one device, so the
 serving engine and the train step are architecture-agnostic.  The port
-serves the dense family (gemma3, granite) and the hybrid family (hymba),
-and trains the dense family; the others arrive in later slices.
+serves the transformer families (dense: gemma3, granite; moe: grok-1,
+arctic; vlm: llava-next) and the hybrid family (hymba), and trains the
+transformer families; the ssm (xlstm) and encdec (whisper) families and
+hybrid training arrive in later slices.
+
+``input_specs(cfg, shape)`` returns ``(shape, dtype)`` stand-ins for
+every model input of a shape cell, with no allocation, and
+``make_batch`` a random batch that matches them.  The modality frontend
+is a stub: vlm cells get precomputed patch embeddings.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import hybrid, transformer
 
@@ -24,8 +31,12 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable
-    # (params, batch, **kw) -> (loss, metrics); dense family only
+    # (params, batch, **kw) -> (loss, metrics); raises for the hybrid
+    # family
     loss: Callable
+    # (params, batch, **kw) -> the family's whole-sequence forward; for
+    # the transformer (hiddens, aux, cache, prefix) as repro's
+    apply: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -44,13 +55,15 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model for ``cfg`` on ``device`` (default ``cuda``).  ``init``
     takes a seed or a ``torch.Generator``."""
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         m = transformer
         return Model(
             cfg=cfg,
             device=dev,
             init=_init(m.transformer_init, cfg, dev),
             loss=lambda params, batch, **kw: m.transformer_loss(
+                params, cfg, batch, **kw),
+            apply=lambda params, batch, **kw: m.transformer_apply(
                 params, cfg, batch, **kw),
             init_cache=lambda batch, max_len: m.transformer_init_cache(
                 cfg, batch, max_len, device=dev),
@@ -73,6 +86,8 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             device=dev,
             init=_init(m.hybrid_init, cfg, dev),
             loss=_hybrid_loss,
+            apply=lambda params, batch, **kw: m.hybrid_apply(
+                params, cfg, batch, **kw),
             init_cache=lambda batch, max_len: m.hybrid_init_cache(
                 cfg, batch, max_len, device=dev),
             prefill=lambda params, batch, cache, **kw: m.hybrid_prefill(
@@ -86,7 +101,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         )
     raise NotImplementedError(
         f"the {cfg.family!r} family is ported in a later slice; the port "
-        f"serves the dense and hybrid families")
+        f"serves the dense, moe, vlm and hybrid families")
 
 
 def _hybrid_loss(params, batch, **kw):
@@ -106,4 +121,62 @@ def _init(init_fn, cfg: ModelConfig, dev: torch.device) -> Callable:
     return init
 
 
-__all__ = ["Model", "build_model"]
+# ---------------------------------------------------------------------------
+# input specs
+# ---------------------------------------------------------------------------
+
+class InputSpec(NamedTuple):
+    """A model input's shape and dtype, with no allocation (``repro``'s
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """VLM cells budget the patch prefix inside the cell's seq_len."""
+    if cfg.family == "vlm" and cfg.num_patches:
+        return max(seq_len - cfg.num_patches, 16)
+    return seq_len
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """:class:`InputSpec` stand-ins for the step function of this cell."""
+    b = shape.global_batch
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        s = _text_len(cfg, shape.seq_len)
+        specs = {"tokens": InputSpec((b, s), i32),
+                 "labels": InputSpec((b, s), i32)}
+        if cfg.family == "vlm":
+            specs["patches"] = InputSpec(
+                (b, cfg.num_patches, cfg.frontend_dim), torch.float32)
+        if cfg.family == "encdec":
+            specs["frames"] = InputSpec(
+                (b, cfg.encoder_max_len, cfg.frontend_dim), torch.float32)
+        if shape.kind == "prefill":
+            specs.pop("labels")
+        return specs
+    # decode: one new token against a cache of seq_len
+    return {"token": InputSpec((b, 1), i32)}
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, gen: torch.Generator,
+               vocab_cap: int | None = None) -> dict:
+    """A random batch matching :func:`input_specs` (integers uniform below
+    the vocabulary or ``vocab_cap``, floats standard normal), drawn from
+    ``gen`` on its device.  The values cannot equal ``repro``'s (another
+    generator); the shapes and dtypes do."""
+    dev = gen.device
+    v = vocab_cap or cfg.vocab_size
+    out = {}
+    for name, sd in input_specs(cfg, shape).items():
+        if sd.dtype == torch.int32:
+            out[name] = torch.randint(0, v, sd.shape, generator=gen,
+                                      dtype=sd.dtype, device=dev)
+        else:
+            out[name] = torch.randn(sd.shape, generator=gen, dtype=sd.dtype,
+                                    device=dev)
+    return out
+
+
+__all__ = ["Model", "build_model", "InputSpec", "input_specs", "make_batch"]

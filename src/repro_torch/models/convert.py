@@ -36,7 +36,38 @@ def from_jax_params(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     if layers.shape != (cfg.num_layers, cfg.d_model):
         raise ValueError(f"parameters do not match {cfg.name}: norm1 scale "
                          f"{tuple(layers.shape)}")
+    _check_family(out, cfg)
     return out
+
+
+def _check_family(params: dict, cfg: ModelConfig) -> None:
+    """The family's own leaves are there with ``cfg``'s shapes: a moe
+    tree's router and experts, a vlm tree's ``vision_proj``."""
+    want = {}
+    n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    if cfg.family == "moe":
+        e = cfg.moe.num_experts
+        want = {("layers", "moe", "router"): (n, d, e),
+                ("layers", "moe", "wi"): (n, e, d, f),
+                ("layers", "moe", "wo"): (n, e, f, d)}
+        if cfg.gated_mlp:
+            want[("layers", "moe", "wg")] = (n, e, d, f)
+        if cfg.moe.dense_residual:
+            want[("layers", "moe", "dense", "wi")] = \
+                (n, d, cfg.moe.dense_residual_ff)
+    elif cfg.family == "vlm":
+        want = {("vision_proj",): (cfg.frontend_dim, d)}
+    for path, shape in want.items():
+        node = params
+        for key in path:
+            node = node.get(key) if isinstance(node, dict) else None
+        name = "/".join(path)
+        if node is None:
+            raise ValueError(f"parameters do not match {cfg.name}: the "
+                             f"{cfg.family} tree has no {name}")
+        if tuple(node.shape) != shape:
+            raise ValueError(f"parameters do not match {cfg.name}: {name} "
+                             f"{tuple(node.shape)}, want {shape}")
 
 
 def to_numpy(tree):

@@ -34,16 +34,20 @@ from repro_torch.layers.kvcache import (
 )
 from repro_torch.layers.mamba import mamba, mamba_init, mamba_state_init
 from repro_torch.layers.mlp import mlp, mlp_init
-from repro_torch.models.transformer import _layer_params, _stack, layer_flags
+from repro_torch.models.transformer import (
+    _layer_params,
+    layer_flags,
+    stack_layers,
+)
 
 
 def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """Random parameters from ``gen``, in ``repro``'s layout (stacked
     per-layer weights)."""
     a = cfg.attention
-    layers = []
-    for _ in range(cfg.num_layers):
-        layers.append({
+
+    def one_layer():
+        return {
             "norm1": rmsnorm_init(cfg.d_model, device=device),
             "norm2": rmsnorm_init(cfg.d_model, device=device),
             "attn": attention_init(gen, cfg.d_model, a.num_heads,
@@ -54,11 +58,13 @@ def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
             "mamba_norm": rmsnorm_init(cfg.d_model, device=device),
             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
                             device=device),
-        })
+        }
+
+    layers = stack_layers(cfg.num_layers, one_layer)
     return {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                 tied=cfg.tie_embeddings, device=device),
-        "layers": _stack(layers),
+        "layers": layers,
         "final_norm": rmsnorm_init(cfg.d_model, device=device),
     }
 

@@ -1,4 +1,12 @@
-"""Decoder-only transformer LM, dense family (gemma3-1b/4b, granite).
+"""Decoder-only transformer LM covering the dense, MoE and VLM families
+(gemma3-4b/1b, granite-34b/3-2b, grok-1-314b, arctic-480b,
+llava-next-34b).
+
+The moe family takes :func:`~repro_torch.layers.moe.moe` in place of the
+MLP, and each layer adds its router's aux loss to the training loss; the
+vlm family prepends a projection of precomputed image patches
+(``batch["patches"]``, the stub frontend) to the token embeddings, so a
+prefill's positions run over prefix plus text.
 
 Per-layer weights are stacked on a leading layer axis as in ``repro``,
 and a Python loop over layers takes the place of ``lax.scan``.  Per-layer
@@ -31,7 +39,13 @@ from repro_torch.layers.attention import (
     prefill_positions,
     qkv_project,
 )
-from repro_torch.layers.common import constrain, dtype_of, rmsnorm, rmsnorm_init
+from repro_torch.layers.common import (
+    constrain,
+    dense_init,
+    dtype_of,
+    rmsnorm,
+    rmsnorm_init,
+)
 from repro_torch.layers.embedding import embed, embedding_init
 from repro_torch.layers.embedding import logits as logits_fn
 from repro_torch.layers.kvcache import (
@@ -41,6 +55,7 @@ from repro_torch.layers.kvcache import (
     slot_validity,
 )
 from repro_torch.layers.mlp import mlp, mlp_init
+from repro_torch.layers.moe import moe, moe_init
 from repro_torch.models.losses import ce_metrics, chunked_ce_loss
 from repro_torch.models.remat import REMAT_MODES, remat
 
@@ -67,43 +82,71 @@ def layer_flags(cfg: ModelConfig) -> tuple[np.ndarray, np.ndarray]:
     return window, theta
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not a dense transformer: "
-            f"models/api.py builds the hybrid family with models/hybrid.py, "
-            f"and the others are ported in a later slice")
-
-
 def transformer_init(gen: torch.Generator, cfg: ModelConfig,
                      device=None) -> dict:
     """Random parameters from ``gen``, in ``repro``'s layout (stacked
-    per-layer weights)."""
-    _check_dense(cfg)
+    per-layer weights; :func:`stack_layers`)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"the {cfg.family!r} family is not a transformer "
+                         f"of models/transformer.py")
     a = cfg.attention
-    layers = []
-    for _ in range(cfg.num_layers):
-        layers.append({
+
+    def one_layer():
+        p = {
             "norm1": rmsnorm_init(cfg.d_model, device=device),
             "norm2": rmsnorm_init(cfg.d_model, device=device),
             "attn": attention_init(gen, cfg.d_model, a.num_heads,
                                    a.num_kv_heads, cfg.head_dim,
                                    qk_norm=a.qk_norm, device=device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
-                            device=device),
-        })
-    return {
+        }
+        if cfg.family == "moe":
+            p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe,
+                                gated=cfg.gated_mlp, device=device)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                gated=cfg.gated_mlp, device=device)
+        return p
+
+    layers = stack_layers(cfg.num_layers, one_layer)
+    params = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                 tied=cfg.tie_embeddings, device=device),
-        "layers": _stack(layers),
+        "layers": layers,
         "final_norm": rmsnorm_init(cfg.d_model, device=device),
     }
+    if cfg.family == "vlm":
+        params["vision_proj"] = dense_init(gen, cfg.frontend_dim,
+                                           cfg.d_model, device=device)
+    return params
 
 
-def _stack(trees: list[dict]) -> dict:
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+def stack_layers(n: int, one_layer) -> dict:
+    """``n`` draws of ``one_layer()`` stacked on a leading layer axis.
+    Each stacked leaf is allocated once and filled layer by layer, so the
+    parameters are never held twice (a list of layers then
+    ``torch.stack`` would hold them twice)."""
+    stacked = None
+    for i in range(n):
+        lp = one_layer()
+        if stacked is None:
+            stacked = _stacked_like(lp, n)
+        _fill(stacked, lp, i)
+        del lp          # before the next layer is drawn
+    return stacked
+
+
+def _stacked_like(tree: dict, n: int) -> dict:
+    return {k: (_stacked_like(v, n) if isinstance(v, dict)
+                else v.new_empty((n, *v.shape)))
+            for k, v in tree.items()}
+
+
+def _fill(stacked: dict, tree: dict, i: int) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _fill(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
 
 
 def _layer_params(params: dict, i: int) -> dict:
@@ -112,7 +155,10 @@ def _layer_params(params: dict, i: int) -> dict:
 
 
 def _layer(lp, x, *, cfg, dp, positions, window, theta, mode,
-           cache_k=None, cache_v=None, cache_pos=None, impl="flash"):
+           cache_k=None, cache_v=None, cache_pos=None, impl="flash",
+           train=False):
+    """One layer; returns (x, aux): the router's aux loss of a moe layer,
+    None for the others."""
     a = cfg.attention
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     q, k, v = qkv_project(lp["attn"], h, num_kv_heads=a.num_kv_heads,
@@ -124,7 +170,7 @@ def _layer(lp, x, *, cfg, dp, positions, window, theta, mode,
     elif mode == "prefill":
         kv_update(cache_k, cache_v, k, v, 0)
         o = attend(q, k, v, q_pos=positions, k_pos=positions, causal=True,
-                   window=window, logit_cap=a.logit_softcap)
+                   window=window, logit_cap=a.logit_softcap, impl=impl)
     elif mode == "chunk":
         # a prefill chunk written at offset cache_pos, attending to
         # everything filled so far; the cache edges are the mediation a
@@ -163,60 +209,97 @@ def _layer(lp, x, *, cfg, dp, positions, window, theta, mode,
         raise ValueError(f"unknown layer mode {mode!r}")
     x = x + output_project(lp["attn"], o, dp=dp)
     h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    x = x + mlp(lp["mlp"], h, act=cfg.act_fn, dp=dp)
-    return constrain(dp, x, ("batch", "seq_resid", "embed"), tag="layer/out")
+    aux = None
+    if cfg.family == "moe":
+        f, aux = moe(lp["moe"], h, cfg.moe, act=cfg.act_fn, train=train,
+                     dp=dp)
+    else:
+        f = mlp(lp["mlp"], h, act=cfg.act_fn, dp=dp)
+    x = x + f
+    return constrain(dp, x, ("batch", "seq_resid", "embed"),
+                     tag="layer/out"), aux
 
 
 def _run_layers(params, cfg, x, *, dp, positions, mode, cache,
-                cache_pos=None, impl="flash", remat_mode="none"):
+                cache_pos=None, impl="flash", remat_mode="none",
+                train=False):
+    """Every layer, then the final norm: (x, aux), the layers' aux losses
+    summed in float32 from 0 as ``repro``'s scan carries them (None when
+    no layer has one)."""
     window_arr, theta_arr = layer_flags(cfg)
+    aux = None
     for i in range(cfg.num_layers):
         kw = dict(cfg=cfg, dp=dp, positions=positions,
                   window=int(window_arr[i]), theta=float(theta_arr[i]),
                   mode=mode,
                   cache_k=None if cache is None else cache["k"][i],
                   cache_v=None if cache is None else cache["v"][i],
-                  cache_pos=cache_pos, impl=impl)
+                  cache_pos=cache_pos, impl=impl, train=train)
         lp = _layer_params(params["layers"], i)
         if remat_mode == "none":
-            x = _layer(lp, x, **kw)
+            x, a = _layer(lp, x, **kw)
         else:
-            x = remat(remat_mode, dp, _layer, lp, x, **kw)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            x, a = remat(remat_mode, dp, _layer, lp, x, **kw)
+        if a is not None:
+            if aux is None:
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = aux + a
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def transformer_apply(params, cfg: ModelConfig, batch: dict, *, dp=None,
                       cache=None, train=False, remat="none", impl="flash"):
     """Whole-sequence forward from position 0.  With ``cache`` it is the
     prefill and fills the cache in place; without, the training forward
-    (``repro``'s ``mode="train"``).  Returns (final_hiddens, cache).
+    (``repro``'s ``mode="train"``).  A vlm batch with ``"patches"`` (B, P,
+    frontend_dim) gets their projection prepended to the token embeddings
+    (its ``vision/proj`` edge after the embedding's), and the positions
+    run over prefix plus text.  Returns ``repro``'s (final_hiddens, aux,
+    cache, prefix_len): ``aux`` the moe layers' summed aux loss (a float32
+    zero for the other families).
 
-    ``remat`` is ``"none"``, ``"full"`` or ``"dots"``: each layer body
-    rematerialised as ``repro``'s ``jax.checkpoint`` does it
+    ``train`` picks the moe layers' fixed-capacity dispatch (dropless
+    otherwise).  ``remat`` is ``"none"``, ``"full"`` or ``"dots"``: each
+    layer body rematerialised as ``repro``'s ``jax.checkpoint`` does it
     (``models/remat.py``).  ``impl`` picks the whole-sequence attention
     (``layers/attention.attend``)."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got "
                          f"{remat!r}")
+    dtype = dtype_of(cfg.dtype)
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = embed(params["embed"], tokens, dtype_of(cfg.dtype), dp=dp)
+    x = embed(params["embed"], tokens, dtype, dp=dp)
+    prefix = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        pe = torch.matmul(batch["patches"].to(dtype),
+                          params["vision_proj"].to(dtype))
+        pe = constrain(dp, pe, ("batch", "seq", "embed"), tag="vision/proj")
+        x = torch.cat([pe, x], dim=1)
+        prefix = pe.shape[1]
+        s = s + prefix
     positions = prefill_positions(s, tokens.device)
-    x = _run_layers(params, cfg, x, dp=dp, positions=positions,
-                    mode="prefill" if cache is not None else "train",
-                    cache=cache, impl=impl, remat_mode=remat)
-    return x, cache
+    x, aux = _run_layers(params, cfg, x, dp=dp, positions=positions,
+                         mode="prefill" if cache is not None else "train",
+                         cache=cache, impl=impl, remat_mode=remat,
+                         train=train)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, cache, prefix
 
 
 def transformer_loss(params, cfg: ModelConfig, batch: dict, *, dp=None,
                      rng=None, remat="none", impl="flash"):
     """Mean next-token cross entropy of ``batch`` (tokens, labels; -1
-    ignored) and its metrics: ``(loss, metrics)`` as ``repro``'s."""
-    x, _ = transformer_apply(params, cfg, batch, dp=dp, train=True,
-                             remat=remat, impl=impl)
+    ignored) plus the moe layers' aux loss, and its metrics: ``(loss,
+    metrics)`` as ``repro``'s.  A vlm prefix is sliced off before the
+    cross entropy."""
+    x, aux, _, prefix = transformer_apply(params, cfg, batch, dp=dp,
+                                          train=True, remat=remat, impl=impl)
+    if prefix:
+        x = x[:, prefix:]
     table = params["embed"].get("head", params["embed"]["tok"])
     loss, correct, count = chunked_ce_loss(x, table, batch["labels"], dp=dp)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     m = ce_metrics(loss, correct, count, aux)
     return m["loss"], m
 
@@ -230,15 +313,19 @@ def transformer_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def transformer_prefill(params, cfg: ModelConfig, batch: dict, cache, *,
-                        dp=None, last_pos=None):
-    """Fill the cache with the prompt (positions from 0); returns
-    (last-position logits (B, 1, V) float32, cache).  ``last_pos`` (B,)
-    picks each row's last real token when prompts are right-padded."""
-    x, cache = transformer_apply(params, cfg, batch, dp=dp, cache=cache)
+                        dp=None, impl="flash", last_pos=None):
+    """Fill the cache with the prompt (positions from 0, a vlm prefix
+    first); returns (last-position logits (B, 1, V) float32, cache).
+    ``last_pos`` (B,) picks each row's last real token when prompts are
+    right-padded, counted in text tokens (the prefix is added here).
+    ``impl`` picks the attention as :func:`transformer_apply`'s."""
+    x, _aux, cache, prefix = transformer_apply(params, cfg, batch, dp=dp,
+                                               cache=cache, impl=impl)
     if last_pos is None:
         last = x[:, -1:, :]
     else:
         idx = torch.as_tensor(last_pos, dtype=torch.long, device=x.device)
+        idx = idx + prefix
         last = x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
     return logits_fn(params["embed"], last, dp=dp), cache
 
@@ -250,15 +337,16 @@ def transformer_prefill_chunk(params, cfg: ModelConfig, batch: dict, cache,
     filled so far.  Returns (logits (B, 1, V) float32, cache) like
     :func:`transformer_prefill`, the logits at ``last_pos - offset``
     clipped into the chunk; only the chunk holding ``last_pos`` (the last
-    real prompt token) gives logits the caller keeps."""
+    real prompt token) gives logits the caller keeps.  Chunks are
+    token-only (a vlm prefix is prefilled whole), as in ``repro``."""
     tokens = batch["tokens"]
     b, c = tokens.shape
     offset = int(offset)
     x = embed(params["embed"], tokens, dtype_of(cfg.dtype), dp=dp)
     positions = offset + torch.arange(c, dtype=torch.int32,
                                       device=tokens.device)
-    x = _run_layers(params, cfg, x, dp=dp, positions=positions, mode="chunk",
-                    cache=cache, cache_pos=offset)
+    x, _aux = _run_layers(params, cfg, x, dp=dp, positions=positions,
+                          mode="chunk", cache=cache, cache_pos=offset)
     if last_pos is None:
         last = x[:, -1:, :]
     else:
@@ -275,8 +363,8 @@ def transformer_decode_step(params, cfg: ModelConfig, token, cache, pos: int,
     x = embed(params["embed"], token, dtype_of(cfg.dtype), dp=dp)
     positions = torch.full((1,), int(pos), dtype=torch.int32,
                            device=token.device)
-    x = _run_layers(params, cfg, x, dp=dp, positions=positions,
-                    mode="decode", cache=cache, cache_pos=int(pos))
+    x, _aux = _run_layers(params, cfg, x, dp=dp, positions=positions,
+                          mode="decode", cache=cache, cache_pos=int(pos))
     return logits_fn(params["embed"], x, dp=dp), cache
 
 
@@ -288,8 +376,8 @@ def transformer_decode_step_slots(params, cfg: ModelConfig, token, cache,
     Updates ``cache`` in place."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     x = embed(params["embed"], token, dtype_of(cfg.dtype), dp=dp)
-    x = _run_layers(params, cfg, x, dp=dp, positions=pos[:, None],
-                    mode="decode_slots", cache=cache, cache_pos=pos)
+    x, _aux = _run_layers(params, cfg, x, dp=dp, positions=pos[:, None],
+                          mode="decode_slots", cache=cache, cache_pos=pos)
     return logits_fn(params["embed"], x, dp=dp), cache
 
 
@@ -298,5 +386,5 @@ __all__ = [
     "transformer_init_cache",
     "transformer_prefill", "transformer_prefill_chunk",
     "transformer_decode_step",
-    "transformer_decode_step_slots", "layer_flags",
+    "transformer_decode_step_slots", "layer_flags", "stack_layers",
 ]

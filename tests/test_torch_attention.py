@@ -35,6 +35,8 @@ CASES = [
     (1, 128, 2, 1, 16, 0, 70, 0.0),      # valid_len inside a tile
     (1, 1, 2, 1, 16, 0, None, 0.0),      # one query
     (1, 40, 10, 2, 64, 24, None, 0.0),   # GQA 5:1 at D=64
+    (1, 24, 12, 2, 16, 0, None, 30.0),   # GQA 6:1 with grok-1's soft cap
+    (1, 24, 14, 2, 16, 0, None, 0.0),    # GQA 7:1, as llava-next's 56:8
 ]
 
 
@@ -173,3 +175,29 @@ def test_kernel_matches_plain_on_card(dtype, h, kvh, d):
                                    atol=tol)
         if valid == 0:
             assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh,s,cap", [
+    (48, 8, 256, 30.0),     # grok-1: D 128, GQA 6:1, soft cap 30
+    (48, 8, 1100, 30.0),    # grok-1's long prompt, off the tile grid
+    (56, 8, 640, 0.0),      # llava-next: D 128, GQA 7:1
+])
+def test_kernel_matches_plain_at_moe_and_vlm_heads(h, kvh, s, cap):
+    """The kernel against its plain version at the heads of the moe and
+    vlm families, bf16 (2e-2), with the log-sum-exp at 2e-5 x max(1,
+    |lse|) where the train step asks for it."""
+    dev = cuda_device()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _qkv(1, s, h, kvh, 128, seed=7))
+    got = tops.flash_attention(q, k, v, logit_cap=cap)
+    want = tops.flash_attention_plain(q, k, v, logit_cap=cap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    o, lse = tops.flash_attention(q, k, v, logit_cap=cap, return_lse=True)
+    po, plse = tops.flash_attention_plain(q, k, v, logit_cap=cap,
+                                          return_lse=True)
+    assert lse.shape == plse.shape == (1, kvh, h // kvh, s)
+    lim = 2e-5 * max(1.0, float(plse.abs().max()))
+    assert float((lse - plse).abs().max()) <= lim
+    torch.testing.assert_close(o.float(), po.float(), rtol=2e-2, atol=2e-2)

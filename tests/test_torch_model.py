@@ -147,3 +147,23 @@ def test_gang_decode_step_matches(models):
 def test_other_families_wait():
     with pytest.raises(NotImplementedError, match="later slice"):
         tbuild(tget("xlstm-350m", smoke=True), device="cpu")
+
+
+def test_forward_constants_are_made_once_per_device():
+    """RoPE's frequencies and the embedding scale are made once per
+    device (and dtype) and reused, never uploaded again by a forward;
+    the cached values are bit for bit those made afresh."""
+    for theta in (10_000.0, 1_000_000.0):
+        f = trope.rope_freqs(16, theta)
+        assert trope.rope_freqs(16, theta) is f
+        assert torch.equal(f, trope._rope_freqs.__wrapped__(
+            16, theta, torch.device("cpu")))
+    for dtype in (torch.float32, torch.bfloat16):
+        sc = temb._embed_scale(1152, dtype, torch.device("cpu"))
+        assert temb._embed_scale(1152, dtype, torch.device("cpu")) is sc
+        assert sc.dtype == dtype and float(sc) == float(
+            torch.tensor(1152 ** 0.5, dtype=dtype))
+    with torch.inference_mode():
+        trope._rope_freqs.cache_clear()
+        f = trope.rope_freqs(16, 123.0)
+    assert not f.is_inference()      # usable under autograd later

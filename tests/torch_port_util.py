@@ -63,3 +63,15 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module of smoke-size tests.  Their ops
+    are too small to gain from threads, and the test workers share the
+    machine's cores: idle intra-op threads that spin for work make small
+    ops many times slower for every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

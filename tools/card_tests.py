@@ -34,7 +34,8 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_transport.py",
                    "tests/test_torch_conn.py",
                    "tests/test_torch_serve_obs.py",
-                   "tests/test_torch_elastic.py")
+                   "tests/test_torch_elastic.py",
+                   "tests/test_torch_moe_model.py")
 _STANDING_IN = ("jax", "repro")
 
 
