@@ -31,7 +31,11 @@ Phases, one line each; any failure raises and the script exits nonzero:
    from torch.profiler) against its bound and
    ``F.scaled_dot_product_attention``, its host time per call (1,000
    calls, no sync) beside SDPA's, and the host time of encoding its TMA
-   tensor maps;
+   tensor maps; then not causal at whisper-small's shapes (12 heads, D
+   64, bf16): the encoder at S = 1,500 (its last 64-row tile holds 28
+   rows) and the cross attention at Sq 256, Skv 1,500, each without and
+   with its lse (lse within 2e-5 x max(1, |lse|)), timed against SDPA
+   and ATen's flash attention;
 2b. the SSM-scan kernel against its plain version at hymba-1.5b shapes
    (d_inner 3200, N 16: prefill S = 1, 16, 31, 37, 300, 2048 and 4096,
    which cross its chunk plan, state that outlives a chunk (mamba's own
@@ -39,7 +43,11 @@ Phases, one line each; any failure raises and the script exits nonzero:
    tick in f32, one bf16 case, a ragged d_inner of 200; f32 bound 2e-5 *
    max(1, |ref|) on outputs of max |ref| >= 1), its time (CUDA events
    and profiler device time) against its byte bound, and its host time
-   per call at decode;
+   per call at decode; then ``SSMScan`` at hymba's train shape (B 2, S
+   256, mamba's own dt and A): the kernel forward and the plain backward
+   against autograd through the plain time loop run in float64, every
+   input's gradient within 2e-5 x max(1, |ref|), and the backward's ms a
+   call beside the forward's;
 3. the serving path at gemma3-1b's full width (26 layers, random weights
    from a seed, bf16 compute) through a ``cord`` dataplane with
    ``emulate_costs``: 8 requests on the continuous engine, the kernels'
@@ -159,7 +167,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
    stall and flash-with-lse launches per psum / layer follow the ranks
    (4 before the move, 2 after); every loss within 1e-4 relative of the
    same launcher at 4 ranks without the flags; the rotated sink read
-   back equals the artifact.  Then 3 steps at 2 ranks with
+   back equals the artifact; the run's peak memory is below the 50.11
+   GB of a launcher that kept its initial state and an AdamW that built
+   a new one.  Then 3 steps at 2 ranks with
    ``--timeline`` and 3 without: params and moments bit for bit; step
    ms on and off, one snapshot's ms with its device-to-host read, the
    stall's host us a call;
@@ -207,6 +217,40 @@ Phases, one line each; any failure raises and the script exits nonzero:
 
 Phase 9 runs alone after phase 0:
 ``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_moe_vlm()"``.
+
+10a. hymba-1.5b training at full width and depth (32 layers, 1.6 B f32
+   parameters with AdamW state), random weights from seed 0, bf16
+   compute: 2 steps of ``make_explicit_dp_step`` at 2 ranks on the card,
+   global batch 4 x 256, phase 5's dataplane, then one GSPMD step
+   through phase 6a's with ``activation_rules``.  Gates: (a) the GSPMD
+   step's loss and every gradient bit for bit those with ``dp=None``;
+   (b) the kernel forwards against ``impl="plain"`` (flash and the scan)
+   inside the same autograd functions: loss within 2e-2 relative, every
+   gradient leaf at cosine > 0.99, ``A_log``, ``dt_bias`` and ``D`` among
+   them; (c) no gradient leaf zero or missing; (d) per forward 32
+   ``ssm_scan`` and 32 flash-with-lse launches, bounce once a dataplane
+   record (the psums in the explicit step).  It prints step wall ms, the
+   scan backward's ms a call (CUDA events in the step) and peak memory,
+   then times flash with its lse at a rank's shape;
+10b. xlstm-350m at full width and depth (24 layers of "mmms"): phase
+   3's 8 requests on the continuous engine (each prefilled at its exact
+   length), a repeat and ``pallas_dataplane="off"``, all with identical
+   tokens, bounce once a record; then one GSPMD step at 4 x 256, bit for
+   bit with ``dp=None``, no gradient leaf zero.  It prints prefill ms,
+   tick ms and peak memory;
+10c. whisper-small at full width and depth (12 encoder and 12 decoder
+   layers): one ``Model.prefill`` of 4 x (1,500 random frames of 80 mel
+   bins, 256 tokens) and 16 greedy ``decode_step``s; the same prefill
+   with the frames + 1.0 (the logits move) and with ``impl="plain"``
+   (cosine > 0.99); phase 3's prompts on the engine (zero frames; a
+   640-position stripe, as the 300-token prompt's 512 bucket needs, with
+   every real position below whisper's 448), twice, with identical
+   tokens; one GSPMD step at 4 x 256 with frames, gated as 10a's
+   (a)-(c).  Flash launches 36 a forward: 12 encoder, 12 decoder self,
+   12 cross.
+
+Phase 10 runs alone after phase 0:
+``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_families()"``.
 
 ``--profile`` adds torch.profiler tables for one prefill of 256 tokens
 and one 4-slot decode tick of each model.  The line before the last is
@@ -668,10 +712,90 @@ def phase_flash() -> dict:
     _line(f"  flash host time: {host_us:.2f} us per call (1,000 calls, no "
           f"sync; SDPA {sdpa_host_us:.2f}), {map_ns / 1e3:.3f} us of it "
           f"encoding the 3 tensor maps (gemma3 S=512)")
-    _line(f"phase 2 flash ok: {len(rows)} cases, worst bf16 error "
-          f"{worst:.3g} <= {FLASH_BF16_TOL}")
-    return {"cases": rows, "worst_bf16_err": worst, "tensor_map_ns": map_ns,
-            "host_us": host_us, "library_host_us": sdpa_host_us}
+    cross = [_flash_noncausal_case(gen, *c, lse=lse)
+             for c in WHISPER_FLASH_CASES for lse in (False, True)]
+    worst = max([worst] + [r["max_abs_err"] for r in cross])
+    _line(f"phase 2 flash ok: {len(rows) + len(cross)} cases, worst bf16 "
+          f"error {worst:.3g} <= {FLASH_BF16_TOL}")
+    return {"cases": rows, "noncausal": cross, "worst_bf16_err": worst,
+            "tensor_map_ns": map_ns, "host_us": host_us,
+            "library_host_us": sdpa_host_us}
+
+
+# whisper-small's attention that is not causal: the encoder over its 1,500
+# frames (23 whole 64-row tiles and one of 28) and the decoder's cross
+# attention from 256 text positions to them; (label, H, KVH, D, Sq, Skv)
+WHISPER_FLASH_CASES = (("whisper-small encoder", 12, 12, 64, 1500, 1500),
+                       ("whisper-small cross", 12, 12, 64, 256, 1500))
+
+
+def _flash_noncausal_case(gen, label, h, kvh, d, sq, skv, lse=False) -> dict:
+    """The flash kernel non-causal at Sq x Skv (B=1, bf16), with its
+    log-sum-exp or without, against its plain version (output within
+    FLASH_BF16_TOL on a reference of rms >= 0.3; lse within LSE_TOL x
+    max(1, |lse|)); its time against its bound, its plain version and one
+    library call: SDPA without a mask, or ATen's flash attention (which
+    also returns the lse)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = torch.device("cuda")
+    # logits of std 4 (phase 2's 3 over a 1,500-key row spreads the weight
+    # on so many keys that the output's rms falls below 0.3)
+    q = (4 * torch.randn(1, sq, h, d, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    k = torch.randn(1, skv, kvh, d, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    v = (torch.rand(1, skv, kvh, d, generator=gen, device=dev) * 3 - 1.5
+         ).to(torch.bfloat16)
+    kw = dict(causal=False, return_lse=lse)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o, po = (got[0], want[0]) if lse else (got, want)
+    err = (o.float() - po.float()).abs().max().item()
+    rms = po.float().pow(2).mean().sqrt().item()
+    lse_err = lse_lim = 0.0
+    if lse:
+        lse_err = (got[1] - want[1]).abs().max().item()
+        lse_lim = LSE_TOL * max(1.0, want[1].abs().max().item())
+    if not (math.isfinite(err) and err <= FLASH_BF16_TOL and rms >= 0.3
+            and lse_err <= lse_lim):
+        raise AssertionError(f"flash non-causal {label} Sq={sq} Skv={skv} "
+                             f"lse={lse}: output error {err} (limit "
+                             f"{FLASH_BF16_TOL}, reference rms {rms}), lse "
+                             f"error {lse_err} (limit {lse_lim})")
+    call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    ms, dev_ms = _cuda_ms(call, n=20), _device_ms(call, n=20)
+    plain = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), n=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if lse:
+        lib_op = torch.ops.aten._scaled_dot_product_flash_attention
+        kt, vt = kt.contiguous(), vt.contiguous()
+        lib_call = lambda: lib_op(qt.contiguous(), kt, vt, 0.0,  # noqa: E731
+                                  False)
+    else:
+        lib_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt)
+    lib, lib_dev = _cuda_ms(lib_call, n=20), _device_ms(lib_call, n=20)
+    flops = 4 * d * h * sq * skv
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + \
+        (4 * h * sq if lse else 0)
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"model": label, "h": h, "kvh": kvh, "d": d, "sq": sq, "skv": skv,
+           "lse": lse, "max_abs_err": err, "lse_err": lse_err,
+           "ref_rms": rms, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+           "library_ms": lib, "library_device_ms": lib_dev,
+           "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    fmt = lambda x: "n/a" if x is None else f"{x:.4f} ms"  # noqa: E731
+    _line(f"  flash non-causal {label} Sq={sq} Skv={skv} H={h} d={d} "
+          f"lse={lse}: err {err:.3g}, lse err {lse_err:.3g}, {ms:.4f} ms, "
+          f"device {fmt(dev_ms)}, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}), {'aten flash' if lse else 'sdpa'} "
+          f"{fmt(lib)}, device {fmt(lib_dev)}, plain {plain:.3f} ms")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -794,9 +918,69 @@ def phase_ssm() -> dict:
               f"{bound:.4f} ms ({bound_by}{share}), plain {plain:.3f} ms"
               + (f"; host {row['host_us']:.2f} us/call"
                  if "host_us" in row else ""))
-    _line(f"phase 2b ssm_scan ok: {len(rows)} cases, worst f32 error "
-          f"{worst:.3g} (limit 2e-5 * max(1, |ref|))")
-    return {"cases": rows, "worst_f32_err": worst}
+    train = _ssm_train_case(gen)
+    _line(f"phase 2b ssm_scan ok: {len(rows)} cases and the train shape's "
+          f"gradient, worst f32 error {worst:.3g} (limit 2e-5 * max(1, "
+          f"|ref|))")
+    return {"cases": rows, "worst_f32_err": worst, "train": train}
+
+
+SSM_TRAIN_SHAPE = (2, 256, 3200, 16)   # hymba-1.5b, a rank's 2 x 256
+
+
+def _ssm_train_case(gen) -> dict:
+    """``SSMScan`` at hymba's train shape with mamba's own dt and A: the
+    kernel forward and the plain backward against autograd through the
+    plain time loop ``ssm_scan_ref`` on the card, every input's gradient
+    within SSM_F32_TOL x max(1, |ref|); the backward's ms a call beside
+    the kernel forward's.  The loop runs on float64 copies of the inputs:
+    in float32 its own gradient of dt is off the exact one by more than
+    2e-5 at this shape, where the state lives hundreds of steps."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ops as ssm
+    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_plain,
+                                                  ssm_scan_ref)
+
+    args = _ssm_inputs(gen, SSM_TRAIN_SHAPE, torch.float32, long_memory=True)
+    gy = torch.randn(args[0].shape, generator=gen, device="cuda")
+    ghf = torch.randn(args[5].shape, generator=gen, device="cuda")
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, hf = fn(*leaves)
+        return torch.autograd.grad((y * gy).sum() + (hf * ghf).sum(), leaves)
+
+    n0 = ssm.LAUNCHES
+    got = grads(lambda *a: ssm.SSMScan.apply(*a, False))
+    if ssm.LAUNCHES - n0 != 1:
+        raise AssertionError("SSMScan did not launch the kernel forward")
+    want = grads(lambda *a: ssm_scan_ref(*(t.double() for t in a)))
+    torch.cuda.synchronize()
+    names = ("dt", "x", "a", "b", "c", "h0")
+    errs = {}
+    for name, g, r in zip(names, got, want):
+        err = (g - r).abs()
+        errs[name] = err.max().item()
+        if not bool((err <= SSM_F32_TOL * r.abs().clamp(min=1.0)).all()):
+            raise AssertionError(f"SSMScan gradient of {name} at "
+                                 f"{SSM_TRAIN_SHAPE}: error {errs[name]} "
+                                 f"above 2e-5 * max(1, |ref|)")
+    del got, want
+    fwd_ms = _cuda_ms(lambda: ssm.ssm_scan(*args), n=20)
+    plain_ms = _cuda_ms(lambda: ssm.ssm_scan_plain(*args), n=2, warmup=1)
+    bwd_ms = _cuda_ms(lambda: ssm_scan_bwd_plain(*args, gy, ghf), n=5)
+    nbytes, flops, bound, bound_by = _ssm_bound(SSM_TRAIN_SHAPE, 4)
+    row = {"shape": list(SSM_TRAIN_SHAPE), "grad_err": errs,
+           "max_abs_err": max(errs.values()), "fwd_ms": fwd_ms,
+           "plain_fwd_ms": plain_ms, "bwd_ms": bwd_ms, "bound_ms": bound,
+           "bound_by": bound_by}
+    err_txt = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    _line(f"  SSMScan {SSM_TRAIN_SHAPE} f32 (mamba's dt and A): kernel "
+          f"forward + plain backward against autograd through the time "
+          f"loop, gradient errors {err_txt}; "
+          f"forward {fwd_ms:.4f} ms (plain {plain_ms:.3f} ms), plain backward "
+          f"{bwd_ms:.3f} ms a call{_on_card()}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1837,6 +2021,20 @@ def _gspmd_launches(cfg) -> dict:
     return out
 
 
+def _clone_state(state):
+    """A copy of a ``TrainState`` to step from again: the step updates
+    the state it takes in place, as ``repro``'s steps donate it."""
+    import torch
+    from repro_torch.core.tree import tree_map
+    copy = lambda t: None if t is None else tree_map(  # noqa: E731
+        torch.clone, t)
+    return state._replace(
+        params=copy(state.params), step=state.step.clone(), err=copy(
+            state.err), opt=state.opt._replace(step=state.opt.step.clone(),
+                                               mu=copy(state.opt.mu),
+                                               nu=copy(state.opt.nu)))
+
+
 def _cos(a, b, chunk: int = 1 << 26) -> float:
     """Cosine of two tensors' values, summed in float64 a chunk at a time
     (a whole grok-1 expert leaf in float64 would take 12.9 GB)."""
@@ -1975,12 +2173,14 @@ def phase_train_gspmd() -> dict:
         s = state
         for i in range(TRAIN_STEPS):
             if i == TRAIN_STEPS - 1:
-                before_last = s
+                # a copy: each step updates the state it takes in place
+                before_last = _clone_state(s)
             s = one("none", s, batches[i])
         ref = (captured["loss"], captured["grads"])
         remat_cmp = {}
         for mode in ("full", "dots"):
-            one(mode, before_last, batches[-1])
+            one(mode, _clone_state(before_last) if mode == "full"
+                else before_last, batches[-1])
             rel = abs(captured["loss"].item() - ref[0].item()) / abs(
                 ref[0].item())
             cos = min(_cos(captured["grads"][p], ref[1][p]) for p in ref[1])
@@ -2693,6 +2893,10 @@ CTL_LENGTHS = (16, 300, 40, 129, 77, 256, 24, 200)   # phase 3's traffic
 CTL_RANKS = 4            # 8b's launcher starts on 4 ranks, shrinks to 2
 CTL_STEPS = 6
 CTL_QUOTA = 1_000_000_000   # bytes: under one step's 4.0 GB of psums
+# 8b's peak on an H100 80GB HBM3 (700 W) while the launcher kept its
+# initial state for the whole run and AdamW built every new leaf before
+# the old state went; with the state donated it must stay below
+CTL_PEAK_KEPT_STATE_GB = 50.11
 REMESH_LOSS_RTOL = 1e-4  # the quickstart trajectory's tolerance
 OBS_CALLS = 1000
 
@@ -3031,6 +3235,11 @@ def phase_control_train() -> dict:
             del state
             launches = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if peak_gb >= CTL_PEAK_KEPT_STATE_GB:
+                raise AssertionError(
+                    f"8b: peak {peak_gb:.2f} GB, not below the "
+                    f"{CTL_PEAK_KEPT_STATE_GB} GB of a launcher that kept "
+                    f"its initial state and an AdamW that built a new one")
             el_steps, el_ms = list(per_step), [t * 1e3 for t in rep.step_times]
             losses = [m["loss"] for m in rep.metrics]
             doc = CounterTimeline.load("runs/torch/gemma3-1b_timeline.json")
@@ -3272,7 +3481,8 @@ def _counted_model(model, dp, rows: list):
 
     return dataclasses.replace(
         model, prefill=wrap("prefill", model.prefill),
-        prefill_chunk=wrap("chunk", model.prefill_chunk),
+        prefill_chunk=model.prefill_chunk and wrap("chunk",
+                                                   model.prefill_chunk),
         decode_step_slots=wrap("decode", model.decode_step_slots))
 
 
@@ -3705,6 +3915,502 @@ def phase_moe_vlm() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the last families at full width (hybrid training, ssm, encdec)
+# ---------------------------------------------------------------------------
+
+HYMBA_TRAIN_STEPS = 2    # explicit-DP steps at TRAIN_RANKS ranks
+WHISPER_TEXT = 256       # decoder tokens beside whisper's 1,500 frames
+WHISPER_DECODE = 16
+
+
+def _frames(cfg, b: int, seed: int):
+    """Random mel frames (b, encoder_max_len, frontend_dim) on the card."""
+    import torch
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn((b, cfg.encoder_max_len, cfg.frontend_dim),
+                       generator=gen, device="cuda")
+
+
+def _train_batch(cfg, frames: bool = False):
+    """SyntheticLM's batch 0 at the train shape (TRAIN_BATCH x TRAIN_SEQ)
+    on the card, with random frames for the encdec family."""
+    from repro_torch.data import DataConfig, SyntheticLM, to_torch
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH))
+    batch = to_torch(ds.batch_at(0), "cuda")
+    if frames:
+        batch["frames"] = _frames(cfg, TRAIN_BATCH, 5)
+    return batch
+
+
+def _gspmd_step_gates(model, state, batch, what: str, plain: bool) -> dict:
+    """One GSPMD step (``make_train_step`` with ``activation_rules`` for
+    the train shape, through phase 6a's dataplane), gated: (a) its loss
+    and every gradient bit for bit those with ``dp=None``; (b) with
+    ``plain``, the kernel forward against ``impl="plain"`` inside the same
+    autograd functions, loss within TRAIN_LOSS_RTOL, every gradient at
+    cosine > TRAIN_GRAD_COS; (c) no gradient leaf zero, not finite or
+    missing.  Returns the step's launches in its forward and backward,
+    the forward's dataplane records, wall ms and the gradient cosines."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import activation_rules
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as step_mod
+
+    cfg = model.cfg
+
+    def counts():
+        return {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+
+    def grads(dp, impl="flash"):
+        (loss, _), g = step_mod._value_and_grad(
+            lambda p, b: model.loss(p, b, dp=dp, impl=impl), state.params,
+            batch)
+        return loss, dict(tree_flatten(g))
+
+    l_bare, g_bare = grads(None)
+    n_leaves = len(tree_flatten(state.params))
+    cos = {}
+    rel = 0.0
+    if plain:
+        l_plain, g_plain = grads(None, impl="plain")
+        rel = abs(l_bare.item() - l_plain.item()) / abs(l_plain.item())
+        cos = {"/".join(p): _cos(g_bare[p], g_plain[p]) for p in g_bare}
+        del g_plain
+        if not (math.isfinite(l_bare.item()) and rel <= TRAIN_LOSS_RTOL
+                and min(cos.values()) > TRAIN_GRAD_COS):
+            raise AssertionError(f"{what} (b): kernel vs plain forward loss "
+                                 f"rel {rel:.3g}, gradient cosines {cos}")
+    bad = [p for p, g in g_bare.items()
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    if bad or len(g_bare) != n_leaves:
+        raise AssertionError(f"{what} (c): gradient leaves zero, not finite "
+                             f"or missing: {bad}; {len(g_bare)} of "
+                             f"{n_leaves}")
+    rules = activation_rules(cfg, ShapeConfig("train", TRAIN_SEQ,
+                                              TRAIN_BATCH, "train"))
+    dp = _train_dataplane("cuda", make_local_mesh(), rules)
+    marks, captured = [], {}
+
+    def loss_counted(params, b, **kw):
+        out = model.loss(params, b, **kw)
+        marks.append((counts(), _ops(dp)))     # the forward's end
+        return out
+
+    real_vg = step_mod._value_and_grad
+
+    def capturing(loss_fn, params, b):
+        out = real_vg(loss_fn, params, b)
+        captured["loss"] = out[0][0]
+        captured["grads"] = dict(tree_flatten(out[1]))
+        return out
+
+    run = RunConfig(train=TrainConfig(steps=1, learning_rate=5e-3,
+                                      warmup_steps=1))
+    step, shard = make_train_step(dataclasses.replace(model,
+                                                      loss=loss_counted),
+                                  run, dp)
+    step = shard(state, batch)
+    step_mod._value_and_grad = capturing
+    try:
+        torch.cuda.synchronize()
+        n0, r0 = counts(), _ops(dp)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        n1 = counts()
+    finally:
+        step_mod._value_and_grad = real_vg
+    fwd = {k: marks[0][0][k] - n0[k] for k in n0}
+    bwd = {k: n1[k] - marks[0][0][k] for k in n0}
+    differ = [p for p in g_bare if not torch.equal(
+        _bits(g_bare[p]), _bits(captured["grads"][p]))]
+    if differ or not torch.equal(_bits(l_bare), _bits(captured["loss"])):
+        raise AssertionError(f"{what} (a): the GSPMD step's loss "
+                             f"{captured['loss'].item()!r} against "
+                             f"{l_bare.item()!r} with dp=None, gradients "
+                             f"differ in {differ}")
+    records = marks[0][1] - r0
+    if fwd["bounce"] != records or records <= 0:
+        raise AssertionError(f"{what}: the forward launched {fwd} for "
+                             f"{records} dataplane records")
+    return {"loss": l_bare.item(), "plain_rel": rel,
+            "min_cos": min(cos.values()) if cos else None, "cos_all": cos,
+            "forward": fwd, "backward": bwd, "records": records,
+            "wall_ms": wall, "state": state, "leaves": n_leaves}
+
+
+def phase_hymba_train() -> dict:
+    """10a: hymba-1.5b training at full width and depth: HYMBA_TRAIN_STEPS
+    explicit-DP steps at TRAIN_RANKS ranks through phase 5's dataplane,
+    then one GSPMD step through phase 6a's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RunConfig, TrainConfig
+    from repro_torch.core import telemetry as tl
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssm_scan import ops as ssm
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state, make_explicit_dp_step
+
+    dev = torch.device("cuda")
+    cfg = get_model_config("hymba-1.5b")
+    model = build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(model, 0)
+    torch.cuda.synchronize()
+    n_params = _params_line(cfg, state.params, t0, f"all {cfg.num_layers} "
+                            f"layers, AdamW state")
+    batch = _train_batch(cfg)
+    n_leaves = len(tree_flatten(state.params))
+
+    # the main path: explicit-DP steps; the scan backward's calls timed
+    # with CUDA events inside the step (no sync added)
+    dp = _train_dataplane(dev)
+    run = RunConfig(train=TrainConfig(steps=HYMBA_TRAIN_STEPS,
+                                      learning_rate=5e-3, warmup_steps=1))
+    step = make_explicit_dp_step(model, run, dp, runtime_accounting=True)
+    rec0 = tl.OpRecord("all_reduce", "", 0, ())
+    sides = sum(1 for it, cp in (
+        (dp.pipeline.send_delay_iters(rec0), dp.pipeline.send_copies(rec0)),
+        (dp.pipeline.complete_delay_iters(rec0),
+         dp.pipeline.complete_copies(rec0))) if it or cp)
+    events = []
+    real_bwd = ssm.ssm_scan_bwd_plain
+
+    def timed_bwd(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_bwd(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    rt = dp.runtime_init()
+    wall, per_step, losses = [], [], []
+    ssm.ssm_scan_bwd_plain = timed_bwd
+    try:
+        _reset_launches()
+        fa.LSE_LAUNCHES = 0
+        for i in range(HYMBA_TRAIN_STEPS):
+            n0 = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m, rt = step(state, batch, rt)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+            per_step.append({k: v - n0[k] for k, v in
+                             {**_launches(),
+                              "flash_lse": fa.LSE_LAUNCHES}.items()})
+            losses.append(float(m["loss"]))
+        launches = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+    finally:
+        ssm.ssm_scan_bwd_plain = real_bwd
+    bwd_ms = [a.elapsed_time(b) for a, b in events]
+    peak_dp = torch.cuda.max_memory_allocated() / 1e9
+    L, R = cfg.num_layers, TRAIN_RANKS
+    per = {"flash_attention": L * R, "flash_lse": L * R, "ssm_scan": L * R,
+           "bounce": R * n_leaves * sides, "bounce_stall": R * n_leaves}
+    if any(p != per for p in per_step) or \
+            len(bwd_ms) != L * R * HYMBA_TRAIN_STEPS:
+        raise AssertionError(f"10a (d): launches per step {per_step}, want "
+                             f"{per}; {len(bwd_ms)} scan backwards")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"10a: a loss is not finite: {losses}")
+    _line(f"  10a explicit-DP, {R} ranks, global batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+          f"step wall ms {', '.join(f'{x:.1f}' for x in wall)}; scan "
+          f"backward {np.median(bwd_ms):.3f} ms a call median "
+          f"({len(bwd_ms)} calls, {sum(bwd_ms) / HYMBA_TRAIN_STEPS:.1f} ms a "
+          f"step); launches per step {per_step[0]}; peak {peak_dp:.2f} GB"
+          f"{_on_card()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one GSPMD step: gates (a)-(c), and the forward's launches (d)
+    torch.cuda.reset_peak_memory_stats()
+    g = _gspmd_step_gates(model, state, batch, "10a", plain=True)
+    state = g.pop("state")
+    want_fwd = {"flash_attention": L, "flash_lse": L, "ssm_scan": L,
+                "bounce": g["records"], "bounce_stall": 0}
+    if g["forward"] != want_fwd or g["backward"]["ssm_scan"] != 0:
+        raise AssertionError(f"10a (d): GSPMD forward launched "
+                             f"{g['forward']}, want {want_fwd}; backward "
+                             f"{g['backward']}")
+    mamba_cos = {k: v for k, v in g["cos_all"].items()
+                 if k.rsplit("/", 1)[-1] in ("A_log", "dt_bias", "D")}
+    if len(mamba_cos) != 3:
+        raise AssertionError(f"10a (b): mamba leaves missing: {mamba_cos}")
+    peak_gspmd = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  10a GSPMD step: loss {g['loss']:.5f} and {n_leaves} gradients "
+          f"bit for bit with dp=None (a); kernel vs plain loss rel "
+          f"{g['plain_rel']:.2e}, min cosine {g['min_cos']:.6f} (A_log, "
+          f"dt_bias, D: {', '.join(f'{v:.6f}' for v in mamba_cos.values())})"
+          f" (b); none zero (c); {g['wall_ms']:.1f} ms; forward launches "
+          f"{g['forward']}, backward {g['backward']}; peak "
+          f"{peak_gspmd:.2f} GB{_on_card()}")
+    # flash with its lse at a rank's train shape (hymba's heads, window)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = cfg.attention
+    flash_lse = _flash_lse_case(
+        torch.Generator(device=dev).manual_seed(8), TRAIN_BATCH // R,
+        a.sliding_window, heads=(a.num_heads, a.num_kv_heads, cfg.head_dim))
+    _line(f"phase 10a hymba-1.5b train ok: gates (a)-(d) held")
+    gspmd = {k: v for k, v in g.items() if k != "cos_all"}
+    gspmd["mamba_cos"] = mamba_cos
+    del g
+    return {"layers": L, "params": n_params, "losses": losses,
+            "step_wall_ms": wall, "scan_bwd_ms": bwd_ms,
+            "scan_bwd_ms_median": float(np.median(bwd_ms)),
+            "launches": launches, "launches_per_step": per_step[0],
+            "peak_gb": peak_dp, "gspmd_peak_gb": peak_gspmd,
+            "gspmd": gspmd, "flash_lse": flash_lse}
+
+
+def _serve_checks(rows, what: str, flash_per_prefill: int) -> None:
+    """Every engine call launches bounce once a dataplane record; whole
+    prefills launch flash ``flash_per_prefill`` times, ticks never; the
+    scan never runs (no mamba in these families)."""
+    for r in rows:
+        flash = flash_per_prefill if r["kind"] == "prefill" else 0
+        if r["launches"]["flash_attention"] != flash or \
+                r["launches"]["ssm_scan"] != 0 or \
+                r["launches"]["bounce"] != r["records"] or r["records"] <= 0:
+            raise AssertionError(f"{what}: a {r['kind']} launched "
+                                 f"{r['launches']} for {r['records']} "
+                                 f"records (flash wanted {flash})")
+
+
+def phase_xlstm() -> dict:
+    """10b: xlstm-350m at full width and depth: phase 3's requests on the
+    continuous engine through phase 3's dataplane (a repeat and
+    ``pallas_dataplane="off"`` with identical tokens), then one GSPMD
+    step at the train shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state
+
+    cfg = get_model_config("xlstm-350m")
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(model, 0)
+    torch.cuda.synchronize()
+    n_params = _params_line(cfg, state.params, t0, f"all {cfg.num_layers} "
+                            f"layers ({cfg.ssm.block_pattern})")
+    prompts = _prompts(cfg)
+    dp, rows = _serve_dataplane(), []
+    _reset_launches()
+    t0 = time.perf_counter()
+    tokens = _engine_tokens(_counted_model(model, dp, rows), state.params,
+                            cfg, dp, prompts)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    _serve_checks(rows, "10b", 0)
+    if _engine_tokens(model, state.params, cfg, _serve_dataplane(),
+                      prompts) != tokens:
+        raise AssertionError("10b: a second run gave other tokens")
+    if _engine_tokens(model, state.params, cfg,
+                      _serve_dataplane(pallas_dataplane="off"),
+                      prompts) != tokens:
+        raise AssertionError("10b: cuda-on and off gave other tokens")
+    pre = [r for r in rows if r["kind"] == "prefill"]
+    if sorted(r["s"] for r in pre) != sorted(CTL_LENGTHS):
+        raise AssertionError(f"10b: prefill lengths {[r['s'] for r in pre]}"
+                             f" are not the prompts' exact lengths")
+    dec = [r["ms"] for r in rows if r["kind"] == "decode"]
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  10b engine: {len(pre)} exact-length prefills, {len(dec)} "
+          f"ticks, {sum(map(len, tokens.values()))} tokens in {wall:.2f} s; "
+          f"prefill {np.mean([r['ms'] for r in pre]):.1f} ms mean, tick "
+          f"{np.median(dec):.2f} ms median; launches {launches}; tokens "
+          f"identical on repeat and with pallas_dataplane=off; peak "
+          f"{peak_serve:.2f} GB{_on_card()}")
+    torch.cuda.reset_peak_memory_stats()
+    g = _gspmd_step_gates(model, state, _train_batch(cfg), "10b",
+                          plain=False)
+    del g["state"]
+    if g["forward"]["flash_attention"] or g["forward"]["ssm_scan"]:
+        raise AssertionError(f"10b: the forward launched {g['forward']}")
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  10b GSPMD step at {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+          f"{g['loss']:.5f} and {g['leaves']} gradients bit for bit with "
+          f"dp=None, none zero; {g['wall_ms']:.1f} ms; forward launches "
+          f"{g['forward']} for {g['records']} records; peak "
+          f"{peak_train:.2f} GB{_on_card()}")
+    _line(f"phase 10b xlstm-350m ok")
+    del state
+    g.pop("cos_all")
+    return {"layers": cfg.num_layers, "params": n_params,
+            "launches": launches, "prefills": len(pre), "ticks": len(dec),
+            "prefill_ms_mean": float(np.mean([r["ms"] for r in pre])),
+            "decode_ms_median": float(np.median(dec)), "wall_s": wall,
+            "peak_gb": peak_serve, "train": g, "train_peak_gb": peak_train}
+
+
+def phase_whisper() -> dict:
+    """10c: whisper-small at full width and depth: a prefill of 1,500
+    random frames and WHISPER_TEXT tokens (batch 4) and WHISPER_DECODE
+    greedy decode steps, the same prefill with the frames + 1.0 and with
+    ``impl="plain"``, phase 3's requests on the engine twice, then one
+    GSPMD step at the train shape with frames."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state
+
+    cfg = get_model_config("whisper-small")
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(model, 0)
+    torch.cuda.synchronize()
+    params = state.params
+    n_params = _params_line(cfg, params, t0, f"{cfg.encoder_layers} encoder "
+                            f"+ {cfg.num_layers} decoder layers")
+    b = TRAIN_BATCH
+    gen = torch.Generator("cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (b, WHISPER_TEXT), generator=gen,
+                         device="cuda")
+    frames = _frames(cfg, b, 7)
+    flash_per_call = cfg.encoder_layers + 2 * cfg.num_layers
+    dp = _serve_dataplane()
+
+    def prefill(fr, impl="flash"):
+        cache = model.init_cache(b, WHISPER_TEXT + WHISPER_DECODE)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks,
+                                               "frames": fr},
+                                      cache, dp=dp, impl=impl)
+        torch.cuda.synchronize()
+        return logits, cache, (time.perf_counter() - t) * 1e3
+
+    _reset_launches()
+    r0 = _ops(dp)
+    logits, cache, pre_ms = prefill(frames)
+    pre_launch, pre_records = _launches(), _ops(dp) - r0
+    if pre_launch["flash_attention"] != flash_per_call or \
+            pre_launch["bounce"] != pre_records:
+        raise AssertionError(f"10c prefill launches {pre_launch} for "
+                             f"{pre_records} records, flash wanted "
+                             f"{flash_per_call}")
+    tok = logits.argmax(-1)
+    dec_ms = []
+    for i in range(WHISPER_DECODE):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, cache = model.decode_step(params, tok, cache, WHISPER_TEXT + i,
+                                       dp=dp)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t) * 1e3)
+        tok = out.argmax(-1)
+        if not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
+            raise AssertionError("10c: a decode token is out of vocab")
+    main_launches = _launches()
+    if main_launches["flash_attention"] != flash_per_call:
+        raise AssertionError(f"10c decode launched flash: {main_launches}")
+    shifted, _, _ = prefill(frames + 1.0)
+    plain, _, plain_ms = prefill(frames, impl="plain")
+    a = logits[:, -1].float()
+    cos = _cos(a, plain[:, -1].float())
+    moved = (shifted[:, -1].float() - a).abs().max().item()
+    if not (torch.isfinite(a).all() and cos > 0.99):
+        raise AssertionError(f"10c kernel vs plain prefill: cosine {cos}")
+    if not moved > 1e-3:
+        raise AssertionError(f"10c: frames + 1 moved the logits by {moved}")
+    _line(f"  10c prefill of {b} x ({cfg.encoder_max_len} frames, "
+          f"{WHISPER_TEXT} tokens): {pre_ms:.1f} ms (plain {plain_ms:.1f} "
+          f"ms), flash {pre_launch['flash_attention']} launches "
+          f"({cfg.encoder_layers} encoder, {cfg.num_layers} self, "
+          f"{cfg.num_layers} cross), bounce {pre_launch['bounce']} for "
+          f"{pre_records} records; decode {np.median(dec_ms):.2f} ms/step "
+          f"median; kernel vs plain cosine {cos:.5f}; frames + 1 move the "
+          f"logits by {moved:.4f}{_on_card()}")
+    del cache, shifted, plain, logits
+    # phase 3's requests on the engine (no frames: the zero window), twice
+    prompts = _prompts(cfg)
+    eng_dp, rows = _serve_dataplane(), []
+    _reset_launches()
+    tokens = _engine_tokens(_counted_model(model, eng_dp, rows), params, cfg,
+                            eng_dp, prompts)
+    eng_launches = _launches()
+    _serve_checks(rows, "10c engine", flash_per_call)
+    if _engine_tokens(model, params, cfg, _serve_dataplane(),
+                      prompts) != tokens:
+        raise AssertionError("10c: the engine's second run gave other tokens")
+    dec = [r["ms"] for r in rows if r["kind"] == "decode"]
+    pre = [r["ms"] for r in rows if r["kind"] == "prefill"]
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  10c engine: 8 requests, tokens identical on repeat; prefill "
+          f"{np.mean(pre):.1f} ms mean, tick {np.median(dec):.2f} ms median;"
+          f" launches {eng_launches}; peak {peak_serve:.2f} GB{_on_card()}")
+    torch.cuda.reset_peak_memory_stats()
+    fa.LSE_LAUNCHES = 0
+    g = _gspmd_step_gates(model, state, _train_batch(cfg, frames=True),
+                          "10c", plain=True)
+    del g["state"]
+    want_fwd = {"flash_attention": flash_per_call,
+                "flash_lse": flash_per_call, "ssm_scan": 0,
+                "bounce": g["records"], "bounce_stall": 0}
+    if g["forward"] != want_fwd:
+        raise AssertionError(f"10c: GSPMD forward launched {g['forward']}, "
+                             f"want {want_fwd}")
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    _line(f"  10c GSPMD step at {TRAIN_BATCH} x {TRAIN_SEQ} with frames: "
+          f"loss {g['loss']:.5f} and {g['leaves']} gradients bit for bit "
+          f"with dp=None (a); kernel vs plain loss rel {g['plain_rel']:.2e},"
+          f" min cosine {g['min_cos']:.6f} (b); none zero (c); "
+          f"{g['wall_ms']:.1f} ms; forward launches {g['forward']}; peak "
+          f"{peak_train:.2f} GB{_on_card()}")
+    _line(f"phase 10c whisper-small ok")
+    g.pop("cos_all")
+    launches = {k: main_launches[k] + eng_launches[k] for k in main_launches}
+    del state, params
+    return {"params": n_params, "prefill_ms": pre_ms,
+            "plain_prefill_ms": plain_ms,
+            "decode_ms_median": float(np.median(dec_ms)),
+            "engine_prefill_ms_mean": float(np.mean(pre)),
+            "engine_tick_ms_median": float(np.median(dec)),
+            "plain_cosine": cos, "frames_moved": moved,
+            "launches": launches, "peak_gb": peak_serve, "train": g,
+            "train_peak_gb": peak_train}
+
+
+def phase_families() -> dict:
+    """Phase 10: 10a, 10b and 10c, each model freed before the next."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn in (("hymba_train", phase_hymba_train),
+                     ("xlstm", phase_xlstm), ("whisper", phase_whisper)):
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t0
+    _line(f"phase 10 hybrid training, xlstm and whisper ok in "
+          f"{out['secs']:.1f} s{_on_card()}")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3761,6 +4467,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = phase_moe_vlm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = phase_families()
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -3963,6 +4672,90 @@ def main(argv=None) -> int:
          "bound_ms": g_lse["bound_ms"], "bound_by": g_lse["bound_by"],
          "library_ms": g_lse["library_ms"]},
     ]
+    # phase 10's paths: hymba training, xlstm, whisper; the flash rows are
+    # timed at phase 2's whisper shapes, the scan at its train shape
+    h_tr, x_fam, w_fam = fam["hymba_train"], fam["xlstm"], fam["whisper"]
+    enc, xattn = (next(r for r in flash["noncausal"]
+                       if r["model"] == m and r["lse"] == lse)
+                  for m, lse in (("whisper-small encoder", False),
+                                 ("whisper-small cross", True)))
+    s_tr = ssm["train"]
+    h_lse = h_tr["flash_lse"]
+    fam_bounce = (h_tr["launches"]["bounce"]
+                  + h_tr["gspmd"]["forward"]["bounce"]
+                  + h_tr["gspmd"]["backward"]["bounce"]
+                  + x_fam["launches"]["bounce"]
+                  + x_fam["train"]["forward"]["bounce"]
+                  + x_fam["train"]["backward"]["bounce"]
+                  + w_fam["launches"]["bounce"]
+                  + w_fam["train"]["forward"]["bounce"]
+                  + w_fam["train"]["backward"]["bounce"])
+    kernels += [
+        {"name": "ssm_scan (10a hymba-1.5b training forward inside SSMScan; "
+                 "its backward is plain torch; timed at a rank's 2 x 256)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:30",
+         "launches": h_tr["launches"]["ssm_scan"]
+         + h_tr["gspmd"]["forward"]["ssm_scan"],
+         "max_abs_err": s_tr["max_abs_err"], "ms": s_tr["fwd_ms"],
+         "plain_ms": s_tr["plain_fwd_ms"], "bound_ms": s_tr["bound_ms"],
+         "bound_by": s_tr["bound_by"], "library_ms": None,
+         "plain_backward_ms": s_tr["bwd_ms"]},
+        {"name": "flash_attention (10a hymba-1.5b train forward with lse, "
+                 "B=2 S=256, 25 over 5 heads, window 1024)", "route": "cuda",
+         "source": flash_src, "replaces": flash_tpu,
+         "launches": h_tr["launches"]["flash_lse"]
+         + h_tr["gspmd"]["forward"]["flash_lse"],
+         "max_abs_err": h_lse["lse_err"], "ms": h_lse["ms"],
+         "device_ms": h_lse["device_ms"], "plain_ms": h_lse["plain_ms"],
+         "bound_ms": h_lse["bound_ms"], "bound_by": h_lse["bound_by"],
+         "library_ms": h_lse["library_ms"]},
+        {"name": "flash_attention (10c whisper-small: non-causal encoder, "
+                 "causal decoder, non-causal cross; timed on the encoder, "
+                 "S=1500)", "route": "cuda",
+         "source": flash_src, "replaces": flash_tpu,
+         "launches": w_fam["launches"]["flash_attention"]
+         + w_fam["train"]["forward"]["flash_attention"],
+         "max_abs_err": enc["max_abs_err"], "ms": enc["ms"],
+         "device_ms": enc["device_ms"], "plain_ms": enc["plain_ms"],
+         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+         "library_ms": enc["library_ms"],
+         "library_device_ms": enc["library_device_ms"]},
+        {"name": "flash_attention (10c whisper-small cross attention with "
+                 "lse, Sq=256, Skv=1500)", "route": "cuda",
+         "source": flash_src, "replaces": flash_tpu,
+         "launches": w_fam["train"]["forward"]["flash_lse"],
+         "max_abs_err": xattn["max_abs_err"], "ms": xattn["ms"],
+         "device_ms": xattn["device_ms"], "plain_ms": xattn["plain_ms"],
+         "bound_ms": xattn["bound_ms"], "bound_by": xattn["bound_by"],
+         "library_ms": xattn["library_ms"],
+         "library_device_ms": xattn["library_device_ms"]},
+        {"name": "bounce (10a-10c: hymba psums and GSPMD edges, xlstm and "
+                 "whisper serving and GSPMD edges; timed on phase 5's psums)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": fam_bounce,
+         "max_abs_err": train["psum_bounce_err"],
+         "ms": train["psum_bounce_ms"],
+         "device_ms": train["psum_bounce_device_ms"],
+         "plain_ms": train["psum_bounce_plain_ms"],
+         "bound_ms": train["psum_bounce_bound_ms"], "bound_by": "bytes",
+         "library_ms": train["psum_clone_ms"]},
+        {"name": "bounce_stall (QoS stall; 10a psums)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/core/techniques.py:75 (delay_chain_dyn, an "
+                     "XLA loop beside the Pallas kernel)",
+         "launches": h_tr["launches"]["bounce_stall"], "max_abs_err": 0.0,
+         "ms": train["stall_ms"], "plain_ms": train["stall_plain_ms"],
+         "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
+         "bound_by": "operations", "library_ms": None},
+    ]
+    for row in kernels[-6:]:
+        if row["launches"] <= 0:
+            raise AssertionError(f"phase 10: {row['name']} was launched no "
+                                 f"time on its path")
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -3975,6 +4768,7 @@ def main(argv=None) -> int:
                                    "chunked_psum": cpsum,
                                    "verbs": verbs, "perftest": perf,
                                    "control": control, "moe_vlm": moe,
+                                   "families": fam,
                                    "profile": prof or None,
                                    "kernels": kernels},
                                   indent=1))

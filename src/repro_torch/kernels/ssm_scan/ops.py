@@ -8,6 +8,11 @@ between them (:func:`chunk_plan` cuts the sequence); ``ref.py`` mirrors
 that algorithm in plain torch for the tests.  ``LAUNCHES`` counts calls
 that launched the kernel: one CUDA launch for a one-chunk scan (decode,
 short prompts), three for a chunked one (chunk states, carry, scan).
+
+:class:`SSMScan` is the scan with a gradient: the kernel forward (or the
+plain one) and ``ref.ssm_scan_bwd_plain`` as its backward, a plain-torch
+port of the gradient XLA derives for ``repro``'s chunked scan (``repro``
+has no backward kernel).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_plain, ssm_scan_ref
 
 STATE_SIZES = (1, 2, 4, 8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -175,5 +180,26 @@ def ssm_scan(dt, x, a, b, c, h0=None, *, chunk: int = 128,
     return ssm_scan_plain(dt, x, a, b, c, h0)
 
 
-__all__ = ["ssm_scan", "ssm_scan_plain", "chunk_plan", "STATE_SIZES",
-           "LAUNCHES"]
+class SSMScan(torch.autograd.Function):
+    """The selective scan with a gradient.  Forward: :func:`ssm_scan`
+    (the Hopper kernel on a CUDA tensor, its plain version on the CPU),
+    or :func:`ssm_scan_plain` on any device with ``plain=True``, so the
+    card can hold the kernel against it inside the same function.
+    Backward: ``ref.ssm_scan_bwd_plain`` from the saved inputs, which
+    recomputes the states a chunk at a time.  Returns (y, h_final)."""
+
+    @staticmethod
+    def forward(ctx, dt, x, a, b, c, h0, plain):
+        fwd = ssm_scan_plain if plain else ssm_scan
+        y, hf = fwd(dt, x, a, b, c, h0)
+        ctx.save_for_backward(dt, x, a, b, c, h0)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, gy, ghf):
+        grads = ssm_scan_bwd_plain(*ctx.saved_tensors, gy, ghf)
+        return (*grads, None)
+
+
+__all__ = ["ssm_scan", "ssm_scan_plain", "chunk_plan", "SSMScan",
+           "STATE_SIZES", "LAUNCHES"]

@@ -7,6 +7,10 @@
   in plain torch (the tests hold it against the oracle): chunks scanned
   from zero state with their decay as a product of per-step factors, a
   carry over the chunks, and a rescan from the carried states.
+* :func:`ssm_scan_bwd_plain` — the scan's gradient, the backward of
+  ``ops.SSMScan``.  ``repro`` has no backward kernel: it differentiates
+  its chunked scan (``associative_scan`` per chunk inside ``lax.scan``)
+  through XLA, and this is a plain-torch port of that gradient.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ import torch.nn.functional as F
 def ssm_scan_ref(dt, x, a, b, c, h0):
     """dt/x: (B, S, di); a: (di, N); b/c: (B, S, N); h0: (B, di, N).
 
-    Returns (y: (B, S, di), h_final: (B, di, N)), both float32."""
-    dt, x, a, b, c, h = (t.float() for t in (dt, x, a, b, c, h0))
+    Returns (y: (B, S, di), h_final: (B, di, N)), both float32 (float64
+    for float64 inputs)."""
+    wide = torch.promote_types(dt.dtype, torch.float32)
+    dt, x, a, b, c, h = (t.to(wide) for t in (dt, x, a, b, c, h0))
     ys = []
     for t in range(dt.shape[1]):
         dt_t, x_t = dt[:, t], x[:, t]                # (B, di)
@@ -80,4 +86,97 @@ def ssm_scan_chunked_ref(dt, x, a, b, c, h0, chunk_len: int, n_chunks: int):
     return y[:, :s], h[:, -1]
 
 
-__all__ = ["ssm_scan_ref", "ssm_scan_chunked_ref"]
+# time steps a chunk of the backward: a chunk's (B, L, di, N) tensors are
+# the largest it holds, never the whole sequence's
+BWD_CHUNK = 64
+
+
+def _scan(f, u):
+    """Inclusive scan over dim 1 of ``h_i = f_i * h_{i-1} + u_i`` from
+    h = 0, by doubling (``log2 L`` vectorised levels, as an associative
+    scan): returns (F, U), F_i the product of f_0..f_i and U_i the scan,
+    so that the scan from a start state H is ``F * H + U``."""
+    n = f.shape[1]
+    off = 1
+    while off < n:
+        u = torch.cat([u[:, :off], torch.addcmul(u[:, off:], f[:, off:],
+                                                 u[:, :-off])], dim=1)
+        f = torch.cat([f[:, :off], f[:, off:] * f[:, :-off]], dim=1)
+        off *= 2
+    return f, u
+
+
+def ssm_scan_bwd_plain(dt, x, a, b, c, h0, gy, ghf):
+    """Gradients (d dt, d x, d a, d b, d c, d h0) of ``(y, h_final) =
+    scan(dt, x, a, b, c, h0)`` for output cotangents ``gy`` (B, S, di)
+    and ``ghf`` (B, di, N) (either may be None: zero), each in its
+    input's dtype, computed in float64: over a state that lives hundreds
+    of steps (mamba's dt and A) a float32 backward, ``repro``'s XLA
+    gradient included, is off the exact gradient by more than 2e-5 of
+    d dt and d c where their terms cancel.
+
+    The cotangent of the state h_t runs backward in time,
+    ``g_t = exp(dt_{t+1} a) * g_{t+1} + gy_t (x) c_t`` from ``ghf``, and
+    each step's gradients come from g_t and the recomputed states h_t
+    and h_{t-1}.  Both recurrences run :data:`BWD_CHUNK` steps at a
+    time: a forward pass over the chunks keeps only each chunk's start
+    state (B, S / chunk, di, N); then, from the last chunk to the first, the
+    chunk's states are rescanned from its start, its cotangents scanned
+    backward from the carry of the chunk after it, and its gradients
+    summed.  No tensor spans the whole sequence with the state axis."""
+    dtypes = [t.dtype for t in (dt, x, a, b, c, h0)]
+    f64 = torch.float64
+    dt, x, a, b, c, h0 = (t.to(f64) for t in (dt, x, a, b, c, h0))
+    bsz, s, di = dt.shape
+    n = a.shape[1]
+    gy = torch.zeros_like(dt) if gy is None else gy.to(f64)
+    g = torch.zeros_like(h0) if ghf is None else ghf.to(f64).clone()
+    chunk = BWD_CHUNK
+    bounds = [(i, min(i + chunk, s)) for i in range(0, s, chunk)]
+
+    def factors(lo, hi):
+        f = torch.exp(dt[:, lo:hi, :, None] * a)                # (B,L,di,N)
+        u = (dt[:, lo:hi] * x[:, lo:hi])[..., None] * b[:, lo:hi, None, :]
+        return f, u
+
+    starts = [h0]                        # forward: each chunk's start
+    for lo, hi in bounds[:-1]:
+        f, u = factors(lo, hi)
+        fc, uc = _scan(f, u)
+        starts.append(fc[:, -1] * starts[-1] + uc[:, -1])
+        del f, u, fc, uc
+
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros_like(a)
+    for (lo, hi), start in zip(reversed(bounds), reversed(starts)):
+        f, u = factors(lo, hi)
+        fc, uc = _scan(f, u)
+        h = fc * start[:, None] + uc                            # h_lo..h_hi-1
+        del fc, uc
+        e = gy[:, lo:hi, :, None] * c[:, lo:hi, None, :]
+        # backward in time: g_i = f_{i+1} g_{i+1} + e_i, g_last = carry + e
+        fr = torch.cat([torch.ones_like(f[:, :1]), f[:, 1:].flip(1)], dim=1)
+        fcr, ucr = _scan(fr, e.flip(1))
+        gh = (fcr * g[:, None] + ucr).flip(1)                  # (B,L,di,N)
+        del fr, fcr, ucr, e
+        h_prev = torch.cat([start[:, None], h[:, :-1]], dim=1)
+        dc[:, lo:hi] = torch.einsum("bldn,bld->bln", h, gy[:, lo:hi])
+        del h
+        gf = gh * h_prev * f                     # d/d(dt a) of each factor
+        del h_prev
+        g_u = torch.einsum("bldn,bln->bld", gh, b[:, lo:hi])   # d(dt x)
+        ddt[:, lo:hi] = torch.einsum("bldn,dn->bld", gf, a) \
+            + g_u * x[:, lo:hi]
+        dx[:, lo:hi] = g_u * dt[:, lo:hi]
+        da += torch.einsum("bldn,bld->dn", gf, dt[:, lo:hi])
+        db[:, lo:hi] = torch.einsum("bldn,bld->bln", gh,
+                                    dt[:, lo:hi] * x[:, lo:hi])
+        g = f[:, 0] * gh[:, 0]             # the cotangent of the start
+        del gf, gh, f, u
+    grads = (ddt, dx, da, db, dc, g)
+    return tuple(t.to(want) for t, want in zip(grads, dtypes))
+
+
+__all__ = ["ssm_scan_ref", "ssm_scan_chunked_ref", "ssm_scan_bwd_plain",
+           "BWD_CHUNK"]

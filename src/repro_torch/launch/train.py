@@ -122,16 +122,20 @@ def main(argv=None):
                            policies=policies, device=model.device)}
     ctx["step"] = make_explicit_dp_step(model, run, ctx["dp"], axis="data",
                                         runtime_accounting=obs.timeline)
-    state = init_state(model, train.seed,
-                       compression=train.grad_compression,
-                       opt_dtype=train.opt_dtype)
-    # the step hands back its error-feedback state as a tree (0-d zeros
-    # without compression) even when given None: start in that shape, so
-    # that a later run restores a checkpoint of any step into a fresh state
-    int8 = train.grad_compression == "int8"
-    state = state._replace(err=tree_map(
-        lambda p: torch.zeros(p.shape if int8 else (), dtype=torch.float32,
-                              device=p.device), state.params))
+    def initial_state():
+        state = init_state(model, train.seed,
+                           compression=train.grad_compression,
+                           opt_dtype=train.opt_dtype)
+        # the step hands back its error-feedback state as a tree (0-d
+        # zeros without compression) even when given None: start in that
+        # shape, so that a later run restores a checkpoint of any step
+        # into a fresh state
+        int8 = train.grad_compression == "int8"
+        return state._replace(err=tree_map(
+            lambda p: torch.zeros(p.shape if int8 else (),
+                                  dtype=torch.float32, device=p.device),
+            state.params))
+
     loader = ShardedLoader(SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=train.seq_len,
         global_batch=train.global_batch, seed=train.seed)))
@@ -178,8 +182,10 @@ def main(argv=None):
                           f"at step {rt['step']}")
         return s, metrics
 
+    # the state goes to run_loop with no other reference held here: the
+    # step updates it in place, as repro's steps donate it
     state, report = run_loop(
-        on_device, state, loader, steps=train.steps,
+        on_device, initial_state(), loader, steps=train.steps,
         ckpt_dir=train.checkpoint_dir if train.checkpoint_every else None,
         checkpoint_every=train.checkpoint_every,
         async_ckpt=train.async_checkpoint, log_every=train.log_every)

@@ -50,18 +50,23 @@ def attention_init(gen: torch.Generator, d_model: int, num_heads: int,
 
 def qkv_project(params: dict, x: torch.Tensor, *, num_kv_heads: int,
                 positions: torch.Tensor, theta, qk_norm: bool, eps: float,
-                dp=None):
-    """Project to q, k, v (with RoPE + optional qk-norm applied)."""
+                dp=None, kv_input: torch.Tensor | None = None):
+    """Project to q, k, v (with RoPE + optional qk-norm applied).
+
+    ``kv_input`` (cross-attention) routes the k/v projections off another
+    sequence (the encoder's output); positions then rotate only q."""
+    xkv = x if kv_input is None else kv_input
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhe->bshe", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhe->bshe", x, params["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhe->bshe", xkv, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhe->bshe", xkv, params["wv"].to(x.dtype))
     if qk_norm:
         q = rmsnorm(params["q_norm"], q, eps)
         k = rmsnorm(params["k_norm"], k, eps)
     if theta is not None:
         from repro_torch.layers.rope import apply_rope
         q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+        if kv_input is None:
+            k = apply_rope(k, positions, theta)
     q = constrain(dp, q, ("batch", "seq", "heads", "head_dim"), tag="attn/q")
     k = constrain(dp, k, ("batch", "seq", "kv_heads", "head_dim"), tag="attn/k")
     v = constrain(dp, v, ("batch", "seq", "kv_heads", "head_dim"), tag="attn/v")

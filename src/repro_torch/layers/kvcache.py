@@ -70,10 +70,14 @@ def kv_slot_insert(cache: dict, prefilled: dict, slot: int) -> dict:
 def state_slot_insert(cache: dict, prefilled: dict, slot: int, *,
                       batch_axis: int = 1) -> dict:
     """Family-agnostic slot insert, in place: write the batch-1 source into
-    row ``slot`` (on ``batch_axis``) of every tensor of the cache, over
-    the source's leading extent on every other axis."""
+    row ``slot`` (on ``batch_axis``) of every tensor of the cache (nested
+    dicts too: xlstm's per-block states), over the source's leading
+    extent on every other axis."""
     for name, dst in cache.items():
         src = prefilled[name]
+        if isinstance(dst, dict):
+            state_slot_insert(dst, src, slot, batch_axis=batch_axis)
+            continue
         idx = tuple(slice(slot, slot + 1) if d == batch_axis
                     else slice(0, src.shape[d]) for d in range(dst.dim()))
         dst[idx] = src.to(dst.dtype)

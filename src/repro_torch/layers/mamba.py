@@ -4,7 +4,9 @@ The recurrence  h_t = Ā_t ⊙ h_{t-1} + B̄_t x_t,  y_t = C_t·h_t + D x_t
 runs in ``kernels/ssm_scan``: the Hopper kernel on a CUDA tensor, its
 plain time loop on the CPU.  The discretization exp(dt·A) is computed
 inside the scan, so the (B, S, d_inner, N) dA tensor never exists in
-device memory.
+device memory.  With gradients wanted the scan is ``ops.SSMScan``, whose
+backward recomputes the states a chunk at a time, so training never
+holds that tensor either.
 
 Decode keeps (conv_tail, h) as recurrent cache: O(1) per token.
 """
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ops import SSMScan, ssm_scan, ssm_scan_plain
 from repro_torch.layers.common import constrain, dense_init
 from repro_torch.layers.kvcache import state_slot_insert
 
@@ -69,21 +71,30 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def ssm_scan_chunked(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
                      bc: torch.Tensor, cc: torch.Tensor, h0: torch.Tensor, *,
-                     chunk: int = 128):
+                     chunk: int = 128, impl: str = "flash"):
     """Evaluate the diagonal SSM recurrence.
 
     dt/x: (B,S,di); a: (di,N); bc/cc: (B,S,N); h0: (B,di,N).
     Returns y: (B,S,di), h_final: (B,di,N).  ``repro``'s signature; the
     scan is ``kernels.ssm_scan.ops.ssm_scan`` with ``chunk`` time steps
-    staged at once."""
-    return ssm_scan(dt.contiguous(), x.contiguous(), a.contiguous(),
-                    bc.contiguous(), cc.contiguous(), h0.contiguous(),
-                    chunk=chunk)
+    staged at once, or its plain version with ``impl="plain"``.  When an
+    input wants a gradient it is ``ops.SSMScan``."""
+    if impl not in ("flash", "plain"):
+        raise ValueError(f"unknown scan impl {impl!r}")
+    args = tuple(t.contiguous() for t in (dt, x, a, bc, cc, h0))
+    plain = impl == "plain"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SSMScan.apply(*args, plain)
+    if plain:
+        return ssm_scan_plain(*args)
+    return ssm_scan(*args, chunk=chunk)
 
 
 def mamba(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
-          state: dict | None = None, dp=None, chunk: int = 128):
+          state: dict | None = None, dp=None, chunk: int = 128,
+          impl: str = "flash"):
     """Mamba block. x: (B,S,D). ``state`` (decode): {"conv": tail, "h": h}.
+    ``impl="plain"`` takes the scan's plain version (any device).
 
     Returns (out, new_state)."""
     b, s, d = x.shape
@@ -111,7 +122,7 @@ def mamba(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
     h0 = (state["h"] if state is not None
           else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
     y, h_final = ssm_scan_chunked(dt, xi.float(), A, Bc.float(), Cc.float(),
-                                  h0, chunk=chunk)
+                                  h0, chunk=chunk, impl=impl)
     y = y.to(x.dtype) + params["D"].to(x.dtype) * xi
     y = y * F.silu(z)
     out = torch.einsum("bse,ed->bsd", y, params["out_proj"].to(x.dtype))

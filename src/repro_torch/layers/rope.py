@@ -1,5 +1,6 @@
 """Rotary position embeddings, with per-layer theta (gemma3 uses a larger
-base on global layers than on sliding-window layers)."""
+base on global layers than on sliding-window layers), and whisper's fixed
+sinusoidal positions."""
 
 from __future__ import annotations
 
@@ -40,4 +41,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-__all__ = ["rope_freqs", "apply_rope"]
+def sinusoidal_positions(max_len: int, dim: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (max_len, dim), computed
+    in float32 and cast to ``dtype``.  One tensor per (max_len, dim,
+    dtype, device), computed once and never written."""
+    return _sinusoidal(int(max_len), int(dim), dtype, torch.device(
+        "cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=64)
+def _sinusoidal(max_len: int, dim: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):    # a normal tensor, whoever asks
+        f32 = dict(dtype=torch.float32, device=device)
+        pos = torch.arange(max_len, **f32)[:, None]
+        i = torch.arange(dim // 2, **f32)[None, :]
+        angle = pos / torch.pow(torch.tensor(10_000.0, **f32), 2 * i / dim)
+        return torch.cat([torch.sin(angle), torch.cos(angle)],
+                         dim=-1).to(dtype)
+
+
+__all__ = ["rope_freqs", "apply_rope", "sinusoidal_positions"]

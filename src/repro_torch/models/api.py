@@ -3,15 +3,16 @@
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 have the same signatures as ``repro``'s, bound to one device, so the
 serving engine and the train step are architecture-agnostic.  The port
-serves the transformer families (dense: gemma3, granite; moe: grok-1,
-arctic; vlm: llava-next) and the hybrid family (hymba), and trains the
-transformer families; the ssm (xlstm) and encdec (whisper) families and
-hybrid training arrive in later slices.
+serves and trains every family ``repro`` builds: the transformer
+families (dense: gemma3, granite; moe: grok-1, arctic; vlm: llava-next),
+the hybrid family (hymba), the ssm family (xlstm) and the encdec family
+(whisper).
 
 ``input_specs(cfg, shape)`` returns ``(shape, dtype)`` stand-ins for
 every model input of a shape cell, with no allocation, and
 ``make_batch`` a random batch that matches them.  The modality frontend
-is a stub: vlm cells get precomputed patch embeddings.
+is a stub: vlm cells get precomputed patch embeddings, audio cells
+precomputed mel frames.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 
 
 @dataclass(frozen=True)
@@ -31,11 +32,10 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable
-    # (params, batch, **kw) -> (loss, metrics); raises for the hybrid
-    # family
+    # (params, batch, **kw) -> (loss, metrics)
     loss: Callable
-    # (params, batch, **kw) -> the family's whole-sequence forward; for
-    # the transformer (hiddens, aux, cache, prefix) as repro's
+    # (params, batch, **kw) -> the whole-sequence forward: (hiddens, aux,
+    # cache, prefix) as repro's, for every family
     apply: Callable
     init_cache: Callable
     prefill: Callable
@@ -43,9 +43,11 @@ class Model:
     # fixed-shape decode over persistent slots (per-slot positions)
     decode_step_slots: Callable | None = None
     # chunked prefill: write one (B, C) chunk at an offset.  None for
-    # families without it (hybrid); the engine then prefills whole prompts
+    # families without it (hybrid, ssm, encdec); the engine then prefills
+    # whole prompts
     prefill_chunk: Callable | None = None
-    # True for families with recurrent state (mamba): the engine prefills
+    # True for families with recurrent state (mamba, xlstm): the engine
+    # prefills
     # them at exact prompt length, since right padding would advance the
     # recurrence
     recurrent: bool = False
@@ -85,7 +87,8 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             cfg=cfg,
             device=dev,
             init=_init(m.hybrid_init, cfg, dev),
-            loss=_hybrid_loss,
+            loss=lambda params, batch, **kw: m.hybrid_loss(
+                params, cfg, batch, **kw),
             apply=lambda params, batch, **kw: m.hybrid_apply(
                 params, cfg, batch, **kw),
             init_cache=lambda batch, max_len: m.hybrid_init_cache(
@@ -99,15 +102,48 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                                            **kw),
             recurrent=True,
         )
-    raise NotImplementedError(
-        f"the {cfg.family!r} family is ported in a later slice; the port "
-        f"serves the dense, moe, vlm and hybrid families")
-
-
-def _hybrid_loss(params, batch, **kw):
-    raise NotImplementedError("training the hybrid family is ported with a "
-                              "later slice (its forward has no training "
-                              "mode yet)")
+    if cfg.family == "ssm":
+        m = xlstm_model
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=_init(m.xlstm_init, cfg, dev),
+            loss=lambda params, batch, **kw: m.xlstm_loss(
+                params, cfg, batch, **kw),
+            apply=lambda params, batch, **kw: m.xlstm_apply(
+                params, cfg, batch, **kw),
+            init_cache=lambda batch, max_len=0: m.xlstm_init_cache(
+                cfg, batch, max_len, device=dev),
+            prefill=lambda params, batch, cache, **kw: m.xlstm_prefill(
+                params, cfg, batch, cache, **kw),
+            decode_step=lambda params, token, cache, pos, **kw:
+                m.xlstm_decode_step(params, cfg, token, cache, pos, **kw),
+            decode_step_slots=lambda params, token, cache, pos, **kw:
+                m.xlstm_decode_step_slots(params, cfg, token, cache, pos,
+                                          **kw),
+            recurrent=True,
+        )
+    if cfg.family == "encdec":
+        m = encdec
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=_init(m.encdec_init, cfg, dev),
+            loss=lambda params, batch, **kw: m.encdec_loss(
+                params, cfg, batch, **kw),
+            apply=lambda params, batch, **kw: m.encdec_apply(
+                params, cfg, batch, **kw),
+            init_cache=lambda batch, max_len: m.encdec_init_cache(
+                cfg, batch, max_len, device=dev),
+            prefill=lambda params, batch, cache, **kw: m.encdec_prefill(
+                params, cfg, batch, cache, **kw),
+            decode_step=lambda params, token, cache, pos, **kw:
+                m.encdec_decode_step(params, cfg, token, cache, pos, **kw),
+            decode_step_slots=lambda params, token, cache, pos, **kw:
+                m.encdec_decode_step_slots(params, cfg, token, cache, pos,
+                                           **kw),
+        )
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _init(init_fn, cfg: ModelConfig, dev: torch.device) -> Callable:

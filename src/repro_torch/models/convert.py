@@ -32,31 +32,39 @@ def from_jax_params(params_np: dict, cfg: ModelConfig, device=None) -> dict:
         return torch.from_numpy(np.array(arr, copy=True)).to(dev)
 
     out = conv(params_np, "")
-    layers = out["layers"]["norm1"]["scale"]
-    if layers.shape != (cfg.num_layers, cfg.d_model):
-        raise ValueError(f"parameters do not match {cfg.name}: norm1 scale "
-                         f"{tuple(layers.shape)}")
     _check_family(out, cfg)
     return out
 
 
 def _check_family(params: dict, cfg: ModelConfig) -> None:
-    """The family's own leaves are there with ``cfg``'s shapes: a moe
-    tree's router and experts, a vlm tree's ``vision_proj``."""
-    want = {}
+    """The family's own leaves are there with ``cfg``'s shapes: the
+    stacked layers' norm (an xlstm tree's per-block units), a moe tree's
+    router and experts, a vlm tree's ``vision_proj``, an encdec tree's
+    frontend and encoder layers."""
     n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    if cfg.family == "ssm":
+        pat = cfg.ssm.block_pattern
+        if n % len(pat):
+            pat = (pat * n)[:n]
+        want = {("units", f"blk{j}", "norm", "scale"): (n // len(pat), d)
+                for j in range(len(pat))}
+    else:
+        want = {("layers", "norm1", "scale"): (n, d)}
     if cfg.family == "moe":
         e = cfg.moe.num_experts
-        want = {("layers", "moe", "router"): (n, d, e),
-                ("layers", "moe", "wi"): (n, e, d, f),
-                ("layers", "moe", "wo"): (n, e, f, d)}
+        want.update({("layers", "moe", "router"): (n, d, e),
+                     ("layers", "moe", "wi"): (n, e, d, f),
+                     ("layers", "moe", "wo"): (n, e, f, d)})
         if cfg.gated_mlp:
             want[("layers", "moe", "wg")] = (n, e, d, f)
         if cfg.moe.dense_residual:
             want[("layers", "moe", "dense", "wi")] = \
                 (n, d, cfg.moe.dense_residual_ff)
     elif cfg.family == "vlm":
-        want = {("vision_proj",): (cfg.frontend_dim, d)}
+        want[("vision_proj",)] = (cfg.frontend_dim, d)
+    elif cfg.family == "encdec":
+        want[("frontend",)] = (cfg.frontend_dim, d)
+        want[("enc_layers", "norm1", "scale")] = (cfg.encoder_layers, d)
     for path, shape in want.items():
         node = params
         for key in path:

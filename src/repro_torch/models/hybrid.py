@@ -6,8 +6,11 @@ but the first / middle / last layers (:func:`layer_flags`).
 As in ``models/transformer.py``, per-layer weights are stacked on a
 leading layer axis, a Python loop over layers takes the place of
 ``lax.scan``, and every edge goes through the CoRD dataplane (``dp``).
-Prefill attention takes the flash kernel and the mamba branch the SSM
-scan kernel.  The cache ``{"k", "v", "conv", "h"}`` is updated in place.
+Prefill and the training forward attend through the flash kernel and
+run the mamba branch through the SSM scan kernel; with gradients wanted
+these are their autograd functions (``layers/attention.FlashAttention``,
+``kernels/ssm_scan/ops.SSMScan``).  The cache ``{"k", "v", "conv",
+"h"}`` is updated in place.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from repro_torch.layers.kvcache import (
 )
 from repro_torch.layers.mamba import mamba, mamba_init, mamba_state_init
 from repro_torch.layers.mlp import mlp, mlp_init
+from repro_torch.models.losses import ce_metrics, chunked_ce_loss
+from repro_torch.models.remat import REMAT_MODES, remat
 from repro_torch.models.transformer import (
     _layer_params,
     layer_flags,
@@ -70,9 +75,9 @@ def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
 
 
 def _block(lp, x, *, cfg, dp, positions, window, theta, mode, cache,
-           cache_pos=None):
+           cache_pos=None, impl="flash"):
     """One layer over ``cache`` (this layer's ``{"k", "v", "conv", "h"}``
-    views), written in place."""
+    views, written in place; None in the training forward)."""
     a = cfg.attention
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
 
@@ -80,14 +85,15 @@ def _block(lp, x, *, cfg, dp, positions, window, theta, mode, cache,
     q, k, v = qkv_project(lp["attn"], h, num_kv_heads=a.num_kv_heads,
                           positions=positions, theta=theta, qk_norm=False,
                           eps=cfg.norm_eps, dp=dp)
-    ck, cv = cache["k"], cache["v"]
-    if mode == "prefill":
-        kv_update(ck, cv, k, v, 0)
+    if mode in ("train", "prefill"):
+        if mode == "prefill":
+            kv_update(cache["k"], cache["v"], k, v, 0)
         o = attend(q, k, v, q_pos=positions, k_pos=positions, causal=True,
-                   window=window)
+                   window=window, impl=impl)
     elif mode == "decode_slots":
         # one query per slot at per-slot positions (B,); the mamba branch
         # is per-row recurrent already, so only the mask differs from gang
+        ck, cv = cache["k"], cache["v"]
         kv_update_slots(ck, cv, k, v, cache_pos)
         s_max = ck.shape[1]
         k_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)
@@ -97,6 +103,7 @@ def _block(lp, x, *, cfg, dp, positions, window, theta, mode, cache,
         o = attend_naive(q, ck, cv, valid[:, None, :])
     elif mode == "decode":
         # one query at a position shared by the batch
+        ck, cv = cache["k"], cache["v"]
         kv_update(ck, cv, k, v, cache_pos)
         s_max = ck.shape[1]
         k_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)
@@ -107,11 +114,12 @@ def _block(lp, x, *, cfg, dp, positions, window, theta, mode, cache,
     attn_out = output_project(lp["attn"], o, dp=dp)
 
     # --- mamba branch (parallel, same input) ---
-    m_out, m_state = mamba(lp["mamba"], h, cfg.ssm,
-                           state={"conv": cache["conv"], "h": cache["h"]},
-                           dp=dp)
-    cache["conv"].copy_(m_state["conv"])
-    cache["h"].copy_(m_state["h"])
+    st = None if cache is None else {"conv": cache["conv"], "h": cache["h"]}
+    m_out, m_state = mamba(lp["mamba"], h, cfg.ssm, state=st, dp=dp,
+                           impl="plain" if impl == "plain" else "flash")
+    if cache is not None:
+        cache["conv"].copy_(m_state["conv"])
+        cache["h"].copy_(m_state["h"])
 
     x = x + 0.5 * (rmsnorm(lp["attn_norm"], attn_out, cfg.norm_eps)
                    + rmsnorm(lp["mamba_norm"], m_out, cfg.norm_eps))
@@ -122,30 +130,59 @@ def _block(lp, x, *, cfg, dp, positions, window, theta, mode, cache,
 
 
 def _run_layers(params, cfg, x, *, dp, positions, mode, cache,
-                cache_pos=None):
+                cache_pos=None, impl="flash", remat_mode="none"):
     window_arr, theta_arr = layer_flags(cfg)
     for i in range(cfg.num_layers):
-        x = _block(_layer_params(params["layers"], i), x, cfg=cfg, dp=dp,
-                   positions=positions, window=int(window_arr[i]),
-                   theta=float(theta_arr[i]), mode=mode,
-                   cache={name: t[i] for name, t in cache.items()},
-                   cache_pos=cache_pos)
+        kw = dict(cfg=cfg, dp=dp, positions=positions,
+                  window=int(window_arr[i]), theta=float(theta_arr[i]),
+                  mode=mode,
+                  cache=None if cache is None else
+                  {name: t[i] for name, t in cache.items()},
+                  cache_pos=cache_pos, impl=impl)
+        lp = _layer_params(params["layers"], i)
+        if remat_mode == "none":
+            x = _block(lp, x, **kw)
+        else:
+            x = remat(remat_mode, dp, _block, lp, x, **kw)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def hybrid_apply(params, cfg: ModelConfig, batch: dict, *, dp=None,
-                 cache=None):
-    """Whole-sequence forward in prefill mode, filling ``cache`` in place.
-    Returns (final_hiddens, new_cache)."""
-    if cache is None:
-        raise NotImplementedError("the training forward (cache=None) is "
-                                  "ported with the training slice")
+                 cache=None, train=False, remat="none", impl="flash"):
+    """Whole-sequence forward from position 0.  With ``cache`` it is the
+    prefill and fills the cache in place; without, the training forward
+    (``repro``'s ``mode="train"``).  Returns ``repro``'s (final_hiddens,
+    aux, cache, 0), ``aux`` a float32 zero.
+
+    ``remat`` (``"none"``, ``"full"``, ``"dots"``) rematerialises each
+    layer body as the transformer's does (``models/remat.py``); ``impl``
+    picks the attention (``layers/attention.attend``) and, with
+    ``"plain"``, the scan's plain version too.  ``train`` is ``repro``'s
+    flag, which no layer of this family reads."""
+    del train
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                         f"{remat!r}")
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, dtype_of(cfg.dtype), dp=dp)
     positions = prefill_positions(tokens.shape[1], tokens.device)
     x = _run_layers(params, cfg, x, dp=dp, positions=positions,
-                    mode="prefill", cache=cache)
-    return x, cache
+                    mode="prefill" if cache is not None else "train",
+                    cache=cache, impl=impl, remat_mode=remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, cache, 0
+
+
+def hybrid_loss(params, cfg: ModelConfig, batch: dict, *, dp=None, rng=None,
+                remat="none", impl="flash"):
+    """Mean next-token cross entropy of ``batch`` (tokens, labels; -1
+    ignored) and its metrics: ``(loss, metrics)`` as ``repro``'s."""
+    x, aux, _, _ = hybrid_apply(params, cfg, batch, dp=dp, train=True,
+                                remat=remat, impl=impl)
+    table = params["embed"].get("head", params["embed"]["tok"])
+    loss, correct, count = chunked_ce_loss(x, table, batch["labels"], dp=dp)
+    m = ce_metrics(loss, correct, count, aux)
+    return m["loss"], m
 
 
 def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -162,15 +199,17 @@ def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def hybrid_prefill(params, cfg: ModelConfig, batch: dict, cache, *, dp=None,
-                   last_pos=None):
+                   impl="flash", last_pos=None):
     """Fill the attention cache and the mamba state with the prompt;
     returns (last-position logits (B, 1, V) float32, cache).
 
     ``last_pos`` (B,) selects which hidden position feeds the logits.
     Unlike the transformer's, right padding is NOT harmless here: padding
     tokens advance the mamba recurrence, so the serve engine prefills
-    recurrent families at exact prompt length (``Model.recurrent``)."""
-    x, cache = hybrid_apply(params, cfg, batch, dp=dp, cache=cache)
+    recurrent families at exact prompt length (``Model.recurrent``).
+    ``impl`` picks the attention and scan as :func:`hybrid_apply`'s."""
+    x, _aux, cache, _ = hybrid_apply(params, cfg, batch, dp=dp, cache=cache,
+                                     impl=impl)
     if last_pos is None:
         last = x[:, -1:, :]
     else:
@@ -205,5 +244,5 @@ def hybrid_decode_step_slots(params, cfg: ModelConfig, token, cache, pos, *,
     return logits_fn(params["embed"], x, dp=dp), cache
 
 
-__all__ = ["hybrid_init", "hybrid_apply", "hybrid_init_cache",
+__all__ = ["hybrid_init", "hybrid_apply", "hybrid_loss", "hybrid_init_cache",
            "hybrid_prefill", "hybrid_decode_step", "hybrid_decode_step_slots"]

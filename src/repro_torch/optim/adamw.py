@@ -1,10 +1,14 @@
 """AdamW with warmup-cosine schedule and global-norm clipping, over
 nested dicts of tensors in ``jax.tree``'s leaf order (``core/tree.py``).
 
-Pure functions as in ``repro``: the update returns new parameters and
-moments and never writes its inputs.  The step counter, the learning
-rate and the clipping scale stay tensors on the parameters' device, so
-an update reads nothing back to the host.
+``repro`` jits its steps with the train state donated, so XLA reuses
+the state's buffers for the new one.  Here :func:`adamw_update` does the
+same by hand: it writes the parameters and both moments in place, leaf by
+leaf, with the operations of the out-of-place formula in the same order
+(so every value is bit for bit that formula's), and returns the same
+dicts.  A caller that needs a state after a step clones it first.  The
+step counter, the learning rate and the clipping scale stay tensors on
+the parameters' device, so an update reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -65,7 +69,9 @@ def adamw_init(params: dict, opt_dtype: str = "float32") -> AdamWState:
 
 def adamw_update(grads: dict, state: AdamWState, params: dict,
                  cfg: TrainConfig, schedule=None):
-    """Returns (new_params, new_state, stats)."""
+    """Returns (params, new_state, stats): ``params`` and the moments of
+    ``state`` written in place (the returned dicts are the given ones),
+    the step counter a new tensor."""
     schedule = schedule or warmup_cosine(cfg)
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
@@ -74,27 +80,33 @@ def adamw_update(grads: dict, state: AdamWState, params: dict,
     bc1 = 1.0 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1.0 - torch.pow(b2, step.to(torch.float32))
 
-    def upd(p, g, m, v):
+    def upd_(p, g, m, v):
+        # the out-of-place formula, each product rounded on its own (no
+        # fused multiply-add, so no add_(alpha=) / addcmul_ / lerp_):
+        #   m32 = b1 * m + (1 - b1) * g;  v32 = b2 * v + (1 - b2) * g^2
+        #   p  -= lr * (m32 / bc1 / (sqrt(v32 / bc2) + eps) + wd * p)
         g = g.float()
-        m32 = b1 * m.float() + (1 - b1) * g
-        v32 = b2 * v.float() + (1 - b2) * g.square()
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = mhat / (torch.sqrt(vhat) + eps) + wd * p.float()
-        return ((p.float() - lr * delta).to(p.dtype), m32.to(m.dtype),
-                v32.to(v.dtype))
+        m32 = m.float().mul_(b1).add_((1 - b1) * g)    # m itself if f32
+        v32 = v.float().mul_(b2).add_((1 - b2) * g.square())
+        den = (v32 / bc2).sqrt_().add_(eps)
+        delta = (m32 / bc1).div_(den).add_(wd * p.float())
+        del den
+        if m32 is not m:
+            m.copy_(m32)
+        if v32 is not v:
+            v.copy_(v32)
+        if p.dtype == torch.float32:
+            p.sub_(delta.mul_(lr))
+        else:
+            p.copy_(p.float() - delta.mul_(lr))
 
-    flat = tree_flatten(params)
-    paths = [path for path, _ in flat]
-    g_l = [g for _, g in tree_flatten(grads)]
-    m_l = [m for _, m in tree_flatten(state.mu)]
-    v_l = [v for _, v in tree_flatten(state.nu)]
-    out = [upd(p, g, m, v) for (_, p), g, m, v in zip(flat, g_l, m_l, v_l)]
-    new_p = tree_unflatten(paths, [o[0] for o in out])
-    new_m = tree_unflatten(paths, [o[1] for o in out])
-    new_v = tree_unflatten(paths, [o[2] for o in out])
+    g_l = tree_leaves(grads)
+    m_l = tree_leaves(state.mu)
+    v_l = tree_leaves(state.nu)
+    for p, g, m, v in zip(tree_leaves(params), g_l, m_l, v_l):
+        upd_(p, g, m, v)
     stats = {"lr": lr, "grad_norm": gnorm}
-    return new_p, AdamWState(step=step, mu=new_m, nu=new_v), stats
+    return params, AdamWState(step=step, mu=state.mu, nu=state.nu), stats
 
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "warmup_cosine",

@@ -199,9 +199,18 @@ def test_cache_updated_in_place(models):
 
 
 def test_training_forward_waits(models):
-    _, _, _, tcfg, _, tp = models
-    with pytest.raises(NotImplementedError, match="training"):
-        thybrid.hybrid_apply(tp, tcfg, {"tokens": torch.zeros(1, 4).long()})
+    """The training forward (``cache=None``), which waited for the
+    training slice, is ``repro``'s: its 4-tuple with the final hiddens
+    at f32 2e-5, a float32 zero aux, no cache and prefix 0."""
+    jcfg, jm, jp, tcfg, _, tp = models
+    toks = (np.arange(20, dtype=np.int32).reshape(2, 10) * 7 + 3) % 256
+    jx, jaux, jcache, jpre = jax.jit(lambda p, t: jm.apply(
+        p, {"tokens": t}, train=True))(jp, jnp.asarray(toks))
+    tx, taux, tcache, tpre = thybrid.hybrid_apply(
+        tp, tcfg, {"tokens": _t(toks).long()}, train=True)
+    np.testing.assert_allclose(to_np(tx), to_np(jx), **TOL)
+    assert taux.dtype == torch.float32 and float(taux) == float(jaux) == 0
+    assert tcache is None and jcache is None and tpre == jpre == 0
 
 
 def test_prefill_records_mamba_edges_per_layer(models, monkeypatch):

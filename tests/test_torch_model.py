@@ -4,6 +4,8 @@ JAX parameters from ``model.init(PRNGKey(0))`` reach the port through
 ``from_jax_params``; inputs are numpy.  Tolerance: f32 2e-5 (logits and
 caches of the 4-layer smoke model), as in tests/test_kernels.py."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,8 +147,21 @@ def test_gang_decode_step_matches(models):
 
 
 def test_other_families_wait():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbuild(tget("xlstm-350m", smoke=True), device="cpu")
+    """Every family ``repro`` builds is built (the ssm and encdec families
+    waited for a later slice), with ``repro``'s serving flags; an unknown
+    family raises as ``repro``'s."""
+    from repro.configs import get_model_config as jcfg_of
+
+    for arch in ("gemma3-1b", "grok-1-314b", "llava-next-34b", "hymba-1.5b",
+                 "xlstm-350m", "whisper-small"):
+        jm = jbuild(jcfg_of(arch, smoke=True))
+        tm = tbuild(tget(arch, smoke=True), device="cpu")
+        assert tm.recurrent == jm.recurrent, arch
+        assert (tm.prefill_chunk is None) == (jm.prefill_chunk is None), arch
+        assert tm.decode_step_slots is not None, arch
+    cfg = tget("gemma3-1b", smoke=True)
+    with pytest.raises(ValueError, match="unknown family"):
+        tbuild(dataclasses.replace(cfg, family="rnn"), device="cpu")
 
 
 def test_forward_constants_are_made_once_per_device():

@@ -38,7 +38,7 @@ from repro_torch.configs.base import RunConfig as TRun
 from repro_torch.configs.base import TrainConfig as TTrain
 from repro_torch.core import policies as tpol
 from repro_torch.core.dataplane import Dataplane as TDataplane
-from repro_torch.core.tree import tree_flatten
+from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.data import to_torch
 from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.models import build_model as tbuild
@@ -213,6 +213,7 @@ def test_explicit_dp_step_matches(models, monkeypatch):
     tstep = make_explicit_dp_step(tm, TRun(train=TTrain(**tc)), tdp,
                                   runtime_accounting=True)
     js = jinit(jm, jax.random.PRNGKey(0))
+    tp = tree_map(torch.clone, tp)     # the step updates it in place
     ts = TrainState(params=tp, opt=adamw_init(tp),
                     step=torch.zeros((), dtype=torch.int32), err=None)
     batch = _batches(tcfg, 1)[0]
@@ -247,6 +248,7 @@ def test_gspmd_step_matches(models, mesh42, monkeypatch):
     js = jinit(jm, jax.random.PRNGKey(0))
     jstep, jshard = jmake_gspmd(jm, JRun(train=JTrain(**tc)), jdp)
     jstep = jshard(jax.eval_shape(lambda: js), jax.eval_shape(lambda: jb))
+    tp = tree_map(torch.clone, tp)     # the step updates it in place
     ts = TrainState(params=tp, opt=adamw_init(tp),
                     step=torch.zeros((), dtype=torch.int32))
     tstep, tshard = make_train_step(tm, TRun(train=TTrain(**tc)), tdp)

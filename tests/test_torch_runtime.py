@@ -43,7 +43,7 @@ from repro_torch.configs.base import RunConfig as TRun
 from repro_torch.configs.base import TrainConfig as TTrain
 from repro_torch.core import CounterTimeline
 from repro_torch.core.dataplane import Dataplane as TDataplane
-from repro_torch.core.tree import tree_flatten
+from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.data import DataConfig, ShardedLoader, SyntheticLM, to_torch
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_mesh
@@ -63,7 +63,8 @@ DATA = dict(seq_len=16, global_batch=4)
 def _port(tp=None):
     tcfg = tget("gemma3-1b", smoke=True)
     tm = tbuild(tcfg, device="cpu")
-    tp = tp if tp is not None else tm.init(0)
+    # a copy: the step updates its state in place
+    tp = tree_map(torch.clone, tp) if tp is not None else tm.init(0)
     dp = TDataplane(TCfg(mode="cord"), mesh=make_mesh((R,), ("data",)),
                     device="cpu")
     step = make_explicit_dp_step(tm, TRun(train=TTrain(**TC)), dp)

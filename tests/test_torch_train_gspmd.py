@@ -43,7 +43,7 @@ from repro_torch.configs.base import DataplaneConfig as TCfg
 from repro_torch.configs.base import RunConfig as TRun
 from repro_torch.configs.base import TrainConfig as TTrain
 from repro_torch.core.dataplane import Dataplane as TDataplane
-from repro_torch.core.tree import tree_flatten, tree_leaves
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map
 from repro_torch.data import to_torch
 from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.models import build_model as tbuild
@@ -71,6 +71,8 @@ def models():
 
 
 def _port_state(tp):
+    # a copy: the step updates its state in place, and tp is shared
+    tp = tree_map(torch.clone, tp)
     return TrainState(params=tp, opt=adamw_init(tp),
                       step=torch.zeros((), dtype=torch.int32))
 

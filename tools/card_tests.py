@@ -35,7 +35,9 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_conn.py",
                    "tests/test_torch_serve_obs.py",
                    "tests/test_torch_elastic.py",
-                   "tests/test_torch_moe_model.py")
+                   "tests/test_torch_moe_model.py",
+                   "tests/test_torch_ssm_grad.py",
+                   "tests/test_torch_encdec.py")
 _STANDING_IN = ("jax", "repro")
 
 
