@@ -47,7 +47,7 @@ Phases, one line each; any failure raises and the script exits nonzero:
    256, mamba's own dt and A): the kernel forward and the plain backward
    against autograd through the plain time loop run in float64, every
    input's gradient within 2e-5 x max(1, |ref|), and the backward's ms a
-   call beside the forward's;
+   call beside the forward's, its byte bound and its host us a call;
 3. the serving path at gemma3-1b's full width (26 layers, random weights
    from a seed, bf16 compute) through a ``cord`` dataplane with
    ``emulate_costs``: 8 requests on the continuous engine, the kernels'
@@ -252,6 +252,42 @@ Phase 9 runs alone after phase 0:
 Phase 10 runs alone after phase 0:
 ``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_families()"``.
 
+11a. ``repro_torch.examples.quickstart``: the smoke gemma3 through 20
+   explicit-DP steps of 8 ranks on the card, global batch 16 x 64, a cord
+   dataplane.  Gates: the loss at step 15 below step 0's; a second run
+   from seed 0 gives the same losses bit for bit; flash launches 20 x 8 x
+   4 layers, each with its lse;
+11b. ``repro_torch.examples.serve_lm``: 10 requests over 4 slots, twice,
+   identical tokens, 160 of them; flash launches one a layer a prefill;
+   tok/s;
+11c. ``repro_torch.examples.train_lm`` at its full width (CFG_100M: 12
+   layers, d_model 512, vocab 50,304, 73.0M f32 parameters), 8 ranks of 2
+   x 256, int8 gradients: 120 steps with the example's ``--inject-failure``
+   (step 60 fails once and is retried in place, as ``repro``'s loop
+   retries it: 1 failure, 0 restores, the last loss below the first,
+   checkpoints at 50 and 100); the same loop where step 60 fails three
+   times, past the two retries (3 failures, 1 restore of step 50, steps
+   50-59 again within 1e-6 of their first losses); 10 steps with ``--mode
+   socket``, whose staged copies launch bounce twice (send, complete) a
+   rank a psum; flash with lse 8 x 12 a step;
+11d. ``repro_torch.examples.policy_demo``'s four acts: the quota refused
+   at the same iteration as act 1 on the CPU, strict security refused,
+   ``throttled > 0`` for the noisy tenant only, a remesh 8 -> 2 after the
+   watcher trips, act 4's shrink and grow, the slot budget back at 4; the
+   QoS stall launched (5 ms a missing token);
+11e. the dry run (``repro_torch.launch.dryrun.run_cell``) of gemma3-1b at
+   its four shapes on both production meshes and of grok-1 train_4k on the
+   multi-pod mesh, on ``meta``: per-device state and cache bytes, FLOPs,
+   collective bytes and trace seconds; ``torch.cuda.memory_allocated()``
+   the same before and after, no kernel launched.
+
+Phase 11's flash rows are timed at each path's own shape and dtype (f32
+in 11a-11c: the smoke gemma3 at D 16, CFG_100M at D 64), the kernel the
+path launches.  Each phase's wall seconds are printed before the summary.
+
+Phase 11 runs alone after phase 0:
+``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_examples()"``.
+
 ``--profile`` adds torch.profiler tables for one prefill of 256 tokens
 and one 4-slot decode tick of each model.  The line before the last is
 the per-kernel JSON summary; the last line is ``{"ok": true, "device":
@@ -282,7 +318,6 @@ FLASH_BF16_TOL = 1e-2
 # ssm_scan kernel vs plain, f32: both compute in f32 with expf; the sum
 # over N and fma contraction round differently
 SSM_F32_TOL = 2e-5
-SSM_FLOPS_PER_STATE_STEP = 6    # dt*a, exp, *h, dx*b, +, *c (+ reduction)
 
 
 CARD = "card not read"   # nvidia-smi's name and power limit (phase 0)
@@ -544,14 +579,6 @@ def phase_bounce() -> dict:
 # phase 2: flash attention
 # ---------------------------------------------------------------------------
 
-def _pairs(sq: int, skv: int, window: int, valid: int) -> int:
-    import numpy as np
-    q = np.arange(sq)
-    hi = np.minimum(q, min(valid, skv) - 1)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def _device_ms(fn, n: int = 20, tries: int = 3):
     """Device time per call of ``fn``: the card's kernel time that
     torch.profiler records over ``n`` calls, over ``n``.  The profiler
@@ -594,6 +621,7 @@ def _kernel_us(events) -> float:
 def phase_flash() -> dict:
     import torch
     import torch.nn.functional as F
+    from repro_torch.analysis.cost import attention_pairs
     from repro_torch.kernels.flash_attention import ops as fa
 
     dev = torch.device("cuda")
@@ -659,7 +687,7 @@ def phase_flash() -> dict:
                                  f"valid={valid}")
         worst = max(worst, err) if dtype == torch.bfloat16 else worst
         vl = s if valid is None else valid
-        flops = 4 * d * H * B * _pairs(s, s, window, vl)
+        flops = 4 * d * H * B * attention_pairs(s, s, True, window, vl)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -833,16 +861,27 @@ def _ssm_inputs(gen, shape, dtype, long_memory: bool = False):
 
 
 def _ssm_bound(shape, dtype_bytes: int) -> tuple[int, int, float, str]:
-    """(bytes, flops, bound ms, what bounds it) of one scan: dt, x and y
-    once each, b, c, a, h0 and h_final in f32."""
-    bsz, s, di, n = shape
-    nbytes = 3 * bsz * s * di * dtype_bytes + 4 * (
-        2 * bsz * s * n + di * n + 2 * bsz * di * n)
-    flops = SSM_FLOPS_PER_STATE_STEP * bsz * s * di * n
+    """(bytes, flops, bound ms, what bounds it) of one scan:
+    ``analysis/cost.ssm_scan_cost``, the price the dry run puts on it."""
+    from repro_torch.analysis.cost import ssm_scan_cost
+    flops, nbytes = ssm_scan_cost(*shape, dtype_bytes)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return nbytes, flops, max(t_bytes, t_ops), \
         "operations" if t_ops > t_bytes else "bytes"
+
+
+def _ssm_bwd_bound(shape) -> tuple[int, float]:
+    """(bytes, bound ms) of the scan's backward in f32: the forward's
+    inputs dt, x, a, b, c and h0 and the cotangents of y and h_final read
+    once, a gradient of each input written once; bound by bytes (its
+    operations, about twice the forward's 6 a state step, take under half
+    the byte time at the 67 TFLOP/s f32 peak)."""
+    bsz, s, di, n = shape
+    ins = 2 * bsz * s * di + 2 * bsz * s * n + di * n + bsz * di * n
+    cot = bsz * s * di + bsz * di * n
+    nbytes = 4 * (2 * ins + cot)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def phase_ssm() -> dict:
@@ -969,17 +1008,21 @@ def _ssm_train_case(gen) -> dict:
     fwd_ms = _cuda_ms(lambda: ssm.ssm_scan(*args), n=20)
     plain_ms = _cuda_ms(lambda: ssm.ssm_scan_plain(*args), n=2, warmup=1)
     bwd_ms = _cuda_ms(lambda: ssm_scan_bwd_plain(*args, gy, ghf), n=5)
+    bwd_host_us = _host_us(lambda: ssm_scan_bwd_plain(*args, gy, ghf), n=20)
     nbytes, flops, bound, bound_by = _ssm_bound(SSM_TRAIN_SHAPE, 4)
+    bwd_bytes, bwd_bound = _ssm_bwd_bound(SSM_TRAIN_SHAPE)
     row = {"shape": list(SSM_TRAIN_SHAPE), "grad_err": errs,
            "max_abs_err": max(errs.values()), "fwd_ms": fwd_ms,
            "plain_fwd_ms": plain_ms, "bwd_ms": bwd_ms, "bound_ms": bound,
-           "bound_by": bound_by}
+           "bound_by": bound_by, "bwd_bound_ms": bwd_bound,
+           "bwd_bytes": bwd_bytes, "bwd_host_us": bwd_host_us}
     err_txt = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
     _line(f"  SSMScan {SSM_TRAIN_SHAPE} f32 (mamba's dt and A): kernel "
           f"forward + plain backward against autograd through the time "
           f"loop, gradient errors {err_txt}; "
           f"forward {fwd_ms:.4f} ms (plain {plain_ms:.3f} ms), plain backward "
-          f"{bwd_ms:.3f} ms a call{_on_card()}")
+          f"{bwd_ms:.3f} ms a call (bound {bwd_bound:.4f} ms, bytes; host "
+          f"{bwd_host_us:.1f} us a call){_on_card()}")
     return row
 
 
@@ -1597,6 +1640,7 @@ def _flash_lse_case(gen, b: int, window: int, heads=(4, 1, 256),
     attention (which also returns the lse; none applies a soft cap) and
     the plain backward the train step runs."""
     import torch
+    from repro_torch.analysis.cost import attention_pairs
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.layers.attention import flash_attention_bwd
 
@@ -1639,7 +1683,7 @@ def _flash_lse_case(gen, b: int, window: int, heads=(4, 1, 256),
     do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
     bwd_ms = _cuda_ms(lambda: flash_attention_bwd(
         q, k, v, o, lse, do, causal=True, window=window, logit_cap=cap), n=5)
-    flops = 4 * d * h * b * _pairs(s, s, window, s)
+    flops = 4 * d * h * b * attention_pairs(s, s, True, window, s)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     row = {"batch": b, "h": h, "kvh": kvh, "d": d, "window": window,
@@ -4411,6 +4455,460 @@ def phase_families() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the examples and the dry run
+# ---------------------------------------------------------------------------
+
+TRAIN_LM_STEPS = 120     # 11c: the failure at step 60, after the checkpoint
+TRAIN_LM_SOCKET_STEPS = 10
+RESTORE_STEPS = 70       # 11c's restore run: fail step 60 past the retries
+DRYRUN_CELLS = tuple(("gemma3-1b", s, mp)
+                     for s in ("train_4k", "prefill_32k", "decode_32k",
+                               "long_500k") for mp in (False, True)) + \
+    (("grok-1-314b", "train_4k", True),)
+
+
+def _flash_path_case(gen, b: int, s: int, heads, dtype, window: int,
+                     lse: bool) -> dict:
+    """The flash kernel at a phase-11 path's shape (B, S, heads (H, KVH,
+    D), dtype, window), with or without its lse, against its plain
+    version: bf16 output within FLASH_BF16_TOL, f32 within 2e-5, the lse
+    within LSE_TOL x max(1, |lse|); its time against its bound
+    (``analysis/cost.flash_cost`` at the dtype's peak), its plain version
+    and one library call (SDPA with the mask; with an lse, ATen's flash
+    attention in bf16 with no window, else its efficient attention, with
+    the window as a bias)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.analysis.cost import flash_cost
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = torch.device("cuda")
+    h, kvh, d = heads
+    q = (3 * torch.randn(b, s, h, d, generator=gen, device=dev)).to(dtype)
+    k = torch.randn(b, s, kvh, d, generator=gen, device=dev).to(dtype)
+    v = (torch.rand(b, s, kvh, d, generator=gen, device=dev) * 3 - 1.5
+         ).to(dtype)
+    kw = dict(window=window, return_lse=lse)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    o, po = (got[0], want[0]) if lse else (got, want)
+    torch.cuda.synchronize()
+    o_err = (o.float() - po.float()).abs().max().item()
+    tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else 2e-5
+    lse_err = 0.0
+    if lse:
+        lse_err = (got[1] - want[1]).abs().max().item()
+        if not lse_err <= LSE_TOL * max(1.0, want[1].abs().max().item()):
+            raise AssertionError(f"phase 11 flash lse error {lse_err} at "
+                                 f"B={b} S={s} {heads}")
+    if not (math.isfinite(o_err) and o_err <= tol):
+        raise AssertionError(f"phase 11 flash output error {o_err} > {tol} "
+                             f"at B={b} S={s} {heads} {dtype}")
+    call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    ms = _cuda_ms(call, n=20)
+    plain = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), n=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kt = kt.repeat_interleave(h // kvh, dim=1).contiguous()
+    vt = vt.repeat_interleave(h // kvh, dim=1).contiguous()
+    pos = torch.arange(s, device=dev)
+    mask = pos[None] <= pos[:, None]
+    if window:
+        mask &= pos[:, None] - pos[None] < window
+    if not lse:
+        lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), n=20)
+    elif dtype == torch.bfloat16 and (window == 0 or window >= s):
+        lib_op = torch.ops.aten._scaled_dot_product_flash_attention
+        lib = _cuda_ms(lambda: lib_op(qt, kt, vt, 0.0, True), n=20)
+    else:
+        # ATen's efficient attention also returns the lse; a window goes
+        # in as an additive bias
+        lib_op = torch.ops.aten._scaled_dot_product_efficient_attention
+        bias = None
+        if window and window < s:
+            bias = torch.zeros(s, s, dtype=dtype, device=dev).masked_fill(
+                ~mask, float("-inf")).expand(b, h, s, s).contiguous()
+        lib = _cuda_ms(lambda: lib_op(qt, kt, vt, bias, True, 0.0,
+                                      bias is None), n=20)
+    flops, nbytes = flash_cost((b, s, h, d), s, kvh, q.element_size(),
+                               window=window, lse=lse)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"batch": b, "s": s, "h": h, "kvh": kvh, "d": d,
+           "dtype": str(dtype), "window": window, "lse": lse,
+           "max_abs_err": max(o_err, lse_err), "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    _line(f"  flash{'+lse' if lse else ''} B={b} S={s} H={h} KVH={kvh} "
+          f"d={d} {dtype} w={window}: err {row['max_abs_err']:.3g}, "
+          f"{ms:.4f} ms (bound {row['bound_ms']:.5f} ms, {row['bound_by']}),"
+          f" library {'n/a' if lib is None else f'{lib:.4f} ms'}, plain "
+          f"{plain:.3f} ms{_on_card()}")
+    return row
+
+
+def phase_quickstart() -> dict:
+    """11a: ``repro_torch.examples.quickstart`` on the card: the smoke
+    gemma3 through 20 explicit-DP steps of 8 ranks, twice from seed 0."""
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.layers.common import dtype_of
+    from repro_torch.models import build_model
+
+    cfg = get_model_config("gemma3-1b", smoke=True)
+    model = build_model(cfg, device="cuda")
+    _reset_launches()
+    fa.LSE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    first = quickstart.run(model, model.init(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, lse = _launches(), fa.LSE_LAUNCHES
+    t0 = time.perf_counter()
+    second = quickstart.run(model, model.init(0))
+    torch.cuda.synchronize()
+    wall_repeat = time.perf_counter() - t0
+    losses = first["losses"]
+    want = quickstart.STEPS * quickstart.RANKS * cfg.num_layers
+    if not losses[15] < losses[0]:
+        raise AssertionError(f"11a: the loss did not fall: {losses}")
+    if second["losses"] != losses:
+        raise AssertionError(f"11a: the second run's losses differ: "
+                             f"{second['losses']} vs {losses}")
+    if lse != want or launches["flash_attention"] != want:
+        raise AssertionError(f"11a: flash launched {launches} ({lse} with "
+                             f"lse), wanted {want} with lse")
+    _line(f"  11a quickstart: loss {losses[0]:.4f} -> {losses[15]:.4f} "
+          f"(step 15) -> {losses[-1]:.4f}, bit for bit on a second run; "
+          f"{wall:.1f} s for {quickstart.STEPS} steps ({wall_repeat:.1f} s "
+          f"on the repeat); launches {launches}, "
+          f"{lse} flash with lse{_on_card()}")
+    a = cfg.attention
+    row = _flash_path_case(torch.Generator(device="cuda").manual_seed(11),
+                           16 // quickstart.RANKS, 64,
+                           (a.num_heads, a.num_kv_heads, a.head_dim),
+                           dtype_of(cfg.dtype), a.sliding_window, True)
+    return {"losses": losses, "wall_s": wall, "wall_s_repeat": wall_repeat,
+            "launches": launches, "flash_lse": lse, "flash": row}
+
+
+def phase_serve_lm() -> dict:
+    """11b: ``repro_torch.examples.serve_lm`` on the card: 10 requests of
+    the smoke gemma3 over 4 slots, twice."""
+    import torch
+    from repro_torch.configs import get_model_config
+    from repro_torch.examples import serve_lm
+    from repro_torch.layers.common import dtype_of
+    from repro_torch.models import build_model
+
+    cfg = get_model_config("gemma3-1b", smoke=True)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    _reset_launches()
+    first = serve_lm.run(model, params)
+    torch.cuda.synchronize()
+    launches = _launches()
+    second = serve_lm.run(model, params)
+    toks = {r.rid: list(r.out_tokens) for r in first["done"]}
+    if {r.rid: list(r.out_tokens) for r in second["done"]} != toks:
+        raise AssertionError("11b: a repeat gave other tokens")
+    want = len(first["done"]) * cfg.num_layers
+    if launches["flash_attention"] != want or first["tokens"] != 160:
+        raise AssertionError(f"11b: flash launched "
+                             f"{launches['flash_attention']} times for "
+                             f"{len(first['done'])} prefills of "
+                             f"{cfg.num_layers} layers; {first['tokens']} "
+                             f"tokens")
+    _line(f"  11b serve_lm: {first['tokens']} tokens, {first['tok_s']:.1f} "
+          f"tok/s (repeat {second['tok_s']:.1f}), identical on repeat; "
+          f"launches {launches}{_on_card()}")
+    row = _flash_path_case(torch.Generator(device="cuda").manual_seed(12),
+                           1, 16, (cfg.attention.num_heads,
+                                   cfg.attention.num_kv_heads,
+                                   cfg.attention.head_dim),
+                           dtype_of(cfg.dtype), cfg.attention.sliding_window,
+                           False)
+    return {"tokens": first["tokens"], "tok_s": first["tok_s"],
+            "tok_s_repeat": second["tok_s"], "launches": launches,
+            "flash": row}
+
+
+def _dir_bytes(path) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_train_lm() -> dict:
+    """11c: ``repro_torch.examples.train_lm`` on the card at its full
+    width (CFG_100M): 120 steps with ``--inject-failure`` (the failure at
+    step 60, retried in place as ``repro``'s loop does), the same loop
+    where step 60 fails past the retries and restores the step-50
+    checkpoint, and 10 steps with ``--mode socket``, whose staged copies
+    launch the bounce kernel."""
+    import tempfile
+
+    import torch
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.layers.common import dtype_of
+    from repro_torch.models import build_model
+    from repro_torch.runtime import FaultInjector
+
+    cfg = train_lm.CFG_100M
+    model = build_model(cfg, device="cuda")
+    per_step = train_lm.RANKS * cfg.num_layers  # flash with lse a step
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        _reset_launches()
+        fa.LSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = train_lm.run(model, model.init(0), steps=TRAIN_LM_STEPS,
+                           injector=FaultInjector(
+                               fail_steps=(TRAIN_LM_STEPS // 2,)),
+                           ckpt_dir=f"{tmp}/a")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep, launches, lse = res["report"], _launches(), fa.LSE_LAUNCHES
+        ckpt_bytes = _dir_bytes(f"{tmp}/a")
+        losses = [m["loss"] for m in rep.metrics]
+        if not (rep.failures == 1 and rep.restores == 0
+                and rep.steps_run == TRAIN_LM_STEPS
+                and losses[-1] < losses[0] and ckpt_bytes > 0):
+            raise AssertionError(f"11c: {rep.failures} failures, "
+                                 f"{rep.restores} restores, "
+                                 f"{rep.steps_run} steps, loss "
+                                 f"{losses[0]} -> {losses[-1]}, "
+                                 f"{ckpt_bytes} checkpoint bytes")
+        if lse != per_step * rep.steps_run or \
+                launches["flash_attention"] != lse:
+            raise AssertionError(f"11c: flash launched {launches} ({lse} "
+                                 f"with lse), wanted {per_step} a step")
+        step_ms = [t * 1e3 for t in rep.step_times]
+        q = sorted(step_ms)
+        _line(f"  11c train_lm: {res['params']/1e6:.1f}M params, "
+              f"{rep.steps_run} steps in {wall:.1f} s (step ms p10 / median "
+              f"/ p90 {q[len(q) // 10]:.1f} / {q[len(q) // 2]:.1f} / "
+              f"{q[len(q) * 9 // 10]:.1f}), loss "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f}, {rep.failures} failure "
+              f"retried in place, checkpoints {ckpt_bytes / 1e9:.3f} GB; "
+              f"launches {launches}{_on_card()}")
+        a = cfg.attention
+        out["flash"] = _flash_path_case(
+            torch.Generator(device="cuda").manual_seed(13),
+            16 // train_lm.RANKS, 256, (a.num_heads, a.num_kv_heads,
+                                  cfg.d_model // a.num_heads),
+            dtype_of(cfg.dtype), a.sliding_window, True)
+        out.update(wall_s=wall, losses=losses, failures=rep.failures,
+                   restores=rep.restores, ckpt_bytes=ckpt_bytes,
+                   step_ms=step_ms, launches=launches, flash_lse=lse)
+        del res
+
+        # step 60 fails three times, past run_loop's two retries: the
+        # loop restores the step-50 checkpoint and runs 50-59 again
+        t0 = time.perf_counter()
+        res = train_lm.run(model, model.init(0), steps=RESTORE_STEPS,
+                           injector=FaultInjector(
+                               fail_steps=(TRAIN_LM_STEPS // 2,),
+                               max_failures_per_step=3),
+                           ckpt_dir=f"{tmp}/b")
+        torch.cuda.synchronize()
+        rep = res["report"]
+        again = [m["loss"] for m in rep.metrics]
+        if not (rep.failures == 3 and rep.restores == 1
+                and rep.steps_run == RESTORE_STEPS + 10):
+            raise AssertionError(f"11c restore: {rep.failures} failures, "
+                                 f"{rep.restores} restores, "
+                                 f"{rep.steps_run} steps")
+        for a, b in zip(again[50:60], again[60:70]):
+            if abs(a - b) > RESUME_LOSS_RTOL * abs(a):
+                raise AssertionError(f"11c: after the restore step loss "
+                                     f"{b} vs {a} before it")
+        _line(f"  11c restore: step 60 failed {rep.failures} times, "
+              f"{rep.restores} restore of step 50, steps 50-59 again within "
+              f"{RESUME_LOSS_RTOL} of their first losses, "
+              f"{time.perf_counter() - t0:.1f} s")
+        out.update(restore_failures=rep.failures,
+                   restore_restores=rep.restores)
+        del res
+
+        _reset_launches()
+        res = train_lm.run(model, model.init(0),
+                           steps=TRAIN_LM_SOCKET_STEPS, mode="socket",
+                           ckpt_dir=f"{tmp}/c")
+        torch.cuda.synchronize()
+        sock = _launches()
+        records = sum(v["ops"] for v in
+                      res["dp"].telemetry.by_kind().values())
+        # staged copies on the send and the complete side of every rank
+        if sock["bounce"] != 2 * train_lm.RANKS * records or records <= 0:
+            raise AssertionError(f"11c socket: bounce launched "
+                                 f"{sock['bounce']} times for {records} "
+                                 f"records on {train_lm.RANKS} ranks")
+        _line(f"  11c --mode socket: {TRAIN_LM_SOCKET_STEPS} steps, "
+              f"{records} psums, launches {sock}{_on_card()}")
+        out.update(socket_launches=sock, socket_records=records)
+        del res
+    # the staged copy's timing on the largest psum payload: one rank's
+    # int8-quantised embedding gradient, summed as int32
+    x = torch.randint(-127, 128, (cfg.vocab_size, cfg.d_model),
+                      dtype=torch.int32, device="cuda")
+    out["bounce"] = _bounce_copy_case(x)
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bounce_copy_case(x) -> dict:
+    """bounce with one staged copy (the socket path's send side) on ``x``
+    against its plain version and ``torch.clone``."""
+    import torch
+    from repro_torch.kernels.dataplane import bounce as bk
+    got, gctr = bk.mediated_cost(x, 0, 1)
+    want, wctr = bk.mediated_cost_plain(x, 0, 1)
+    torch.cuda.synchronize()
+    if not (torch.equal(_bits(got), _bits(want)) and torch.equal(gctr, wctr)):
+        raise AssertionError("phase 11 bounce: staged copy differs from "
+                             "its plain version")
+    nbytes = x.numel() * x.element_size()
+    row = {"bytes": nbytes, "max_abs_err": 0.0,
+           "ms": _cuda_ms(lambda: bk.mediated_cost(x, 0, 1), n=10),
+           "plain_ms": _cuda_ms(lambda: bk.mediated_cost_plain(x, 0, 1),
+                                n=5),
+           "library_ms": _cuda_ms(lambda: torch.clone(x), n=10),
+           "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
+    _line(f"  bounce staged copy {x.dtype} {tuple(x.shape)}: bit-exact, "
+          f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms), clone "
+          f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms"
+          f"{_on_card()}")
+    return row
+
+
+def phase_policy_demo() -> dict:
+    """11d: ``repro_torch.examples.policy_demo``'s four acts on the card,
+    act 1 also on the CPU for the quota's iteration."""
+    import torch
+    from repro_torch.core import techniques as tech
+    from repro_torch.examples import policy_demo
+    from repro_torch.kernels.dataplane import stall
+
+    cpu_at = policy_demo.act1(torch.device("cpu"))["quota_refused_at"]
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = policy_demo.run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    a1, a2, a3, a4 = (out[k] for k in ("act1", "act2", "act3", "act4"))
+    rep = a2["report"]
+    kinds = [e["kind"] for e in a3["events"]]
+    if a1["quota_refused_at"] != cpu_at or cpu_at is None:
+        raise AssertionError(f"11d: quota refused at "
+                             f"{a1['quota_refused_at']}, on the CPU at "
+                             f"{cpu_at}")
+    if a1["security_msg"] is None:
+        raise AssertionError("11d: strict security let the rogue op pass")
+    if not rep["noisy"]["throttled"] > 0 == rep["victim"]["throttled"]:
+        raise AssertionError(f"11d: throttled {rep}")
+    if kinds != ["trigger", "remesh"] or a3["remeshed_to"] != 2:
+        raise AssertionError(f"11d: act 3 events {kinds}")
+    if [m[0] for m in a4["moves"]] != ["shrink", "grow"] or \
+            a4["slot_budget"] != 4:
+        raise AssertionError(f"11d: act 4 moves {a4['moves']}, budget "
+                             f"{a4['slot_budget']}")
+    if launches["bounce_stall"] <= 0:
+        raise AssertionError(f"11d: no stall launched: {launches}")
+    _line(f"  11d policy_demo: quota refused at i={cpu_at} (as on the "
+          f"CPU), security refused, noisy throttled "
+          f"{rep['noisy']['throttled']:.0f} of {rep['noisy']['ops']:.0f}, "
+          f"victim 0; remesh 8 -> 2 after the trigger; act 4 {a4['moves']},"
+          f" budget back at {a4['slot_budget']}; {wall:.1f} s; launches "
+          f"{launches}{_on_card()}")
+    # one throttled op's stall, at the demo's 5 ms a missing token
+    iters = tech.iters_for_ns(5e6, device="cuda")
+    x = torch.zeros(64, device="cuda")
+    n = torch.full((), iters, dtype=torch.int32, device="cuda")
+    row = {"iters": iters, "max_abs_err": 0.0,
+           "ms": _cuda_ms(lambda: stall.stall(x, n), n=5, warmup=1),
+           "plain_ms": _wall_ms(lambda: stall.stall_plain(x, iters), n=2),
+           "bound_ms": 2 * iters / F32_FLOPS * 1e3}
+    _line(f"  stall at {iters} iterations (5 ms asked): {row['ms']:.4f} ms,"
+          f" plain {row['plain_ms']:.3f} ms{_on_card()}")
+    return {"wall_s": wall, "launches": launches, "quota_refused_at": cpu_at,
+            "throttled": rep["noisy"]["throttled"], "moves": a4["moves"],
+            "stall": row}
+
+
+def phase_dryrun() -> dict:
+    """11e: the dry run (``repro_torch.launch.dryrun.run_cell``) of
+    gemma3-1b at its four shapes on both production meshes and of grok-1
+    train_4k on the multi-pod mesh: every tensor on ``meta``, so the
+    card's allocated memory is the same before and after, and no kernel
+    launches."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    mem0, launches0 = torch.cuda.memory_allocated(), _launches()
+    rows = []
+    t0 = time.perf_counter()
+    for arch, shape, mp in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, multi_pod=mp)
+        kind = r["kind"]
+        resident = (r["state_bytes_per_device"] if kind == "train"
+                    else r["params_bytes_per_device"])
+        cache = r.get("cache_bytes_per_device", 0)
+        rows.append({"arch": arch, "shape": shape, "multi_pod": mp,
+                     "resident_bytes": resident, "cache_bytes": cache,
+                     "flops_per_device": r["cost"]["flops_per_device"],
+                     "collective_bytes": r["collective_bytes_total"],
+                     "trace_s": r["trace_s"], "fits": r["fits"],
+                     "kernels": r["cost"]["kernels"]})
+        _line(f"  11e {arch} {shape} {'multi' if mp else 'single'}-pod: "
+              f"{'state' if kind == 'train' else 'params'} "
+              f"{resident / 1e9:.3f} GB/dev, cache {cache / 1e9:.3f} GB/dev, "
+              f"{r['cost']['flops_per_device']:.4g} FLOPs/dev, collectives "
+              f"{r['collective_bytes_total'] / 1e6:.1f} MB/dev, trace "
+              f"{r['trace_s']:.2f} s")
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    if mem1 != mem0 or _launches() != launches0:
+        raise AssertionError(f"11e: the dry run touched the card: "
+                             f"{mem0} -> {mem1} bytes allocated, launches "
+                             f"{launches0} -> {_launches()}")
+    wall = time.perf_counter() - t0
+    _line(f"  11e: {len(rows)} cells in {wall:.1f} s; card memory "
+          f"{mem0} bytes before and after, no launch")
+    return {"cells": rows, "wall_s": wall, "memory_allocated": mem0}
+
+
+def phase_examples() -> dict:
+    """Phase 11: 11a-11e, each model freed before the next."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn in (("quickstart", phase_quickstart),
+                     ("serve_lm", phase_serve_lm),
+                     ("train_lm", phase_train_lm),
+                     ("policy_demo", phase_policy_demo),
+                     ("dryrun", phase_dryrun)):
+        t = time.perf_counter()
+        out[name] = fn()
+        out[name]["secs"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t0
+    _line(f"phase 11 examples and dry run ok in {out['secs']:.1f} s ("
+          + ", ".join(f"{n} {out[n]['secs']:.1f} s" for n in
+                      ("quickstart", "serve_lm", "train_lm", "policy_demo",
+                       "dryrun")) + f"){_on_card()}")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4432,12 +4930,23 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def lap(name):
+        # the seconds since the previous lap: each phase's wall time
+        now = time.perf_counter()
+        phase_s[name], last[0] = now - last[0], now
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_build()
+    lap("0")
     bounce = phase_bounce()
+    lap("1")
     flash = phase_flash()
+    lap("2")
     ssm = phase_ssm()
+    lap("2b")
     serve, prof = {}, {}
     for arch, phase in (("gemma3-1b", "3"), ("hymba-1.5b", "4")):
         res = phase_serve(arch, phase)
@@ -4450,26 +4959,41 @@ def main(argv=None) -> int:
         del inputs, res                # free this model before the next
         gc.collect()
         torch.cuda.empty_cache()
+    lap("3-4")
     train_k = phase_train_kernels()
+    lap("5a")
     train = phase_train()
+    lap("5")
     gc.collect()
     torch.cuda.empty_cache()
     gspmd = phase_train_gspmd()
+    lap("6a")
     launcher = phase_launcher()
+    lap("6b")
     cpsum = phase_chunked_psum()
+    lap("6c")
     gc.collect()
     torch.cuda.empty_cache()
     verbs = phase_verbs()
+    lap("7a-7b")
     perf = phase_perftest()
+    lap("7c")
     gc.collect()
     torch.cuda.empty_cache()
     control = phase_control()
+    lap("8")
     gc.collect()
     torch.cuda.empty_cache()
     moe = phase_moe_vlm()
+    lap("9")
     gc.collect()
     torch.cuda.empty_cache()
     fam = phase_families()
+    lap("10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = phase_examples()
+    lap("11")
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -4701,7 +5225,9 @@ def main(argv=None) -> int:
          "max_abs_err": s_tr["max_abs_err"], "ms": s_tr["fwd_ms"],
          "plain_ms": s_tr["plain_fwd_ms"], "bound_ms": s_tr["bound_ms"],
          "bound_by": s_tr["bound_by"], "library_ms": None,
-         "plain_backward_ms": s_tr["bwd_ms"]},
+         "plain_backward_ms": s_tr["bwd_ms"],
+         "plain_backward_bound_ms": s_tr["bwd_bound_ms"],
+         "plain_backward_host_us": s_tr["bwd_host_us"]},
         {"name": "flash_attention (10a hymba-1.5b train forward with lse, "
                  "B=2 S=256, 25 over 5 heads, window 1024)", "route": "cuda",
          "source": flash_src, "replaces": flash_tpu,
@@ -4756,6 +5282,53 @@ def main(argv=None) -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"phase 10: {row['name']} was launched no "
                                  f"time on its path")
+    # phase 11's paths: the four examples (the dry run launches nothing);
+    # each row timed at its path's own shape
+    qs, sl, tlm, pd = (ex[k] for k in ("quickstart", "serve_lm",
+                                       "train_lm", "policy_demo"))
+
+    def flash_row(name, launches, row):
+        return {"name": name, "route": "cuda", "source": flash_src,
+                "replaces": flash_tpu, "launches": launches,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    kernels += [
+        flash_row("flash_attention (11a quickstart: the smoke gemma3's f32 "
+                  "train forward with lse on 8 ranks; timed at a rank's 2 x "
+                  "64, D 16, window 8)", qs["flash_lse"], qs["flash"]),
+        flash_row("flash_attention (11b serve_lm: the smoke gemma3's f32 "
+                  "prefills; timed at 1 x 16, D 16, window 8)",
+                  sl["launches"]["flash_attention"], sl["flash"]),
+        flash_row("flash_attention (11c train_lm: CFG_100M's f32 train "
+                  "forward with lse on 8 ranks; timed at a rank's 2 x 256)",
+                  tlm["flash_lse"], tlm["flash"]),
+        {"name": "bounce (11c train_lm --mode socket: the staged copies of "
+                 "the gradient psums; timed on the int32 embedding "
+                 "gradient, 103 MB)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": tlm["socket_launches"]["bounce"],
+         "max_abs_err": tlm["bounce"]["max_abs_err"],
+         "ms": tlm["bounce"]["ms"], "plain_ms": tlm["bounce"]["plain_ms"],
+         "bound_ms": tlm["bounce"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": tlm["bounce"]["library_ms"]},
+        {"name": "bounce_stall (QoS stall; 11d policy_demo acts 2-4, 5 ms a "
+                 "missing token)", "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/core/techniques.py:75 (delay_chain_dyn, an "
+                     "XLA loop beside the Pallas kernel)",
+         "launches": pd["launches"]["bounce_stall"], "max_abs_err": 0.0,
+         "ms": pd["stall"]["ms"], "plain_ms": pd["stall"]["plain_ms"],
+         "bound_ms": pd["stall"]["bound_ms"], "bound_by": "operations",
+         "library_ms": None},
+    ]
+    for row in kernels[-5:]:
+        if row["launches"] <= 0:
+            raise AssertionError(f"phase 11: {row['name']} was launched no "
+                                 f"time on its path")
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -4768,10 +5341,12 @@ def main(argv=None) -> int:
                                    "chunked_psum": cpsum,
                                    "verbs": verbs, "perftest": perf,
                                    "control": control, "moe_vlm": moe,
-                                   "families": fam,
+                                   "families": fam, "examples": ex,
                                    "profile": prof or None,
+                                   "phase_s": phase_s,
                                    "kernels": kernels},
                                   indent=1))
+    _line(f"phase seconds {json.dumps(phase_s)}")
     _line(f"chip_smoke: every phase ok in {time.perf_counter() - t_start:.1f}"
           f" s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,7 +54,8 @@ def _preempt_bucket(dp, state, tenant: str | None):
 
 def chunked_psum(dp, x: torch.Tensor, axis, *, num_chunks: int,
                  tag: str = "chunked_psum", qos: str = "default",
-                 state=None, tenant: str | None = None):
+                 state=None, tenant: str | None = None,
+                 interleave: Callable[[int], None] | None = None):
     """psum the rank-stacked ``x`` (R, n, ...) in ``num_chunks`` chunks of
     its per-rank leading dim, issued one after another.  Returns ``(out,
     state)``, ``out`` bit for bit ``dp.psum(x, axis)``'s; with runtime
@@ -68,9 +69,12 @@ def chunked_psum(dp, x: torch.Tensor, axis, *, num_chunks: int,
     count there: nothing waits on the host) and is counted as
     throttled.  The stall delays the whole rank-stacked chunk
     once.  The chunks are issued ``precharged`` so the pipeline's
-    token-bucket stage does not debit them again.  (``repro``'s
-    ``interleave`` and ``preempt`` arguments have no caller and are not
-    ported.)"""
+    token-bucket stage does not debit them again.
+
+    ``interleave``, when given, is called with the chunk index before
+    each chunk is issued, as in ``repro``: the caller's other work runs
+    between the chunks.  (``repro``'s ``preempt`` argument has no caller
+    and is not ported.)"""
     n = x.shape[1]
     chunks = split_chunks(x, num_chunks, axis=1)
     bucket = _preempt_bucket(dp, state, tenant)
@@ -78,6 +82,8 @@ def chunked_psum(dp, x: torch.Tensor, axis, *, num_chunks: int,
     ti = dp.tenant_index(tenant)
     outs = []
     for i, c in enumerate(chunks):
+        if interleave is not None:
+            interleave(i)
         if bucket is not None:
             rec = tl.OpRecord(kind="all_reduce", tag=f"{tag}/chunk{i}",
                               bytes=tl.nbytes(c[0]),

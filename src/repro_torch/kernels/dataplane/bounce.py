@@ -23,7 +23,10 @@ input: the payload is only ever moved, never computed on.
 A wrapper given a CPU tensor runs the kernel's plain version (roll /
 roll-back copies as in ``core/techniques.staged_copy``, the delay chain on
 the host, counters from the same chunk split); given a CUDA tensor it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises; given a ``meta`` tensor it calls the
+operator ``repro_torch::bounce``, the kernel's shape rule, which a
+dispatch mode sees (``analysis/cost.py`` prices it).  ``LAUNCHES`` counts
+kernel launches.
 Given a tensor that wants a gradient, either wrapper goes through an
 autograd function whose backward is the identity on ``x``, so a mediated
 edge inside a loss passes its gradient on unchanged.
@@ -140,9 +143,28 @@ def _kernel(x: torch.Tensor, copies: int, delay_iters: int,
     return out, ctrs
 
 
+def _meta_outputs(x, copies, delay_iters, chunk_elems):
+    """The kernel's outputs on ``meta``: the copy and the counters."""
+    _, n_chunks, _ = _split(x.numel(), delay_iters, chunk_elems)
+    return torch.empty_like(x), torch.empty(
+        (n_chunks, NUM_COST_COLS), dtype=torch.int32, device=x.device)
+
+
+# the shape rule as an operator with a Meta kernel only, so that a
+# dispatch mode sees the call with its arguments; the card's launch stays
+# a direct ``ctypes`` call, off the dispatcher's host cost
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("bounce(Tensor x, int copies, int delay_iters, "
+            "int chunk_elems) -> (Tensor, Tensor)")
+_LIB.impl("bounce", _meta_outputs, "Meta")
+_shape_rule = torch.ops.repro_torch.bounce
+
+
 def _run(x, copies: int, delay_iters: int, chunk_elems: int):
     if x.is_cuda:
         return _kernel(x, copies, delay_iters, chunk_elems)
+    if x.is_meta:
+        return _shape_rule(x, copies, delay_iters, chunk_elems)
     if x.device.type != "cpu":
         raise ValueError(f"no dataplane kernel for device {x.device}")
     return _plain(x, copies, delay_iters, chunk_elems)

@@ -11,7 +11,10 @@ chain's result goes to a one-word scratch buffer per card.
 ``repro``'s counterpart is ``core/techniques.delay_chain_dyn``, an XLA
 loop rather than the Pallas kernel, so the stall bumps no cost counter.
 A CPU tensor takes the plain version: the host chain of
-``techniques.delay_scalar`` and ``tie``.  ``LAUNCHES`` counts launches.
+``techniques.delay_scalar`` and ``tie``; a ``meta`` tensor is returned
+as it is, after a call of the operator ``repro_torch::bounce_stall``,
+which a dispatch mode sees (``analysis/cost.py`` prices it).
+``LAUNCHES`` counts launches.
 """
 
 from __future__ import annotations
@@ -49,6 +52,15 @@ def stall_plain(x: torch.Tensor, iters) -> torch.Tensor:
     return tech.tie(x, tech.delay_scalar(max(n, 0)))
 
 
+# the stall on ``meta`` as an operator with a Meta kernel and no output
+# (the wrapper returns ``x``), so that a dispatch mode sees the call and
+# its trip count; the card's launch stays a direct ``ctypes`` call
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("bounce_stall(Tensor x, int iters) -> ()")
+_LIB.impl("bounce_stall", lambda x, iters: None, "Meta")
+_shape_rule = torch.ops.repro_torch.bounce_stall
+
+
 def _kernel(x: torch.Tensor, iters: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     if iters.device != x.device or iters.numel() != 1:
@@ -72,6 +84,12 @@ def stall(x: torch.Tensor, iters) -> torch.Tensor:
             iters = torch.full((), int(iters), dtype=torch.int32,
                                device=x.device)
         return _kernel(x, iters)
+    if x.is_meta:
+        # a trip count on meta has no value: the call is priced by its
+        # trip count only when given a Python int
+        _shape_rule(x, 0 if isinstance(iters, torch.Tensor)
+                    else max(int(iters), 0))
+        return x
     if x.device.type != "cpu":
         raise ValueError(f"no stall kernel for device {x.device}")
     return stall_plain(x, iters)

@@ -3,7 +3,10 @@
 Takes the framework's (B, S, H, D) layout, handles GQA shapes and the
 runtime window / valid-length scalars.  Given CUDA tensors it launches the
 Hopper kernel (or raises); given CPU tensors it runs the plain version,
-``ref.flash_attention_ref``.  ``LAUNCHES`` counts kernel launches and
+``ref.flash_attention_ref``; given ``meta`` tensors it calls the
+operator ``repro_torch::flash_attention``, the kernel's shape rule, which
+allocates the kernel's outputs there and which a dispatch mode sees
+(``analysis/cost.py`` prices it).  ``LAUNCHES`` counts kernel launches and
 ``LSE_LAUNCHES`` those of them that also wrote the log-sum-exp.
 
 ``return_lse=True`` adds each row's natural-log log-sum-exp of its
@@ -148,6 +151,34 @@ def _kernel(q, k, v, *, causal, window, logit_cap, valid_len,
     return o, _lse_view(lse, kvh)
 
 
+def _meta_outputs(q, k, v, causal, window, valid_len, return_lse):
+    """The kernel's outputs on ``meta``: o and the (B, H, Sq) lse."""
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), torch.empty((b, h, sq), dtype=torch.float32,
+                                            device=q.device)
+
+
+# the shape rule as an operator with a Meta kernel only, so that a
+# dispatch mode sees the call with its arguments; the card's launch stays
+# a direct ``ctypes`` call, off the dispatcher's host cost
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, int? valid_len, bool return_lse) -> (Tensor, Tensor)")
+_LIB.impl("flash_attention", _meta_outputs, "Meta")
+_shape_rule = torch.ops.repro_torch.flash_attention
+
+
+def _meta(q, k, v, *, causal, window, logit_cap, valid_len,
+          return_lse=False):
+    _check(q, k, v)
+    if return_lse:
+        _check_rows(q, k, causal, window, valid_len)
+    o, lse = _shape_rule(q, k, v, bool(causal), int(window or 0),
+                         None if valid_len is None else int(valid_len),
+                         bool(return_lse))
+    return (o, _lse_view(lse, k.shape[2])) if return_lse else o
+
+
 def tensor_map_ns(q, k, v, iters: int = 1000) -> float:
     """Host nanoseconds the bf16 kernel's launch spends encoding the three
     TMA tensor maps of one call (q/k/v on the card, D >= 64)."""
@@ -175,6 +206,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
               valid_len=valid_len, return_lse=return_lse)
     if q.device.type == "cuda":
         return _kernel(q, k, v, **kw)
+    if q.is_meta:
+        return _meta(q, k, v, **kw)
     if q.device.type != "cpu":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     return flash_attention_plain(q, k, v, **kw)

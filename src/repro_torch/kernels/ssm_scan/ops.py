@@ -1,7 +1,10 @@
 """Public wrapper for the SSM-scan kernel (``csrc/ssm_scan.cu``).
 
 Given CUDA tensors it launches the Hopper kernel (or raises); given CPU
-tensors it runs the plain version, ``ref.ssm_scan_ref``.  Unlike
+tensors it runs the plain version, ``ref.ssm_scan_ref``; given ``meta``
+tensors it calls the operator ``repro_torch::ssm_scan``, the kernel's
+shape rule, which a dispatch mode sees (``analysis/cost.py`` prices
+it).  Unlike
 ``repro``'s wrapper it pads nothing: the kernel takes any sequence
 length.  The kernel scans time chunks in parallel and carries the state
 between them (:func:`chunk_plan` cuts the sequence); ``ref.py`` mirrors
@@ -154,6 +157,26 @@ def _kernel(dt, x, a, b, c, h0, chunk: int):
     return y, hf
 
 
+# the shape rule (y and h_final on ``meta``) as an operator with a Meta
+# kernel only, so that a dispatch mode sees the call with its arguments;
+# the card's launch stays a direct ``ctypes`` call, off the dispatcher's
+# host cost
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssm_scan(Tensor dt, Tensor x, Tensor a, Tensor b, Tensor c, "
+            "Tensor h0) -> (Tensor, Tensor)")
+_LIB.impl("ssm_scan", lambda dt, x, a, b, c, h0: (torch.empty_like(dt),
+                                                  torch.empty_like(h0)),
+          "Meta")
+_shape_rule = torch.ops.repro_torch.ssm_scan
+
+
+def _meta(dt, x, a, b, c, h0):
+    if not all(t.is_meta for t in (x, a, b, c, h0)):
+        raise ValueError("ssm_scan: inputs on different devices")
+    _check(dt, x, a, b, c, h0)
+    return _shape_rule(dt, x, a, b, c, h0)
+
+
 def ssm_scan(dt, x, a, b, c, h0=None, *, chunk: int = 128,
              channel_block: int = 256):
     """Selective scan.  dt/x: (B, S, di) float32 or bfloat16; a: (di, N);
@@ -175,6 +198,8 @@ def ssm_scan(dt, x, a, b, c, h0=None, *, chunk: int = 128,
                          dtype=torch.float32, device=dt.device)
     if dt.is_cuda:
         return _kernel(dt, x, a, b, c, h0, chunk)
+    if dt.is_meta:
+        return _meta(dt, x, a, b, c, h0)
     if dt.device.type != "cpu":
         raise ValueError(f"no ssm_scan kernel for device {dt.device}")
     return ssm_scan_plain(dt, x, a, b, c, h0)

@@ -10,6 +10,13 @@ tensor "inside" an explicit data-parallel step (``repro``'s
 ``shard_map`` body) carries a leading rank dim of size R: slice ``r`` is
 what rank ``r`` holds.  The dataplane's explicit collectives take and
 return such rank-stacked tensors (``core/dataplane.py``).
+
+:func:`make_mesh` takes the place of ``repro.core.compat.make_mesh``.
+``repro/core/compat.py`` has no counterpart in the port: it shims JAX
+versions (``jax.make_mesh`` with axis types, ``shard_map`` under its old
+and new names, the Pallas-TPU compiler parameters), and the port calls
+none of them.  A ``shard_map`` body becomes a call over rank-stacked
+tensors on the descriptor here.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ fault-tolerant ``run_loop``: ``checkpoint_every``, ``checkpoint_dir`` and
 final loss and the telemetry report.  The overrides set
 ``TrainConfig`` fields (``steps=3 seq_len=256 global_batch=4``), as
 ``repro.launch.train``'s do; ``elastic.*`` overrides set
-``ElasticConfig`` fields.
+``ElasticConfig`` fields; ``model.*`` overrides are accepted and
+ignored, as ``repro``'s launcher ignores them.
 
 ``--timeline`` switches the step to ``runtime_accounting=True`` (the
 per-tenant runtime state threaded through the gradient sync) and
@@ -96,13 +97,14 @@ def main(argv=None):
                     help="torch device to train on (default cuda)")
     ap.add_argument("overrides", nargs="*", default=[])
     args = ap.parse_args(argv)
-    if any(o.startswith("model.") for o in args.overrides):
-        raise NotImplementedError("model.* overrides are not ported")
 
     cfg = get_model_config(args.arch, smoke=args.smoke)
     model = build_model(cfg, device=args.device)
+    # model.* overrides are filtered out and applied nowhere, as in repro:
+    # the run goes on with the arch's config
     train = apply_overrides(TrainConfig(), [
-        o for o in args.overrides if not o.startswith("elastic.")])
+        o for o in args.overrides
+        if not o.startswith(("model.", "elastic."))])
     elastic = apply_overrides(
         ElasticConfig(enabled=args.elastic),
         [o[len("elastic."):] for o in args.overrides

@@ -19,7 +19,12 @@ from repro_torch.layers.common import (
     softcap,
 )
 from repro_torch.layers.embedding import embed, embedding_init, logits
-from repro_torch.layers.kvcache import kv_cache_init, kv_update
+from repro_torch.layers.kvcache import (
+    cache_positions,
+    cache_validity,
+    kv_cache_init,
+    kv_update,
+)
 from repro_torch.layers.mamba import mamba, mamba_init, mamba_state_init
 from repro_torch.layers.mlp import mlp, mlp_init
 from repro_torch.layers.moe import moe, moe_init, route

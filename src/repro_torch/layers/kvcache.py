@@ -101,6 +101,17 @@ def slot_validity(max_len: int, pos: torch.Tensor) -> torch.Tensor:
             <= pos.to(torch.int32)[:, None])
 
 
+def cache_positions(max_len: int, device) -> torch.Tensor:
+    """int32 (max_len,) positions of a cache's entries on ``device``."""
+    return torch.arange(max_len, dtype=torch.int32, device=device)
+
+
+def cache_validity(max_len: int, filled_len, device) -> torch.Tensor:
+    """Boolean (max_len,) mask of the filled entries of a cache on
+    ``device``."""
+    return cache_positions(max_len, device) < filled_len
+
+
 # ---------------------------------------------------------------------------
 # Paged KV block pool
 # ---------------------------------------------------------------------------

@@ -117,7 +117,9 @@ def mamba(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
     dt = F.softplus(
         torch.einsum("bsr,re->bse", dt_low, params["dt_proj"].to(x.dtype))
         .float() + params["dt_bias"])                          # (B,S,di)
-    A = -torch.exp(params["A_log"])                            # (di,N)
+    # bf16 parameters (the dry run's serve cells) promote to float32 as
+    # jnp's arithmetic does
+    A = (-torch.exp(params["A_log"])).float()                  # (di,N)
 
     h0 = (state["h"] if state is not None
           else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))

@@ -226,7 +226,7 @@ def slstm(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
 
     wx = (torch.einsum("bsd,de->bse", x, params["w"].to(x.dtype)).float()
           + params["b"])                                     # (B,S,4d)
-    R = params["r"]                                          # (H,hd,4hd)
+    R = params["r"].float()      # (H,hd,4hd); bf16 promotes as in jnp
 
     hh, c, n, m = state["h"], state["c"], state["n"], state["m"]
     ys = []

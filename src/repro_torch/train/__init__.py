@@ -8,8 +8,10 @@ from repro_torch.train.step import (
     make_explicit_dp_step,
     make_train_step,
     rank_grads,
+    state_from_params,
 )
 
 __all__ = ["TrainState", "init_state", "make_train_step",
-           "make_explicit_dp_step", "rank_grads", "sync_grads",
+           "make_explicit_dp_step", "rank_grads", "state_from_params",
+           "sync_grads",
            "err_state_init"]

@@ -47,7 +47,13 @@ def init_state(model, seed, compression: str = "none",
                opt_dtype: str = "float32") -> TrainState:
     """Fresh parameters from ``seed`` (an int or a ``torch.Generator``),
     zero moments and step."""
-    params = model.init(seed)
+    return state_from_params(model.init(seed), compression, opt_dtype)
+
+
+def state_from_params(params: dict, compression: str = "none",
+                      opt_dtype: str = "float32") -> TrainState:
+    """The train state :func:`init_state` builds around ``params`` (held,
+    not copied: a step updates them in place)."""
     dev = tree_flatten(params)[0][1].device
     return TrainState(params=params, opt=adamw_init(params, opt_dtype),
                       step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -258,5 +264,5 @@ def make_explicit_dp_step(model, run, dp, *, axis: str = "data",
     return stateless_step
 
 
-__all__ = ["TrainState", "init_state", "make_train_step",
-           "make_explicit_dp_step", "rank_grads"]
+__all__ = ["TrainState", "init_state", "state_from_params",
+           "make_train_step", "make_explicit_dp_step", "rank_grads"]

@@ -105,5 +105,57 @@ def test_cpu_tensors_take_plain_versions_only():
     q = torch.ones(1, 8, 2, 16)
     ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
     assert (bounce.LAUNCHES, ops.LAUNCHES) == before
-    with pytest.raises(ValueError, match="no dataplane kernel"):
-        bounce.mediated_cost(torch.ones(4, device="meta"), 10, 1)
+    # a meta tensor takes neither: the kernel's shape rule runs, for the
+    # cost counter, and nothing launches
+    out, ctrs = bounce.mediated_cost(torch.ones(4, device="meta"), 10, 1)
+    assert out.is_meta and ctrs.is_meta and tuple(ctrs.shape) == (1, 2)
+    assert (bounce.LAUNCHES, ops.LAUNCHES) == before
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel and no plain
+    version (an XPU), which a CPU-only build cannot make for real."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(*shape):
+    return torch.ones(*shape).as_subclass(_Elsewhere)
+
+
+def _bounce(x):
+    from repro_torch.kernels.dataplane import bounce
+    return bounce.mediated_cost(x, 10, 1)
+
+
+def _stall(x):
+    from repro_torch.kernels.dataplane import stall
+    return stall.stall(x, 10)
+
+
+def _flash(x):
+    from repro_torch.kernels.flash_attention import ops
+    q = x.reshape(1, 8, 2, 16)
+    return ops.flash_attention(q, q, q)
+
+
+def _scan(x):
+    from repro_torch.kernels.ssm_scan import ops
+    dt = x.reshape(1, 4, 64)
+    a, bc, h0 = _elsewhere(64, 2), _elsewhere(1, 4, 2), _elsewhere(1, 64, 2)
+    return ops.ssm_scan(dt, dt, a, bc, bc, h0)
+
+
+@pytest.mark.parametrize("wrapper, match", [
+    (_bounce, "no dataplane kernel"), (_stall, "no stall kernel"),
+    (_flash, "no flash-attention kernel"), (_scan, "no ssm_scan kernel")],
+    ids=["bounce", "stall", "flash_attention", "ssm_scan"])
+def test_devices_with_no_kernel_raise(wrapper, match):
+    """A tensor on neither the card, the CPU nor ``meta`` is refused: no
+    wrapper falls back to its plain version on it."""
+    x = _elsewhere(256)
+    assert x.device.type == "xpu" and not (x.is_cuda or x.is_meta)
+    with pytest.raises(ValueError, match=match):
+        wrapper(x)

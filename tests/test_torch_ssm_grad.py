@@ -138,13 +138,27 @@ def test_one_cotangent_may_be_absent():
         _assert_close(g.numpy(), j, name)
 
 
-def test_kernel_forward_never_falls_back():
-    """On a device with no kernel and no plain fallback (here ``meta``)
-    the forward raises instead of taking the plain version."""
+def test_kernel_forward_never_falls_back(monkeypatch):
+    """On a device with no kernel and no plain fallback (here ``meta``,
+    where the kernel's shape rule runs for the cost counter) the forward
+    never takes the plain version: it allocates the kernel's outputs,
+    adds the kernel's cost and launches nothing."""
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.kernels.ssm_scan import ops
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(ops, "ssm_scan_plain", refuse)
+    monkeypatch.setattr(ops, "ssm_scan_ref", refuse)
     arrs, _ = _inputs((1, 4, 8, 2))
     leaves = [torch.from_numpy(t).to("meta").requires_grad_() for t in arrs]
-    with pytest.raises(ValueError, match="no ssm_scan kernel"):
-        SSMScan.apply(*leaves, False)
+    n0 = ops.LAUNCHES
+    with CostCounter() as c:
+        y, hf = SSMScan.apply(*leaves, False)
+    assert y.is_meta and hf.is_meta and ops.LAUNCHES == n0
+    assert (tuple(y.shape), tuple(hf.shape)) == ((1, 4, 8), (1, 8, 2))
+    assert c.kernels["ssm_scan"]["calls"] == 1
 
 
 @pytest.mark.cuda
