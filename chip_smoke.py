@@ -8,8 +8,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
 
 0. the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions, and the build of every Hopper kernel (bounce,
-   flash_attention, ssm_scan) from the sources in the checkout (one
-   ``nvcc`` per source, all started together);
+   flash_attention and its backward, ssm_scan and its backward) from the
+   sources in the checkout (one ``nvcc`` per source, all started
+   together);
 1. the dataplane bounce/cost kernel against its plain version: bit
    identity and exact counters over f32/bf16/int32/uint8 payloads with
    NaN and -0.0, ragged / single / whole-chunk sizes, copies 0-3 and
@@ -44,10 +45,12 @@ Phases, one line each; any failure raises and the script exits nonzero:
    max(1, |ref|) on outputs of max |ref| >= 1), its time (CUDA events
    and profiler device time) against its byte bound, and its host time
    per call at decode; then ``SSMScan`` at hymba's train shape (B 2, S
-   256, mamba's own dt and A): the kernel forward and the plain backward
-   against autograd through the plain time loop run in float64, every
-   input's gradient within 2e-5 x max(1, |ref|), and the backward's ms a
-   call beside the forward's, its byte bound and its host us a call;
+   256, mamba's own dt and A): one launch each of the kernel forward and
+   the kernel backward, every input's gradient against autograd through
+   the plain time loop run in float64 within 2e-5 x max(1, |ref|); the
+   kernel backward against ``ssm_scan_bwd_plain`` at the same bound and
+   bit for bit over two calls; its ms, device ms and host us a call
+   against its bound and the plain backward's;
 3. the serving path at gemma3-1b's full width (26 layers, random weights
    from a seed, bf16 compute) through a ``cord`` dataplane with
    ``emulate_costs``: 8 requests on the continuous engine, the kernels'
@@ -75,7 +78,15 @@ Phases, one line each; any failure raises and the script exits nonzero:
    output as phase 2 holds it), its time against ATen's flash attention
    (which also returns the lse); the QoS stall kernel returns ``x``
    itself with one launch and no stream sync (sync debug mode "error"),
-   and its chain's slope is at least 1 ns an iteration;
+   and its chain's slope is at least 1 ns an iteration.  At every flash
+   case with its lse (here, 6a's B=4, 8b's B=1, 10a's hymba heads, phase
+   2's whisper encoder and cross attention and phase 11's f32 paths) the
+   flash backward kernel against its plain version: f32 within 2e-5 x
+   max(1, |plain|), bf16 each gradient at cosine > 0.999 and within 2e-2
+   x max |plain|, two calls bit for bit; its ms, device ms and host us
+   against its bound, its plain version and ATen's flash backward where
+   that computes the same gradients (bf16, no soft cap, no binding
+   window);
 5. training: full-width, full-depth gemma3-1b from seed 0 (f32
    parameters, bf16 compute) through ``make_explicit_dp_step`` on a mesh
    of 2 ranks on the card, global batch 4, seq 256, 3 steps, with
@@ -88,8 +99,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
    float32 counter as the same adds give it), ``throttled`` as the port's
    CPU path gives it for the same ops, ``kernel_iters`` the sum of
    ``kernel_cost_totals``; (d) ``sync_grads`` under the sync debug mode
-   "error"; (e) launches per step: flash with lse 26 x 2, bounce 2 x 13
-   (cord's cost is on the send side only), stall 2 x 13.  It prints step
+   "error"; (e) launches per step: flash with lse 26 x 2 and its backward
+   26 x 2, bounce 2 x 13 (cord's cost is on the send side only), stall
+   2 x 13.  It prints step
    wall ms, ``sync_grads`` ms, the psums' bounce time against
    ``torch.clone`` of the same payloads, and peak memory.
 
@@ -105,8 +117,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
    records the same (kind, tag) list in every mode; (e) launches per
    step in the forward and in the backward exactly
    ``_gspmd_launches``'s (bounce 186 forward; 1 backward, 183 with
-   remat; flash with lse 26 forward, 26 more backward with remat; no
-   stall); (f) step wall ms, one profiled step's device busy ms, peak
+   remat; flash with lse 26 forward, 26 more backward with remat; the
+   flash backward 26 in the backward; no stall); (f) step wall ms, one
+   profiled step's device busy ms, peak
    memory per mode; the loss/logits edge's bounce (1.07 GB) against its
    plain version and ``torch.clone``, flash with lse at B=4;
 6b. the launcher, ``repro_torch.launch.train.main(["--full", "steps=3",
@@ -164,7 +177,8 @@ Phases, one line each; any failure raises and the script exits nonzero:
    5's dataplane: cost emulation and a QoS bucket), metered by
    ``elastic.meter_quota_bytes`` under one step's psums: a trigger and a
    remesh to 2 ranks, then ``remesh-skipped`` for ``max_remesh``; bounce,
-   stall and flash-with-lse launches per psum / layer follow the ranks
+   stall, flash-with-lse and flash backward launches per psum / layer
+   follow the ranks
    (4 before the move, 2 after); every loss within 1e-4 relative of the
    same launcher at 4 ranks without the flags; the rotated sink read
    back equals the artifact; the run's peak memory is below the 50.11
@@ -200,7 +214,8 @@ Phases, one line each; any failure raises and the script exits nonzero:
    plain one inside the same autograd function, loss within 2e-2
    relative, every gradient at cosine > 0.99; (c) the aux loss finite and
    > 0; (d) no gradient leaf zero or missing, the router's included; (e)
-   flash with lse once in the forward;
+   flash with lse once in the forward and its backward kernel once in
+   the backward;
 9c. llava-next-34b at full width (d_model 7168, 56 heads over 8 kv
    heads, head_dim 128, d_ff 20480, vocab 64000, 2,880 patches of 1024)
    cut to 16 of 60 layers (9.84 B parameters): one ``Model.prefill`` of
@@ -228,9 +243,10 @@ Phase 9 runs alone after phase 0:
    inside the same autograd functions: loss within 2e-2 relative, every
    gradient leaf at cosine > 0.99, ``A_log``, ``dt_bias`` and ``D`` among
    them; (c) no gradient leaf zero or missing; (d) per forward 32
-   ``ssm_scan`` and 32 flash-with-lse launches, bounce once a dataplane
-   record (the psums in the explicit step).  It prints step wall ms, the
-   scan backward's ms a call (CUDA events in the step) and peak memory,
+   ``ssm_scan`` and 32 flash-with-lse launches, per backward 32 of each
+   backward kernel, bounce once a dataplane record (the psums in the
+   explicit step).  It prints step wall ms, the scan backward kernel's ms
+   a call (CUDA events in the step) and peak memory,
    then times flash with its lse at a rank's shape;
 10b. xlstm-350m at full width and depth (24 layers of "mmms"): phase
    3's 8 requests on the continuous engine (each prefilled at its exact
@@ -247,7 +263,7 @@ Phase 9 runs alone after phase 0:
    every real position below whisper's 448), twice, with identical
    tokens; one GSPMD step at 4 x 256 with frames, gated as 10a's
    (a)-(c).  Flash launches 36 a forward: 12 encoder, 12 decoder self,
-   12 cross.
+   12 cross; the flash backward 36 in the backward.
 
 Phase 10 runs alone after phase 0:
 ``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_families()"``.
@@ -256,7 +272,7 @@ Phase 10 runs alone after phase 0:
    explicit-DP steps of 8 ranks on the card, global batch 16 x 64, a cord
    dataplane.  Gates: the loss at step 15 below step 0's; a second run
    from seed 0 gives the same losses bit for bit; flash launches 20 x 8 x
-   4 layers, each with its lse;
+   4 layers, each with its lse, and as many backward launches;
 11b. ``repro_torch.examples.serve_lm``: 10 requests over 4 slots, twice,
    identical tokens, 160 of them; flash launches one a layer a prefill;
    tok/s;
@@ -269,7 +285,7 @@ Phase 10 runs alone after phase 0:
    times, past the two retries (3 failures, 1 restore of step 50, steps
    50-59 again within 1e-6 of their first losses); 10 steps with ``--mode
    socket``, whose staged copies launch bounce twice (send, complete) a
-   rank a psum; flash with lse 8 x 12 a step;
+   rank a psum; flash with lse and its backward 8 x 12 a step each;
 11d. ``repro_torch.examples.policy_demo``'s four acts: the quota refused
    at the same iteration as act 1 on the CPU, strict security refused,
    ``throttled > 0`` for the noisy tenant only, a remesh 8 -> 2 after the
@@ -312,12 +328,23 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12               # H100 SXM float64 outside the tensor cores
 # bf16 flash kernel vs plain: one bf16 ulp of an output below 2 (2^-7)
 # plus the rounding of P to bf16
 FLASH_BF16_TOL = 1e-2
 # ssm_scan kernel vs plain, f32: both compute in f32 with expf; the sum
 # over N and fma contraction round differently
 SSM_F32_TOL = 2e-5
+# flash backward kernel vs plain: f32, both in f32, summed in other
+# orders, within 2e-5 x max(1, |plain|); bf16 (both compute in f32 from
+# bf16 inputs and round the gradients to bf16) each gradient at cosine >
+# 0.999 and within 2e-2 x max |plain|
+FLASH_BWD_F32_TOL = 2e-5
+FLASH_BWD_BF16_COS = 0.999
+FLASH_BWD_BF16_REL = 2e-2
+FLASH_BWD_REPLACES = ("src/repro/layers/attention.py:248 (_flash_bwd, the "
+                      "custom_vjp partner of the Pallas forward, compiled "
+                      "by XLA; no TPU kernel)")
 
 
 CARD = "card not read"   # nvidia-smi's name and power limit (phase 0)
@@ -750,6 +777,105 @@ def phase_flash() -> dict:
             "library_host_us": sdpa_host_us}
 
 
+def _flash_bwd_case(gen, q, k, v, o, lse, *, causal: bool, window: int,
+                    cap: float) -> dict:
+    """The flash backward kernel against its plain version from the
+    forward's ``o`` and ``lse`` and a random ``do``: f32 within
+    FLASH_BWD_F32_TOL x max(1, |plain|), bf16 at cosine > FLASH_BWD_BF16_COS
+    and within FLASH_BWD_BF16_REL x max |plain|; two calls bit for bit; its
+    time (CUDA events, profiler device time, host us a call) against its
+    bound (``analysis/cost.flash_bwd_cost`` at the dtype's peak), its plain
+    version and ATen's flash attention backward where that computes the
+    same gradients (bf16, no soft cap, a window that does not bind)."""
+    import torch
+    from repro_torch.analysis.cost import flash_bwd_cost
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain)
+
+    bf16 = q.dtype == torch.bfloat16
+    do = torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    n0 = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    what = (f"flash backward B={b} Sq={sq} Skv={skv} H={h} KVH={kvh} d={d} "
+            f"{q.dtype} causal={causal} w={window} cap={cap}")
+    if fa.BWD_LAUNCHES - n0 != 2:
+        raise AssertionError(f"{what}: {fa.BWD_LAUNCHES - n0} kernel "
+                             f"launches for 2 calls")
+    errs, coss = {}, {}
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(_bits(g), _bits(g2)):
+            raise AssertionError(f"{what}: two calls gave other bits of "
+                                 f"{name}")
+        gf, wf = g.float(), w.float()
+        err = (gf - wf).abs()
+        errs[name] = err.max().item()
+        if bf16:
+            coss[name] = _cos(gf, wf)
+            ok = coss[name] > FLASH_BWD_BF16_COS and \
+                errs[name] <= FLASH_BWD_BF16_REL * wf.abs().max().item()
+        else:
+            ok = bool((err <= FLASH_BWD_F32_TOL
+                       * wf.abs().clamp(min=1.0)).all())
+        if not (ok and math.isfinite(errs[name])):
+            raise AssertionError(f"{what}: {name} error {errs[name]}, "
+                                 f"cosine {coss.get(name)}")
+    del got, again, want
+    call = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa
+    ms, dev_ms = _cuda_ms(call, n=10), _device_ms(call, n=10)
+    host_us = _host_us(call, n=100)    # at most 500 launches: enqueue time
+    plain = _cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       **kw), n=3, warmup=1)
+    lib, lib_why = None, None
+    if not bf16:
+        lib_why = "ATen's flash attention backward takes fp16 or bf16 only"
+    elif cap:
+        lib_why = "no library call applies a tanh soft cap"
+    elif window and window < max(sq, skv):
+        lib_why = "ATen's flash attention has no sliding window"
+    else:
+        # ATen's forward for its own out and lse, (B, H, S, D), k and v
+        # repeated over the group; its backward is what is timed
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+                  .contiguous() for t in (k, v))
+        dot = do.transpose(1, 2).contiguous()
+        out, lse_a, cq, ck, mq, mk, seed, off, _ = \
+            torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, causal)
+        bwd_op = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        lib = _cuda_ms(lambda: bwd_op(dot, qt, kt, vt, out, lse_a, cq, ck,
+                                      mq, mk, 0.0, causal, seed, off), n=10)
+    flops, nbytes = flash_bwd_cost(tuple(q.shape), skv, kvh,
+                                   q.element_size(), causal=causal,
+                                   window=window)
+    peak = BF16_FLOPS if bf16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"batch": b, "sq": sq, "skv": skv, "h": h, "kvh": kvh, "d": d,
+           "dtype": str(q.dtype).replace("torch.", ""), "causal": causal,
+           "window": window, "logit_cap": cap, "err": errs, "cos": coss,
+           "max_abs_err": max(errs.values()), "ms": ms, "device_ms": dev_ms,
+           "host_us": host_us, "plain_ms": plain, "library_ms": lib,
+           "library_none_because": lib_why, "flops": flops, "bytes": nbytes,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    fmt = lambda x: "n/a" if x is None else f"{x:.4f} ms"  # noqa: E731
+    cos_txt = (", cos " + "/".join(f"{c:.6f}" for c in coss.values())
+               if coss else "")
+    _line(f"  {what}: err {row['max_abs_err']:.3g}{cos_txt}, bits equal "
+          f"twice; {ms:.4f} ms, device {fmt(dev_ms)}, host {host_us:.1f} "
+          f"us, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), aten "
+          f"{fmt(lib) if lib is not None else 'none: ' + lib_why}, plain "
+          f"{plain:.3f} ms{_on_card()}")
+    return row
+
+
 # whisper-small's attention that is not causal: the encoder over its 1,500
 # frames (23 whole 64-row tiles and one of 28) and the decoder's cross
 # attention from 256 text positions to them; (label, H, KVH, D, Sq, Skv)
@@ -817,6 +943,9 @@ def _flash_noncausal_case(gen, label, h, kvh, d, sq, skv, lse=False) -> dict:
            "library_ms": lib, "library_device_ms": lib_dev,
            "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if lse:
+        row["backward"] = _flash_bwd_case(gen, q, k, v, got[0], got[1],
+                                          causal=False, window=0, cap=0.0)
     fmt = lambda x: "n/a" if x is None else f"{x:.4f} ms"  # noqa: E731
     _line(f"  flash non-causal {label} Sq={sq} Skv={skv} H={h} d={d} "
           f"lse={lse}: err {err:.3g}, lse err {lse_err:.3g}, {ms:.4f} ms, "
@@ -871,17 +1000,18 @@ def _ssm_bound(shape, dtype_bytes: int) -> tuple[int, int, float, str]:
         "operations" if t_ops > t_bytes else "bytes"
 
 
-def _ssm_bwd_bound(shape) -> tuple[int, float]:
-    """(bytes, bound ms) of the scan's backward in f32: the forward's
-    inputs dt, x, a, b, c and h0 and the cotangents of y and h_final read
-    once, a gradient of each input written once; bound by bytes (its
-    operations, about twice the forward's 6 a state step, take under half
-    the byte time at the 67 TFLOP/s f32 peak)."""
-    bsz, s, di, n = shape
-    ins = 2 * bsz * s * di + 2 * bsz * s * n + di * n + bsz * di * n
-    cot = bsz * s * di + bsz * di * n
-    nbytes = 4 * (2 * ins + cot)
-    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+def _ssm_bwd_bound(shape) -> tuple[int, int, float, str]:
+    """(bytes, operations, bound ms, what bounds it) of one f32 scan
+    backward: ``analysis/cost.ssm_scan_bwd_cost`` (dt, x, a, b, c, h0 and
+    both cotangents read once, every gradient written once; 20 operations
+    a state element and step), the operations at the float64 rate: a
+    float32 backward misses the 2e-5 gate at hymba's train shape."""
+    from repro_torch.analysis.cost import ssm_scan_bwd_cost
+    flops, nbytes = ssm_scan_bwd_cost(*shape, 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F64_FLOPS * 1e3
+    return nbytes, flops, max(t_bytes, t_ops), \
+        "operations" if t_ops > t_bytes else "bytes"
 
 
 def phase_ssm() -> dict:
@@ -968,13 +1098,16 @@ SSM_TRAIN_SHAPE = (2, 256, 3200, 16)   # hymba-1.5b, a rank's 2 x 256
 
 
 def _ssm_train_case(gen) -> dict:
-    """``SSMScan`` at hymba's train shape with mamba's own dt and A: the
-    kernel forward and the plain backward against autograd through the
-    plain time loop ``ssm_scan_ref`` on the card, every input's gradient
-    within SSM_F32_TOL x max(1, |ref|); the backward's ms a call beside
-    the kernel forward's.  The loop runs on float64 copies of the inputs:
-    in float32 its own gradient of dt is off the exact one by more than
-    2e-5 at this shape, where the state lives hundreds of steps."""
+    """``SSMScan`` at hymba's train shape with mamba's own dt and A: one
+    launch of the kernel forward and one of the kernel backward, every
+    input's gradient against autograd through the plain time loop
+    ``ssm_scan_ref`` on the card within SSM_F32_TOL x max(1, |ref|); the
+    kernel backward against its plain version ``ssm_scan_bwd_plain`` at
+    the same bound and bit for bit over two calls; the backward's time
+    (CUDA events, profiler device time, host us a call) against its bound
+    and its plain version's.  The loop runs on float64 copies of the
+    inputs: in float32 its own gradient of dt is off the exact one by more
+    than 2e-5 at this shape, where the state lives hundreds of steps."""
     import torch
     from repro_torch.kernels.ssm_scan import ops as ssm
     from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_plain,
@@ -983,46 +1116,78 @@ def _ssm_train_case(gen) -> dict:
     args = _ssm_inputs(gen, SSM_TRAIN_SHAPE, torch.float32, long_memory=True)
     gy = torch.randn(args[0].shape, generator=gen, device="cuda")
     ghf = torch.randn(args[5].shape, generator=gen, device="cuda")
+    names = ("dt", "x", "a", "b", "c", "h0")
 
     def grads(fn):
         leaves = [t.clone().requires_grad_() for t in args]
         y, hf = fn(*leaves)
         return torch.autograd.grad((y * gy).sum() + (hf * ghf).sum(), leaves)
 
-    n0 = ssm.LAUNCHES
+    def within(got, want, what):
+        errs = {}
+        for name, g, r in zip(names, got, want):
+            err = (g.double() - r.double()).abs()
+            errs[name] = err.max().item()
+            if not bool((err <= SSM_F32_TOL * r.double().abs().clamp(
+                    min=1.0)).all()):
+                raise AssertionError(f"SSMScan gradient of {name} at "
+                                     f"{SSM_TRAIN_SHAPE} against {what}: "
+                                     f"error {errs[name]} above 2e-5 * "
+                                     f"max(1, |ref|)")
+        return errs
+
+    n0, b0 = ssm.LAUNCHES, ssm.BWD_LAUNCHES
     got = grads(lambda *a: ssm.SSMScan.apply(*a, False))
-    if ssm.LAUNCHES - n0 != 1:
-        raise AssertionError("SSMScan did not launch the kernel forward")
+    if (ssm.LAUNCHES - n0, ssm.BWD_LAUNCHES - b0) != (1, 1):
+        raise AssertionError("SSMScan did not launch the kernel forward and "
+                             "the kernel backward once each")
     want = grads(lambda *a: ssm_scan_ref(*(t.double() for t in a)))
     torch.cuda.synchronize()
-    names = ("dt", "x", "a", "b", "c", "h0")
-    errs = {}
-    for name, g, r in zip(names, got, want):
-        err = (g - r).abs()
-        errs[name] = err.max().item()
-        if not bool((err <= SSM_F32_TOL * r.abs().clamp(min=1.0)).all()):
-            raise AssertionError(f"SSMScan gradient of {name} at "
-                                 f"{SSM_TRAIN_SHAPE}: error {errs[name]} "
-                                 f"above 2e-5 * max(1, |ref|)")
+    errs = within(got, want, "autograd through the float64 time loop")
     del got, want
+    # the kernel backward against its plain version; two calls, one bits
+    kb = ssm.ssm_scan_bwd(*args, gy, ghf)
+    kb2 = ssm.ssm_scan_bwd(*args, gy, ghf)
+    pb = ssm_scan_bwd_plain(*args, gy, ghf)
+    torch.cuda.synchronize()
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(kb, kb2)):
+        raise AssertionError("the scan backward kernel gave other bits in a "
+                             "second call")
+    plain_errs = within(kb, pb, "ssm_scan_bwd_plain")
+    del kb, kb2, pb
     fwd_ms = _cuda_ms(lambda: ssm.ssm_scan(*args), n=20)
     plain_ms = _cuda_ms(lambda: ssm.ssm_scan_plain(*args), n=2, warmup=1)
-    bwd_ms = _cuda_ms(lambda: ssm_scan_bwd_plain(*args, gy, ghf), n=5)
-    bwd_host_us = _host_us(lambda: ssm_scan_bwd_plain(*args, gy, ghf), n=20)
+    call = lambda: ssm.ssm_scan_bwd(*args, gy, ghf)  # noqa: E731
+    bwd_ms, bwd_dev_ms = _cuda_ms(call, n=20), _device_ms(call, n=20)
+    # 100 calls: 400 launches stay inside the launch queue, so the host
+    # time is the enqueue's, not the device's
+    bwd_host_us = _host_us(call, n=100)
+    plain_call = lambda: ssm_scan_bwd_plain(*args, gy, ghf)  # noqa: E731
+    plain_bwd_ms = _cuda_ms(plain_call, n=3, warmup=1)
+    plain_bwd_host_us = _host_us(plain_call, n=10)
     nbytes, flops, bound, bound_by = _ssm_bound(SSM_TRAIN_SHAPE, 4)
-    bwd_bytes, bwd_bound = _ssm_bwd_bound(SSM_TRAIN_SHAPE)
+    bwd_bytes, bwd_flops, bwd_bound, bwd_by = _ssm_bwd_bound(SSM_TRAIN_SHAPE)
     row = {"shape": list(SSM_TRAIN_SHAPE), "grad_err": errs,
-           "max_abs_err": max(errs.values()), "fwd_ms": fwd_ms,
-           "plain_fwd_ms": plain_ms, "bwd_ms": bwd_ms, "bound_ms": bound,
-           "bound_by": bound_by, "bwd_bound_ms": bwd_bound,
-           "bwd_bytes": bwd_bytes, "bwd_host_us": bwd_host_us}
+           "max_abs_err": max(errs.values()),
+           "bwd_kernel_err": max(plain_errs.values()),
+           "bwd_kernel_errs": plain_errs, "fwd_ms": fwd_ms,
+           "plain_fwd_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+           "bwd_ms": bwd_ms, "bwd_device_ms": bwd_dev_ms,
+           "bwd_host_us": bwd_host_us, "plain_bwd_ms": plain_bwd_ms,
+           "plain_bwd_host_us": plain_bwd_host_us, "bwd_bound_ms": bwd_bound,
+           "bwd_bound_by": bwd_by, "bwd_bytes": bwd_bytes,
+           "bwd_flops": bwd_flops}
     err_txt = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    dev_txt = "n/a" if bwd_dev_ms is None else f"{bwd_dev_ms:.4f} ms"
     _line(f"  SSMScan {SSM_TRAIN_SHAPE} f32 (mamba's dt and A): kernel "
-          f"forward + plain backward against autograd through the time "
-          f"loop, gradient errors {err_txt}; "
-          f"forward {fwd_ms:.4f} ms (plain {plain_ms:.3f} ms), plain backward "
-          f"{bwd_ms:.3f} ms a call (bound {bwd_bound:.4f} ms, bytes; host "
-          f"{bwd_host_us:.1f} us a call){_on_card()}")
+          f"forward + kernel backward against autograd through the float64 "
+          f"time loop, gradient errors {err_txt}; kernel backward against "
+          f"its plain version {row['bwd_kernel_err']:.3g}, bits equal "
+          f"twice; forward {fwd_ms:.4f} ms (plain {plain_ms:.3f} ms), "
+          f"backward {bwd_ms:.4f} ms a call, device {dev_txt}, host "
+          f"{bwd_host_us:.1f} us (bound {bwd_bound:.4f} ms, {bwd_by}; plain "
+          f"backward {plain_bwd_ms:.3f} ms, host {plain_bwd_host_us:.1f} "
+          f"us){_on_card()}")
     return row
 
 
@@ -1030,22 +1195,28 @@ def _ssm_train_case(gen) -> dict:
 # phases 3 and 4: serving at full width through the CoRD dataplane
 # ---------------------------------------------------------------------------
 
-def _kernel_modules() -> dict:
-    """name -> wrapper module of every kernel (each has ``LAUNCHES``)."""
+def _kernel_counters() -> dict:
+    """name -> (wrapper module, its launch counter) of every kernel: the
+    forwards' ``LAUNCHES`` and the backwards' ``BWD_LAUNCHES``."""
     from repro_torch.kernels.dataplane import bounce, stall
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ssm_scan import ops as ssm
-    return {"bounce": bounce, "flash_attention": flash, "ssm_scan": ssm,
-            "bounce_stall": stall}
+    return {"bounce": (bounce, "LAUNCHES"),
+            "flash_attention": (flash, "LAUNCHES"),
+            "ssm_scan": (ssm, "LAUNCHES"),
+            "bounce_stall": (stall, "LAUNCHES"),
+            "flash_bwd": (flash, "BWD_LAUNCHES"),
+            "ssm_scan_bwd": (ssm, "BWD_LAUNCHES")}
 
 
 def _launches() -> dict:
-    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _kernel_counters().items()}
 
 
 def _reset_launches() -> None:
-    for mod in _kernel_modules().values():
-        mod.LAUNCHES = 0
+    for mod, attr in _kernel_counters().values():
+        setattr(mod, attr, 0)
 
 
 def _delta(before: dict) -> dict:
@@ -1637,12 +1808,11 @@ def _flash_lse_case(gen, b: int, window: int, heads=(4, 1, 256),
     sequence (S=256), batch ``b`` and ``heads`` (H, KVH, D; gemma3's by
     default): lse within LSE_TOL x max(1, |lse|), bf16 output as phase 2
     holds it; its time against its bound, its plain version, ATen's flash
-    attention (which also returns the lse; none applies a soft cap) and
-    the plain backward the train step runs."""
+    attention (which also returns the lse; none applies a soft cap); then
+    the backward kernel the train step runs, :func:`_flash_bwd_case`."""
     import torch
     from repro_torch.analysis.cost import attention_pairs
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.layers.attention import flash_attention_bwd
 
     dev = torch.device("cuda")
     s, (h, kvh, d) = TRAIN_SEQ, heads
@@ -1679,17 +1849,16 @@ def _flash_lse_case(gen, b: int, window: int, heads=(4, 1, 256),
     if (window == 0 or window >= s) and cap == 0.0:
         lib_op = torch.ops.aten._scaled_dot_product_flash_attention
         lib = _cuda_ms(lambda: lib_op(qt, kt, vt, 0.0, True), n=20)
-    # the backward the train step runs after it: plain torch
-    do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
-    bwd_ms = _cuda_ms(lambda: flash_attention_bwd(
-        q, k, v, o, lse, do, causal=True, window=window, logit_cap=cap), n=5)
+    # the backward the train step runs after it: the backward kernel
+    bwd = _flash_bwd_case(gen, q, k, v, o, lse, causal=True, window=window,
+                          cap=cap)
     flops = 4 * d * h * b * attention_pairs(s, s, True, window, s)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     row = {"batch": b, "h": h, "kvh": kvh, "d": d, "window": window,
            "logit_cap": cap, "lse_err": lse_err, "o_err": o_err,
            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
-           "library_ms": lib, "plain_bwd_ms": bwd_ms,
+           "library_ms": lib, "backward": bwd,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     _line(f"  flash+lse B={b} S={s} H={h} KVH={kvh} d={d} w={window} "
@@ -1699,7 +1868,7 @@ def _flash_lse_case(gen, b: int, window: int, heads=(4, 1, 256),
           f"{'n/a' if dev_ms is None else f'{dev_ms:.4f} ms'}, bound "
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}), "
           f"aten flash {'n/a' if lib is None else f'{lib:.4f} ms'}, "
-          f"plain {plain:.3f} ms; plain backward {bwd_ms:.3f} ms")
+          f"plain {plain:.3f} ms")
     return row
 
 
@@ -1908,8 +2077,10 @@ def phase_train() -> dict:
     # (e) launches per step
     per = {"flash_attention": cfg.num_layers * TRAIN_RANKS,
            "flash_lse": cfg.num_layers * TRAIN_RANKS,
+           "flash_bwd": cfg.num_layers * TRAIN_RANKS,
            "bounce": TRAIN_RANKS * len(sizes) * sides,
-           "bounce_stall": TRAIN_RANKS * len(sizes), "ssm_scan": 0}
+           "bounce_stall": TRAIN_RANKS * len(sizes), "ssm_scan": 0,
+           "ssm_scan_bwd": 0}
     if any(p != per for p in per_step):
         raise AssertionError(f"launches per step {per_step}, want {per}")
 
@@ -1939,6 +2110,7 @@ def phase_train() -> dict:
                                and sym in e.key))
                     for name, sym in (("bounce", "bounce_kernel"),
                                       ("flash_lse", "flash_fwd_sm90"),
+                                      ("flash_bwd", "flash_bwd"),
                                       ("bounce_stall", "stall_kernel"))}
 
     # the psums' bounce launches on payloads of the gradients' shapes (the
@@ -2047,8 +2219,9 @@ def _gspmd_launches(cfg) -> dict:
     layer out), the loss's table and one ``loss/logits`` a cross-entropy
     chunk, each one bounce launch (cord's cost is on the send side only);
     flash with lse once a layer.  Backward: the recomputed cross-entropy
-    chunks' ``loss/logits`` edges, and under remat every layer's edges and
-    flash forward again; nothing else (a transpose launches nothing)."""
+    chunks' ``loss/logits`` edges, the flash backward once a layer, and
+    under remat every layer's edges and flash forward again; nothing else
+    (a transpose launches nothing)."""
     layer = 7 * cfg.num_layers
     ce = -(-TRAIN_SEQ // min(CE_CHUNK, TRAIN_SEQ))
     out = {}
@@ -2056,11 +2229,13 @@ def _gspmd_launches(cfg) -> dict:
         again = mode != "none"
         fwd = {"bounce": 2 + layer + 1 + ce,
                "flash_attention": cfg.num_layers,
-               "flash_lse": cfg.num_layers, "bounce_stall": 0, "ssm_scan": 0}
+               "flash_lse": cfg.num_layers, "bounce_stall": 0, "ssm_scan": 0,
+               "flash_bwd": 0, "ssm_scan_bwd": 0}
         bwd = {"bounce": ce + (layer if again else 0),
                "flash_attention": cfg.num_layers if again else 0,
                "flash_lse": cfg.num_layers if again else 0,
-               "bounce_stall": 0, "ssm_scan": 0}
+               "bounce_stall": 0, "ssm_scan": 0,
+               "flash_bwd": cfg.num_layers, "ssm_scan_bwd": 0}
         out[mode] = {"forward": fwd, "backward": bwd}
     return out
 
@@ -3337,6 +3512,7 @@ def phase_control_train() -> dict:
     stall_per = [st["bounce_stall"] / n for st, n in zip(el_steps, psums)]
     layers = get_model_config(TRAIN_ARCH).num_layers
     lse_per = [st["flash_lse"] / layers for st in el_steps]
+    bwd_per = [st["flash_bwd"] / layers for st in el_steps]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
     # the cause of a gap: the rank count (2 against 4 throughout) or the
     # move (the remesh run against 2 ranks throughout, after the move)
@@ -3348,10 +3524,11 @@ def phase_control_train() -> dict:
             and remesh["detail"]["devices_after"] == CTL_RANKS // 2
             and "max_remesh" in doc["events"][-1]["detail"]["reason"]):
         raise AssertionError(f"8b events {doc['events']}")
-    if per_psum != ranks or stall_per != ranks or lse_per != ranks:
+    if per_psum != ranks or stall_per != ranks or lse_per != ranks or \
+            bwd_per != ranks:
         raise AssertionError(f"8b launches per psum {per_psum} (stall "
-                             f"{stall_per}, flash with lse {lse_per}), want "
-                             f"{ranks}")
+                             f"{stall_per}, flash with lse {lse_per}, flash "
+                             f"backward {bwd_per}), want {ranks}")
     if len(losses) != CTL_STEPS or max(rel) > REMESH_LOSS_RTOL:
         raise AssertionError(f"8b losses {losses} against {base}: rel {rel}")
     if losses[:at] != base[:at]:
@@ -3778,8 +3955,10 @@ def phase_moe_train() -> dict:
             ("layers", "moe", "router") not in g_dp:
         raise AssertionError(f"9b (d): gradient leaves zero, not finite or "
                              f"missing: {bad}; {len(g_dp)} of {n_leaves}")
-    # (e) flash with lse once in the forward (the backward is plain)
-    if launches["flash_lse"] != cfg.num_layers or launches["bounce"] <= 0:
+    # (e) flash with lse once in the forward, its backward kernel once in
+    # the backward
+    if launches["flash_lse"] != cfg.num_layers or launches["bounce"] <= 0 \
+            or launches["flash_bwd"] != cfg.num_layers:
         raise AssertionError(f"9b (e): launches {launches}")
     del g_dp
     gc.collect()
@@ -4131,7 +4310,7 @@ def phase_hymba_train() -> dict:
         (dp.pipeline.complete_delay_iters(rec0),
          dp.pipeline.complete_copies(rec0))) if it or cp)
     events = []
-    real_bwd = ssm.ssm_scan_bwd_plain
+    real_bwd = ssm.ssm_scan_bwd
 
     def timed_bwd(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -4144,7 +4323,7 @@ def phase_hymba_train() -> dict:
 
     rt = dp.runtime_init()
     wall, per_step, losses = [], [], []
-    ssm.ssm_scan_bwd_plain = timed_bwd
+    ssm.ssm_scan_bwd = timed_bwd
     try:
         _reset_launches()
         fa.LSE_LAUNCHES = 0
@@ -4161,11 +4340,12 @@ def phase_hymba_train() -> dict:
             losses.append(float(m["loss"]))
         launches = {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
     finally:
-        ssm.ssm_scan_bwd_plain = real_bwd
+        ssm.ssm_scan_bwd = real_bwd
     bwd_ms = [a.elapsed_time(b) for a, b in events]
     peak_dp = torch.cuda.max_memory_allocated() / 1e9
     L, R = cfg.num_layers, TRAIN_RANKS
     per = {"flash_attention": L * R, "flash_lse": L * R, "ssm_scan": L * R,
+           "flash_bwd": L * R, "ssm_scan_bwd": L * R,
            "bounce": R * n_leaves * sides, "bounce_stall": R * n_leaves}
     if any(p != per for p in per_step) or \
             len(bwd_ms) != L * R * HYMBA_TRAIN_STEPS:
@@ -4188,8 +4368,11 @@ def phase_hymba_train() -> dict:
     g = _gspmd_step_gates(model, state, batch, "10a", plain=True)
     state = g.pop("state")
     want_fwd = {"flash_attention": L, "flash_lse": L, "ssm_scan": L,
-                "bounce": g["records"], "bounce_stall": 0}
-    if g["forward"] != want_fwd or g["backward"]["ssm_scan"] != 0:
+                "bounce": g["records"], "bounce_stall": 0, "flash_bwd": 0,
+                "ssm_scan_bwd": 0}
+    if g["forward"] != want_fwd or g["backward"]["ssm_scan"] != 0 or \
+            g["backward"]["flash_bwd"] != L or \
+            g["backward"]["ssm_scan_bwd"] != L:
         raise AssertionError(f"10a (d): GSPMD forward launched "
                              f"{g['forward']}, want {want_fwd}; backward "
                              f"{g['backward']}")
@@ -4290,8 +4473,10 @@ def phase_xlstm() -> dict:
     g = _gspmd_step_gates(model, state, _train_batch(cfg), "10b",
                           plain=False)
     del g["state"]
-    if g["forward"]["flash_attention"] or g["forward"]["ssm_scan"]:
-        raise AssertionError(f"10b: the forward launched {g['forward']}")
+    if g["forward"]["flash_attention"] or g["forward"]["ssm_scan"] or \
+            g["backward"]["flash_bwd"] or g["backward"]["ssm_scan_bwd"]:
+        raise AssertionError(f"10b: the forward launched {g['forward']}, "
+                             f"the backward {g['backward']}")
     peak_train = torch.cuda.max_memory_allocated() / 1e9
     _line(f"  10b GSPMD step at {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
           f"{g['loss']:.5f} and {g['leaves']} gradients bit for bit with "
@@ -4414,10 +4599,13 @@ def phase_whisper() -> dict:
     del g["state"]
     want_fwd = {"flash_attention": flash_per_call,
                 "flash_lse": flash_per_call, "ssm_scan": 0,
-                "bounce": g["records"], "bounce_stall": 0}
-    if g["forward"] != want_fwd:
+                "bounce": g["records"], "bounce_stall": 0, "flash_bwd": 0,
+                "ssm_scan_bwd": 0}
+    if g["forward"] != want_fwd or \
+            g["backward"]["flash_bwd"] != flash_per_call:
         raise AssertionError(f"10c: GSPMD forward launched {g['forward']}, "
-                             f"want {want_fwd}")
+                             f"want {want_fwd}; backward {g['backward']}, "
+                             f"want {flash_per_call} flash backwards")
     peak_train = torch.cuda.max_memory_allocated() / 1e9
     _line(f"  10c GSPMD step at {TRAIN_BATCH} x {TRAIN_SEQ} with frames: "
           f"loss {g['loss']:.5f} and {g['leaves']} gradients bit for bit "
@@ -4540,6 +4728,10 @@ def _flash_path_case(gen, b: int, s: int, heads, dtype, window: int,
            "max_abs_err": max(o_err, lse_err), "ms": ms, "plain_ms": plain,
            "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if lse:
+        row["backward"] = _flash_bwd_case(gen, q, k, v, o, got[1],
+                                          causal=True, window=window,
+                                          cap=0.0)
     _line(f"  flash{'+lse' if lse else ''} B={b} S={s} H={h} KVH={kvh} "
           f"d={d} {dtype} w={window}: err {row['max_abs_err']:.3g}, "
           f"{ms:.4f} ms (bound {row['bound_ms']:.5f} ms, {row['bound_by']}),"
@@ -4578,9 +4770,11 @@ def phase_quickstart() -> dict:
     if second["losses"] != losses:
         raise AssertionError(f"11a: the second run's losses differ: "
                              f"{second['losses']} vs {losses}")
-    if lse != want or launches["flash_attention"] != want:
+    if lse != want or launches["flash_attention"] != want or \
+            launches["flash_bwd"] != want:
         raise AssertionError(f"11a: flash launched {launches} ({lse} with "
-                             f"lse), wanted {want} with lse")
+                             f"lse), wanted {want} with lse and as many "
+                             f"backwards")
     _line(f"  11a quickstart: loss {losses[0]:.4f} -> {losses[15]:.4f} "
           f"(step 15) -> {losses[-1]:.4f}, bit for bit on a second run; "
           f"{wall:.1f} s for {quickstart.STEPS} steps ({wall_repeat:.1f} s "
@@ -4684,9 +4878,11 @@ def phase_train_lm() -> dict:
                                  f"{losses[0]} -> {losses[-1]}, "
                                  f"{ckpt_bytes} checkpoint bytes")
         if lse != per_step * rep.steps_run or \
-                launches["flash_attention"] != lse:
+                launches["flash_attention"] != lse or \
+                launches["flash_bwd"] != lse:
             raise AssertionError(f"11c: flash launched {launches} ({lse} "
-                                 f"with lse), wanted {per_step} a step")
+                                 f"with lse), wanted {per_step} a step and "
+                                 f"as many backwards")
         step_ms = [t * 1e3 for t in rep.step_times]
         q = sorted(step_ms)
         _line(f"  11c train_lm: {res['params']/1e6:.1f}M params, "
@@ -5216,7 +5412,8 @@ def main(argv=None) -> int:
                   + w_fam["train"]["backward"]["bounce"])
     kernels += [
         {"name": "ssm_scan (10a hymba-1.5b training forward inside SSMScan; "
-                 "its backward is plain torch; timed at a rank's 2 x 256)",
+                 "its backward is ssm_scan_bwd, below; timed at a rank's "
+                 "2 x 256)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:30",
@@ -5224,10 +5421,7 @@ def main(argv=None) -> int:
          + h_tr["gspmd"]["forward"]["ssm_scan"],
          "max_abs_err": s_tr["max_abs_err"], "ms": s_tr["fwd_ms"],
          "plain_ms": s_tr["plain_fwd_ms"], "bound_ms": s_tr["bound_ms"],
-         "bound_by": s_tr["bound_by"], "library_ms": None,
-         "plain_backward_ms": s_tr["bwd_ms"],
-         "plain_backward_bound_ms": s_tr["bwd_bound_ms"],
-         "plain_backward_host_us": s_tr["bwd_host_us"]},
+         "bound_by": s_tr["bound_by"], "library_ms": None},
         {"name": "flash_attention (10a hymba-1.5b train forward with lse, "
                  "B=2 S=256, 25 over 5 heads, window 1024)", "route": "cuda",
          "source": flash_src, "replaces": flash_tpu,
@@ -5329,6 +5523,62 @@ def main(argv=None) -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"phase 11: {row['name']} was launched no "
                                  f"time on its path")
+    # the train paths' backward kernels (phases 2b, 5a and the paths'
+    # own flash cases time them; launches from each path's run)
+    kernels.append(
+        {"name": "ssm_scan_bwd (10a hymba-1.5b training backward inside "
+                 "SSMScan; timed at a rank's 2 x 256)", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+         "replaces": "src/repro/layers/mamba.py:129 (XLA's gradient of "
+                     "ssm_scan_chunked; no TPU kernel)",
+         "launches": h_tr["launches"]["ssm_scan_bwd"]
+         + h_tr["gspmd"]["backward"]["ssm_scan_bwd"],
+         "max_abs_err": s_tr["bwd_kernel_err"], "ms": s_tr["bwd_ms"],
+         "device_ms": s_tr["bwd_device_ms"], "host_us": s_tr["bwd_host_us"],
+         "plain_ms": s_tr["plain_bwd_ms"], "bound_ms": s_tr["bwd_bound_ms"],
+         "bound_by": s_tr["bwd_bound_by"], "library_ms": None})
+    enc_lse = next(r for r in flash["noncausal"]
+                   if r["model"] == "whisper-small encoder" and r["lse"])
+
+    def bwd_row(what, launches, row):
+        b = row["backward"]
+        return {"name": f"flash_attention_bwd ({what})", "route": "cuda",
+                "source": flash_src, "replaces": FLASH_BWD_REPLACES,
+                "launches": launches, "max_abs_err": b["max_abs_err"],
+                "ms": b["ms"], "device_ms": b["device_ms"],
+                "host_us": b["host_us"], "plain_ms": b["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": b["library_ms"],
+                "library_none_because": b["library_none_because"]}
+
+    kernels += [
+        bwd_row("5 explicit-DP gemma3-1b; timed at a rank's B=2 S=256, "
+                "window 512", train["launches"]["flash_bwd"],
+                train_k["flash_lse"][0]),
+        bwd_row("6a GSPMD gemma3-1b; timed at B=4, window 512",
+                gspmd["launches"]["flash_bwd"], gspmd["flash_lse_b4"]),
+        bwd_row("8b the launcher at 4 and 2 ranks; timed at B=1, window 512",
+                c_launch["flash_bwd"], c_train["flash_lse_b1"][0]),
+        bwd_row("9b grok-1, 48 over 8 heads, D 128, soft cap 30; timed at "
+                "B=1 S=256", m_train["launches"]["flash_bwd"], g_lse),
+        bwd_row("10a hymba-1.5b, 25 over 5 heads, D 64, window 1024; timed "
+                "at B=2 S=256", h_tr["launches"]["flash_bwd"]
+                + h_tr["gspmd"]["backward"]["flash_bwd"], h_lse),
+        bwd_row("10c whisper-small GSPMD step; timed on the cross attention, "
+                "Sq=256, Skv=1500, B=1", w_fam["train"]["backward"]
+                ["flash_bwd"], xattn),
+        bwd_row("10c whisper-small encoder, non-causal S=1500; launches "
+                "counted in the row above", w_fam["train"]["backward"]
+                ["flash_bwd"], enc_lse),
+        bwd_row("11a quickstart, f32 D 16; timed at a rank's 2 x 64, "
+                "window 8", qs["launches"]["flash_bwd"], qs["flash"]),
+        bwd_row("11c train_lm, f32 D 64; timed at a rank's 2 x 256",
+                tlm["launches"]["flash_bwd"], tlm["flash"]),
+    ]
+    for row in kernels[-10:]:
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was launched no time on "
+                                 f"its path")
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

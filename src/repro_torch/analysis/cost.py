@@ -20,7 +20,7 @@ it runs and counts
 Over ``meta`` tensors no op computes anything, so a full-size program is
 counted with no memory, no card and no data.
 
-The three hand-written kernels run outside ATen, through ``ctypes``, and
+The hand-written kernels run outside ATen, through ``ctypes``, and
 a dispatch mode cannot see a launch.  On a ``meta`` tensor each wrapper
 calls its kernel's shape rule instead, an operator ``repro_torch::<name>``
 that allocates the kernel's outputs on ``meta``; the counter sees that
@@ -65,6 +65,11 @@ _NO_BYTES = {_aten.empty.memory_format, _aten.empty_like.default,
              _aten.new_empty_strided.default, _aten.detach.default,
              _aten.lift_fresh.default}
 SSM_FLOPS_PER_STATE_STEP = 6   # dt*a, exp, *h, dx*b, +, *c (+ reduction)
+# the scan's backward a state element and step: the forward's state
+# again (dt*a, exp, f*h, dx*b, +), the cotangent (gy*c, +, *f), gf =
+# g*h_prev*f (2), its terms a*gf, g*b, h*gy, g*dx, dt*gf (5), the d a sum
+# (1) and the four sums over N or channels (4)
+SSM_BWD_FLOPS_PER_STATE_STEP = 20
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -114,6 +119,18 @@ def flash_cost(q_shape, skv: int, kv_heads: int, dtype_bytes: int, *,
     return 4 * d * h * b * pairs, nbytes + (4 * b * h * sq if lse else 0)
 
 
+def flash_bwd_cost(q_shape, skv: int, kv_heads: int, dtype_bytes: int, *,
+                   causal: bool = True, window: int = 0) -> tuple[int, int]:
+    """(operations, bytes) of one flash-attention backward: 10 x D
+    operations a (query, key) pair a head (five products: q.k, dO.v,
+    P^T dO, dS^T q, dS k) on the pairs the masks leave; q, k, v, o and
+    dO read once, the float32 lse read once, dq, dk and dv written once."""
+    b, sq, h, d = q_shape
+    pairs = attention_pairs(sq, skv, bool(causal), int(window))
+    nbytes = (4 * b * sq * h + 4 * b * skv * kv_heads) * d * dtype_bytes
+    return 10 * d * h * b * pairs, nbytes + 4 * b * h * sq
+
+
 def ssm_scan_cost(bsz: int, s: int, di: int, n: int,
                   dtype_bytes: int) -> tuple[int, int]:
     """(operations, bytes) of one selective scan: 6 operations a state
@@ -122,6 +139,16 @@ def ssm_scan_cost(bsz: int, s: int, di: int, n: int,
     nbytes = 3 * bsz * s * di * dtype_bytes + 4 * (
         2 * bsz * s * n + di * n + 2 * bsz * di * n)
     return SSM_FLOPS_PER_STATE_STEP * bsz * s * di * n, nbytes
+
+
+def ssm_scan_bwd_cost(bsz: int, s: int, di: int, n: int,
+                      dtype_bytes: int) -> tuple[int, int]:
+    """(operations, bytes) of one scan backward: 20 operations a state
+    element a step; dt, x, gy, d dt and d x once each in dt's dtype, b,
+    c, d b, d c, a, d a, h0, the h_final cotangent and d h0 in float32."""
+    nbytes = 5 * bsz * s * di * dtype_bytes + 4 * (
+        4 * bsz * s * n + 2 * di * n + 3 * bsz * di * n)
+    return SSM_BWD_FLOPS_PER_STATE_STEP * bsz * s * di * n, nbytes
 
 
 def bounce_cost(numel: int, dtype_bytes: int,
@@ -141,9 +168,20 @@ def _flash_op(args, out):
                       valid_len=valid_len, lse=lse)
 
 
+def _flash_bwd_op(args, out):
+    q, k, _, _, _, _, causal, window, _ = args
+    return flash_bwd_cost(tuple(q.shape), k.shape[1], k.shape[2],
+                          q.element_size(), causal=causal, window=window)
+
+
 def _ssm_op(args, out):
     dt, _, a = args[:3]
     return ssm_scan_cost(*dt.shape, a.shape[1], dt.element_size())
+
+
+def _ssm_bwd_op(args, out):
+    dt, _, a = args[:3]
+    return ssm_scan_bwd_cost(*dt.shape, a.shape[1], dt.element_size())
 
 
 def _bounce_op(args, out):
@@ -161,7 +199,11 @@ def _stall_op(args, out):
 KERNEL_COSTS = {
     torch.ops.repro_torch.flash_attention.default:
         ("flash_attention", _flash_op),
+    torch.ops.repro_torch.flash_attention_bwd.default:
+        ("flash_attention_bwd", _flash_bwd_op),
     torch.ops.repro_torch.ssm_scan.default: ("ssm_scan", _ssm_op),
+    torch.ops.repro_torch.ssm_scan_bwd.default:
+        ("ssm_scan_bwd", _ssm_bwd_op),
     torch.ops.repro_torch.bounce.default: ("bounce", _bounce_op),
     torch.ops.repro_torch.bounce_stall.default: ("bounce_stall", _stall_op),
 }
@@ -246,4 +288,5 @@ def collectives(records, sizes: dict) -> dict:
 
 
 __all__ = ["CostCounter", "KERNEL_COSTS", "attention_pairs", "bounce_cost",
-           "collectives", "flash_cost", "ssm_scan_cost"]
+           "collectives", "flash_bwd_cost", "flash_cost", "ssm_scan_bwd_cost",
+           "ssm_scan_cost"]

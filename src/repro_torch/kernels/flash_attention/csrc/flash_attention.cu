@@ -1,4 +1,4 @@
-// Flash-attention forward (prefill) for Hopper (sm_90a).
+// Flash-attention forward (prefill) and backward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention/flash_attention.py (launched by
@@ -76,11 +76,42 @@
 //   be meaningless.  With a null pointer nothing more is done.
 // Every mbarrier wait traps after 2 s instead of hanging the card.
 //
-// f32 inputs (the smoke configs) take the CUDA-core kernel at the end of
-// this file, any D in {16, 32, 64, 128, 256}.
+// f32 inputs (the smoke configs) take the CUDA-core kernel further down,
+// any D in {16, 32, 64, 128, 256}.
 //
-// C interface: flash_attention_launch returns 0, a cudaError_t, or
-// kErrTensorMap below.
+// The backward (`flash_attention_bwd_launch`, behind
+// `ops.flash_attention_bwd` and `FlashAttention.backward`).  It replaces
+// no TPU kernel: `repro`'s gradient is `_flash_bwd`
+// (src/repro/layers/attention.py:248), the custom_vjp partner of the
+// Pallas forward, which XLA compiles; this computes what
+// `ref.flash_attention_bwd_plain` does.  From q, k, v, o, dO and the
+// forward's lse: P = exp(cap(q.k * scale) - lse) on the pairs the masks
+// leave, delta = rowsum(dO * O), dS = P (dO.v - delta) times the soft
+// cap's derivative 1 - tanh^2, dV = P^T dO, dK = dS^T q * scale,
+// dQ = dS k * scale; every mask the forward with lse takes (causal,
+// window, soft cap, GQA, Sq != Skv).  Bound: 10 * D operations a pair
+// (five products), against q, k, v, o, dO, lse read and dQ, dK, dV
+// written once.  This first design is simple and exact in f32 on both
+// dtypes (bf16 is read and written as bf16, P and dS stay f32); it takes
+// no tensor cores, so at large D and S it sits far above the bound:
+// - the row pass for delta; one block per (kv tile, kv head, batch) for
+//   dK and dV, which walks the G query heads of its group and the q
+//   tiles its masks leave, so the group's sum stays in its registers;
+//   one block per (q tile, head, batch) for dQ, which walks the kv
+//   tiles.  Both skip tiles as the forward does (above the diagonal,
+//   left of the window).  Where that grid is too small for the card
+//   (gemma3-1b's one kv head: 16 dK/dV blocks at B=2, S=256), a pass
+//   cuts its reduction list into up to 8 contiguous runs, one block
+//   each, whose f32 partials a sum kernel adds in order (`bwd_plan`
+//   picks the runs from the shape and the SM count).  No atomics: every sum runs in a fixed order, so two calls
+//   give the same bits;
+// - 256 threads a block as a 16 x 16 grid, each with a micro-tile of
+//   every product in registers; tiles of 64 x 64 (32 x 32 at D = 256,
+//   where the dK and dV accumulators of a 64-row tile would spill) in
+//   shared memory with odd row strides.
+//
+// C interface: flash_attention_launch and flash_attention_bwd_launch
+// return 0, a cudaError_t, or (the forward) kErrTensorMap below.
 
 #include <cuda.h>   // CUtensorMap and its enums; the driver is reached
                     // through cudaGetDriverEntryPoint, so no -lcuda
@@ -855,7 +886,533 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Backward: dQ, dK, dV on CUDA cores, f32 arithmetic, bf16 or f32 I/O
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;   // a 16 x 16 grid of threads
+
+__device__ __forceinline__ float ld_f(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Tiles of the backward: BQ query rows by BK key rows; 32 x 32 at D=256
+// (the dK and dV accumulators of a 32-row kv tile take 64 registers a
+// thread), 64 x 64 below.  [rows][D] tiles have a row stride of D + 1
+// and [BQ][BK] tiles of BK + 1, so the column reads of the products hit
+// 16 different banks.
+template <int D>
+struct BwdTile {
+  static constexpr int BQ = D >= 256 ? 32 : 64;
+  static constexpr int BK = D >= 256 ? 32 : 64;
+  static constexpr int LDD = D + 1;
+  static constexpr int LDP = BK + 1;
+  // dK/dV pass: K, V, Q, dO, P, dS, lse, delta
+  static constexpr int DKDV_FLOATS =
+      2 * BK * LDD + 2 * BQ * LDD + 2 * BQ * LDP + 2 * BQ;
+  // dQ pass: Q, dO, K, V, dS, lse, delta
+  static constexpr int DQ_FLOATS =
+      2 * BQ * LDD + 2 * BK * LDD + BQ * LDP + 2 * BQ;
+};
+
+// acc[i][j] += sum_{kk < K} A(ty + 16 i, kk) * B(tx + 16 j, kk), with
+// A(m, kk) = A[m * AM + kk * AK] and B(n, kk) = B[n * BN + kk * BKS] in
+// shared memory; kk runs in order, so the sums are deterministic.
+template <int MI, int NJ, int K, int AM, int AK, int BN, int BKS>
+__device__ __forceinline__ void tile_mma(float (&acc)[MI][NJ],
+                                         const float* A, const float* B,
+                                         int ty, int tx) {
+#pragma unroll 4
+  for (int kk = 0; kk < K; ++kk) {
+    float av[MI], bv[NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) av[i] = A[(ty + 16 * i) * AM + kk * AK];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) bv[j] = B[(tx + 16 * j) * BN + kk * BKS];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// Rows [r0, r0 + R) of head `hd` of a (B, S, NH, D) tensor into
+// dst[R][D + 1] as f32; rows past S read as 0.
+template <typename T, int D, int R>
+__device__ __forceinline__ void bwd_load(float* dst, const T* src, int b,
+                                         int r0, int S, int NH, int hd) {
+  for (int i = threadIdx.x; i < R * D; i += kBwdThreads) {
+    const int r = i / D, c = i % D;
+    float v = 0.f;
+    if (r0 + r < S)
+      v = ld_f(src + ((static_cast<long long>(b) * S + r0 + r) * NH + hd) *
+                         D + c);
+    dst[r * (D + 1) + c] = v;
+  }
+}
+
+// lse and delta of rows [r0, r0 + R) of head h, (B, H, Sq) each
+template <int R>
+__device__ __forceinline__ void bwd_load_rows(float* s_lse, float* s_delta,
+                                              const float* lse,
+                                              const float* delta, int b,
+                                              int h, int H, int r0, int Sq) {
+  for (int r = threadIdx.x; r < R; r += kBwdThreads) {
+    const long long at = (static_cast<long long>(b) * H + h) * Sq + r0 + r;
+    s_lse[r] = r0 + r < Sq ? lse[at] : 0.f;
+    s_delta[r] = r0 + r < Sq ? delta[at] : 0.f;
+  }
+}
+
+// P and dS of one (q tile, kv tile) from the raw scores s = q.k and
+// dp = dO.v of a thread's micro-tile: p = exp(cap(s * scale) - lse) on
+// the pairs the masks leave, 0 elsewhere; dS = p (dp - delta), times
+// the soft cap's derivative 1 - tanh^2(s * scale / cap).
+template <int MI, int NJ>
+__device__ __forceinline__ void bwd_probs(float (&s)[MI][NJ],
+                                          float (&dp)[MI][NJ],
+                                          const float* s_lse,
+                                          const float* s_delta, int i0,
+                                          int k0, int Sq, int Skv,
+                                          int causal, int window,
+                                          float logit_cap, float scale,
+                                          int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int qr = ty + 16 * i, qpos = i0 + qr;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int kpos = k0 + tx + 16 * j;
+      bool ok = qpos < Sq && kpos < Skv;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && qpos - kpos < window;
+      float x = s[i][j] * scale, dcap = 1.f;
+      if (logit_cap > 0.f) {
+        const float t = tanhf(x / logit_cap);
+        x = logit_cap * t;
+        dcap = 1.f - t * t;
+      }
+      const float p = ok ? expf(x - s_lse[qr]) : 0.f;
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - s_delta[qr]) * dcap;
+    }
+  }
+}
+
+// delta = rowsum(dO * O), (B, H, Sq) f32: one warp a (b, i, h) row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                float* __restrict__ delta, long long rows, int Sq, int H) {
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kBwdThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32)
+    s = fmaf(ld_f(dout + row * D + c), ld_f(o + row * D + c), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const long long b = row / (static_cast<long long>(Sq) * H);
+    const long long rem = row % (static_cast<long long>(Sq) * H);
+    delta[(b * H + rem % H) * Sq + rem / H] = s;
+  }
+}
+
+// A block's share of a reduction list of `items` entries cut into
+// `nsplit` contiguous runs: [lo, hi).
+__device__ __forceinline__ void split_range(int items, int nsplit, int split,
+                                            int& lo, int& hi) {
+  lo = static_cast<int>(static_cast<long long>(items) * split / nsplit);
+  hi = static_cast<int>(static_cast<long long>(items) * (split + 1) / nsplit);
+}
+
+// dK and dV of one kv tile of one kv head.  Its reduction list is the G
+// query heads of the group times the q tiles its masks leave (heads
+// outer); a block takes run `split` of it (blockIdx.z = b * nsplit +
+// split), so the group's sum stays in the block's registers when
+// nsplit = 1.  With nsplit > 1 each block writes its f32 partial sums to
+// `part` ([nsplit][B][Skv][KVH][D] for dK, then as much for dV) and
+// `flash_bwd_sum` adds the runs in order.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv,
+               float* __restrict__ part, int Sq, int Skv, int H, int KVH,
+               int causal, int window, float logit_cap, float scale,
+               int nsplit) {
+  using L = BwdTile<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, LDD = L::LDD, LDP = L::LDP;
+  extern __shared__ __align__(16) float bsm[];
+  float* sK = bsm;
+  float* sV = sK + BK * LDD;
+  float* sQ = sV + BK * LDD;
+  float* sdO = sQ + BQ * LDD;
+  float* sP = sdO + BQ * LDD;
+  float* sdS = sP + BQ * LDP;
+  float* sL = sdS + BQ * LDP;
+  float* sD = sL + BQ;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int k0 = blockIdx.x * BK, kvh = blockIdx.y;
+  const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
+  const int G = H / KVH;
+  bwd_load<T, D, BK>(sK, k, b, k0, Skv, KVH, kvh);
+  bwd_load<T, D, BK>(sV, v, b, k0, Skv, KVH, kvh);
+  float acc_k[BK / 16][D / 16], acc_v[BK / 16][D / 16];
+#pragma unroll
+  for (int i = 0; i < BK / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  // query rows that see a key of this tile: causal, q >= k0; a window,
+  // q - (k0 + BK - 1) < window
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? static_cast<int>(min(
+      static_cast<long long>(Sq),
+      static_cast<long long>(k0) + BK - 1 + window)) : Sq;
+  const int qt0 = q_lo / BQ * BQ;
+  const int n_qt = q_hi > qt0 ? (q_hi - qt0 + BQ - 1) / BQ : 0;
+  int it_lo, it_hi;
+  split_range(G * n_qt, nsplit, split, it_lo, it_hi);
+  for (int it = it_lo; it < it_hi; ++it) {
+    const int h = kvh * G + it / n_qt;
+    const int i0 = qt0 + (it % n_qt) * BQ;
+    __syncthreads();   // the previous tile is no longer read
+    bwd_load<T, D, BQ>(sQ, q, b, i0, Sq, H, h);
+    bwd_load<T, D, BQ>(sdO, dout, b, i0, Sq, H, h);
+    bwd_load_rows<BQ>(sL, sD, lse, delta, b, h, H, i0, Sq);
+    __syncthreads();
+    float s[BQ / 16][BK / 16], dp[BQ / 16][BK / 16];
+#pragma unroll
+    for (int i = 0; i < BQ / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(s, sQ, sK, ty, tx);
+    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(dp, sdO, sV, ty, tx);
+    bwd_probs(s, dp, sL, sD, i0, k0, Sq, Skv, causal, window, logit_cap,
+              scale, ty, tx);
+#pragma unroll
+    for (int i = 0; i < BQ / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
+        sdS[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
+      }
+    __syncthreads();
+    // dV += P^T dO and dK += dS^T Q: rows are keys, the sum runs over
+    // the tile's queries
+    tile_mma<BK / 16, D / 16, BQ, 1, LDP, 1, LDD>(acc_v, sP, sdO, ty, tx);
+    tile_mma<BK / 16, D / 16, BQ, 1, LDP, 1, LDD>(acc_k, sdS, sQ, ty, tx);
+  }
+  const long long plane = static_cast<long long>(gridDim.z / nsplit) * Skv *
+                          KVH * D;
+#pragma unroll
+  for (int i = 0; i < BK / 16; ++i) {
+    const int kr = k0 + ty + 16 * i;
+    if (kr >= Skv) continue;
+    const long long at =
+        ((static_cast<long long>(b) * Skv + kr) * KVH + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const long long e = at + tx + 16 * j;
+      if (nsplit == 1) {
+        st_f(dk + e, acc_k[i][j] * scale);
+        st_f(dv + e, acc_v[i][j]);
+      } else {
+        part[split * plane + e] = acc_k[i][j];
+        part[(nsplit + split) * plane + e] = acc_v[i][j];
+      }
+    }
+  }
+}
+
+// dQ of one q tile of one head.  Its reduction list is the kv tiles the
+// masks leave, in order; a block takes run `split` of it (blockIdx.z =
+// b * nsplit + split), and with nsplit > 1 writes its f32 partial to
+// `part` ([nsplit][B][Sq][H][D]) for `flash_bwd_sum`.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, float* __restrict__ part, int Sq, int Skv,
+             int H, int KVH, int causal, int window, float logit_cap,
+             float scale, int nsplit) {
+  using L = BwdTile<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, LDD = L::LDD, LDP = L::LDP;
+  extern __shared__ __align__(16) float bsm[];
+  float* sQ = bsm;
+  float* sdO = sQ + BQ * LDD;
+  float* sK = sdO + BQ * LDD;
+  float* sV = sK + BK * LDD;
+  float* sdS = sV + BK * LDD;
+  float* sL = sdS + BQ * LDP;
+  float* sD = sL + BQ;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int i0 = blockIdx.x * BQ, h = blockIdx.y;
+  const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
+  const int kvh = h / (H / KVH);
+  bwd_load<T, D, BQ>(sQ, q, b, i0, Sq, H, h);
+  bwd_load<T, D, BQ>(sdO, dout, b, i0, Sq, H, h);
+  bwd_load_rows<BQ>(sL, sD, lse, delta, b, h, H, i0, Sq);
+  float acc[BQ / 16][D / 16];
+#pragma unroll
+  for (int i = 0; i < BQ / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+  // keys that a row of this tile sees: a window, k > i0 - window;
+  // causal, k <= i0 + BQ - 1
+  const int k_lo = window > 0 ? max(0, i0 - window + 1) : 0;
+  const int k_hi = causal ? min(Skv, i0 + BQ) : Skv;
+  const int kt0 = k_lo / BK * BK;
+  const int n_kt = k_hi > kt0 ? (k_hi - kt0 + BK - 1) / BK : 0;
+  int it_lo, it_hi;
+  split_range(n_kt, nsplit, split, it_lo, it_hi);
+  for (int it = it_lo; it < it_hi; ++it) {
+    const int k0 = kt0 + it * BK;
+    __syncthreads();   // the previous tile is no longer read
+    bwd_load<T, D, BK>(sK, k, b, k0, Skv, KVH, kvh);
+    bwd_load<T, D, BK>(sV, v, b, k0, Skv, KVH, kvh);
+    __syncthreads();
+    float s[BQ / 16][BK / 16], dp[BQ / 16][BK / 16];
+#pragma unroll
+    for (int i = 0; i < BQ / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(s, sQ, sK, ty, tx);
+    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(dp, sdO, sV, ty, tx);
+    bwd_probs(s, dp, sL, sD, i0, k0, Sq, Skv, causal, window, logit_cap,
+              scale, ty, tx);
+#pragma unroll
+    for (int i = 0; i < BQ / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        sdS[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
+    __syncthreads();
+    // dQ += dS K: the sum runs over the tile's keys
+    tile_mma<BQ / 16, D / 16, BK, LDP, 1, 1, LDD>(acc, sdS, sK, ty, tx);
+  }
+  const long long plane = static_cast<long long>(gridDim.z / nsplit) * Sq *
+                          H * D;
+#pragma unroll
+  for (int i = 0; i < BQ / 16; ++i) {
+    const int qr = i0 + ty + 16 * i;
+    if (qr >= Sq) continue;
+    const long long at = ((static_cast<long long>(b) * Sq + qr) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      if (nsplit == 1)
+        st_f(dq + at + tx + 16 * j, acc[i][j] * scale);
+      else
+        part[split * plane + at + tx + 16 * j] = acc[i][j];
+    }
+  }
+}
+
+// out[e] = (sum over the runs s, in order, of part[s][e]) * scale, for
+// `n` elements of each of `outs` outputs whose partials follow one
+// another in `part`.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_sum(const float* __restrict__ part, T* __restrict__ out0,
+              T* __restrict__ out1, long long n, int nsplit, float scale0,
+              float scale1) {
+  const long long e = static_cast<long long>(blockIdx.x) * kBwdThreads +
+                      threadIdx.x;
+  if (e >= n) return;
+  const int which = blockIdx.y;
+  const float* p = part + which * nsplit * n + e;
+  float acc = 0.f;
+  for (int sp = 0; sp < nsplit; ++sp) acc += p[sp * n];
+  if (which == 0)
+    st_f(out0 + e, acc * scale0);
+  else
+    st_f(out1 + e, acc * scale1);
+}
+
+// How a backward call is cut: splits of the dK/dV and dQ reductions
+// that bring each pass to about two blocks a SM (at most kMaxSplit), and
+// the f32 scratch their partials take.
+constexpr int kMaxSplit = 8;
+
+struct BwdPlan {
+  int split_kv, split_q;
+  long long scratch;   // floats
+};
+
+template <int D>
+BwdPlan bwd_plan(int B, int Sq, int Skv, int H, int KVH, int sms) {
+  using L = BwdTile<D>;
+  const long long want = 2LL * sms;
+  const long long kv_tiles = (Skv + L::BK - 1) / L::BK;
+  const long long q_tiles = (Sq + L::BQ - 1) / L::BQ;
+  auto split = [&](long long blocks, long long items) {
+    long long n = (want + blocks - 1) / blocks;
+    n = n < kMaxSplit ? n : kMaxSplit;
+    n = n < items ? n : items;
+    return static_cast<int>(n < 1 ? 1 : n);
+  };
+  BwdPlan p;
+  p.split_kv = split(kv_tiles * KVH * B, (H / KVH) * q_tiles);
+  p.split_q = split(q_tiles * H * B, kv_tiles);
+  const long long kv = p.split_kv > 1
+      ? 2LL * p.split_kv * B * Skv * KVH * D : 0;
+  const long long qq = p.split_q > 1 ? 1LL * p.split_q * B * Sq * H * D : 0;
+  p.scratch = kv > qq ? kv : qq;
+  return p;
+}
+
+template <typename Kern>
+int opt_in(Kern kern, int bytes, std::atomic<bool>* ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev].store(true, std::memory_order_relaxed);
+  }
+  return 0;
+}
+
+template <typename T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* delta, void* dq,
+               void* dk, void* dv, void* scratch, int B, int Sq, int Skv,
+               int H, int KVH, int causal, int window, float logit_cap,
+               float scale, int sms, cudaStream_t stream) {
+  using L = BwdTile<D>;
+  static std::atomic<bool> ready_kv[kMaxDevices], ready_q[kMaxDevices];
+  auto kern_kv = flash_bwd_dkdv<T, D>;
+  auto kern_q = flash_bwd_dq<T, D>;
+  const int kv_bytes = L::DKDV_FLOATS * 4, q_bytes = L::DQ_FLOATS * 4;
+  int err = opt_in(kern_kv, kv_bytes, ready_kv);
+  if (err == 0) err = opt_in(kern_q, q_bytes, ready_q);
+  if (err != 0) return err;
+  const BwdPlan plan = bwd_plan<D>(B, Sq, Skv, H, KVH, sms);
+  float* part = static_cast<float*>(scratch);
+  if (plan.scratch > 0 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const float* flse = static_cast<const float*>(lse);
+  float* fdelta = static_cast<float*>(delta);
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  constexpr int kRowsPerBlock = kBwdThreads / 32;
+  flash_bwd_delta<T, D><<<static_cast<unsigned>((rows + kRowsPerBlock - 1) /
+                                                kRowsPerBlock),
+                          kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(o), tdo, fdelta, rows, Sq, H);
+  kern_kv<<<dim3((Skv + L::BK - 1) / L::BK, KVH, B * plan.split_kv),
+            kBwdThreads, kv_bytes, stream>>>(
+      tq, tk, tv, tdo, flse, fdelta, static_cast<T*>(dk),
+      static_cast<T*>(dv), part, Sq, Skv, H, KVH, causal, window, logit_cap,
+      scale, plan.split_kv);
+  if (plan.split_kv > 1) {
+    const long long n = static_cast<long long>(B) * Skv * KVH * D;
+    flash_bwd_sum<T><<<dim3(static_cast<unsigned>((n + kBwdThreads - 1) /
+                                                  kBwdThreads), 2),
+                       kBwdThreads, 0, stream>>>(
+        part, static_cast<T*>(dk), static_cast<T*>(dv), n, plan.split_kv,
+        scale, 1.f);
+  }
+  kern_q<<<dim3((Sq + L::BQ - 1) / L::BQ, H, B * plan.split_q), kBwdThreads,
+           q_bytes, stream>>>(tq, tk, tv, tdo, flse, fdelta,
+                              static_cast<T*>(dq), part, Sq, Skv, H, KVH,
+                              causal, window, logit_cap, scale,
+                              plan.split_q);
+  if (plan.split_q > 1) {
+    const long long n = static_cast<long long>(B) * Sq * H * D;
+    flash_bwd_sum<T><<<dim3(static_cast<unsigned>((n + kBwdThreads - 1) /
+                                                  kBwdThreads), 1),
+                       kBwdThreads, 0, stream>>>(
+        part, static_cast<T*>(dq), static_cast<T*>(dq), n, plan.split_q,
+        scale, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The f32 scratch (floats) flash_attention_bwd_launch needs for this
+// shape on a card of `sms` SMs: the partials of the runs it cuts the
+// dK/dV and dQ reductions into (0 when it cuts none); -1 for a D it does
+// not take.
+extern "C" long long flash_attention_bwd_scratch(int B, int Sq, int Skv,
+                                                 int H, int KVH, int D,
+                                                 int sms) {
+  switch (D) {
+    case 16: return bwd_plan<16>(B, Sq, Skv, H, KVH, sms).scratch;
+    case 32: return bwd_plan<32>(B, Sq, Skv, H, KVH, sms).scratch;
+    case 64: return bwd_plan<64>(B, Sq, Skv, H, KVH, sms).scratch;
+    case 128: return bwd_plan<128>(B, Sq, Skv, H, KVH, sms).scratch;
+    case 256: return bwd_plan<256>(B, Sq, Skv, H, KVH, sms).scratch;
+    default: return -1;
+  }
+}
+
+// The gradients (dQ, dK, dV) of the forward with lse: q, o, dout, dq
+// (B, Sq, H, D), k, v, dk, dv (B, Skv, KVH, D) in one dtype (0 = float32,
+// 1 = bfloat16; any D in {16, 32, 64, 128, 256}), lse (B, H, Sq) float32
+// as the forward wrote it, `delta` (B, H, Sq) float32 scratch and
+// `scratch` the f32 scratch flash_attention_bwd_scratch names for the
+// same shape and `sms` (null when it names none).  The masks are the
+// forward's: causal, window, tanh soft cap; every kv position below Skv
+// is valid.  Three to five launches (delta, dK/dV, their sum, dQ, its
+// sum), no atomics: the same inputs on the same card give the same bits.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, void* scratch, int dtype, int B, int Sq, int Skv, int H,
+    int KVH, int D, int causal, int window, float logit_cap, float scale,
+    int sms, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH != 0 || H > 65535 ||
+      static_cast<long long>(B) * kMaxSplit > 65535 || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_BWD_CASE(TT, DD)                                              \
+  case DD:                                                                  \
+    return launch_bwd<TT, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv,     \
+                              scratch, B, Sq, Skv, H, KVH, causal, window,  \
+                              logit_cap, scale, sms, s);
+  if (dtype == 0) {
+    switch (D) {
+      FLASH_BWD_CASE(float, 16)
+      FLASH_BWD_CASE(float, 32)
+      FLASH_BWD_CASE(float, 64)
+      FLASH_BWD_CASE(float, 128)
+      FLASH_BWD_CASE(float, 256)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype == 1) {
+    switch (D) {
+      FLASH_BWD_CASE(__nv_bfloat16, 16)
+      FLASH_BWD_CASE(__nv_bfloat16, 32)
+      FLASH_BWD_CASE(__nv_bfloat16, 64)
+      FLASH_BWD_CASE(__nv_bfloat16, 128)
+      FLASH_BWD_CASE(__nv_bfloat16, 256)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#undef FLASH_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // dtype: 0 = float32 (D in {16, 32, 64, 128, 256}), 1 = bfloat16 (D in
 // {64, 128, 256}).  `lse`: null, or (B, H, Sq) float32 for the rows'

@@ -1,43 +1,57 @@
-"""Public wrapper for the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Public wrappers for the flash-attention kernels
+(``csrc/flash_attention.cu``): the forward and its gradient.
 
-Takes the framework's (B, S, H, D) layout, handles GQA shapes and the
-runtime window / valid-length scalars.  Given CUDA tensors it launches the
-Hopper kernel (or raises); given CPU tensors it runs the plain version,
-``ref.flash_attention_ref``; given ``meta`` tensors it calls the
-operator ``repro_torch::flash_attention``, the kernel's shape rule, which
+Both take the framework's (B, S, H, D) layout and GQA shapes.  Given
+CUDA tensors each launches its Hopper kernel (or raises); given CPU
+tensors it runs the plain version; given ``meta`` tensors it calls an
+operator with a Meta kernel only, the kernel's shape rule, which
 allocates the kernel's outputs there and which a dispatch mode sees
-(``analysis/cost.py`` prices it).  ``LAUNCHES`` counts kernel launches and
-``LSE_LAUNCHES`` those of them that also wrote the log-sum-exp.
+(``analysis/cost.py`` prices it).
 
-``return_lse=True`` adds each row's natural-log log-sum-exp of its
-scaled, soft-capped logits, (B, KVH, G, Sq) float32 as ``repro``'s
-``_flash_fwd_impl`` returns it, for the training backward.  A call whose
-masks leave some query row with no key is refused then: such a row has
-no log-sum-exp.
+:func:`flash_attention`, the forward, with the runtime window /
+valid-length scalars: plain version ``ref.flash_attention_ref``,
+operator ``repro_torch::flash_attention``.  ``LAUNCHES`` counts its
+launches and ``LSE_LAUNCHES`` those of them that also wrote the
+log-sum-exp.  ``return_lse=True`` adds each row's natural-log
+log-sum-exp of its scaled, soft-capped logits, (B, KVH, G, Sq) float32
+as ``repro``'s ``_flash_fwd_impl`` returns it, for the training
+backward.  A call whose masks leave some query row with no key is
+refused then: such a row has no log-sum-exp.  The bf16 kernel (wgmma on
+64-column panels) takes D in {64, 128, 256}; bf16 q/k/v with D of 16 or
+32 are zero-padded to 64 here, which leaves every dot product as it was,
+and the scale stays 1/sqrt(D).
 
-The bf16 kernel (wgmma on 64-column panels) takes D in {64, 128, 256};
-bf16 q/k/v with D of 16 or 32 are zero-padded to 64 here, which leaves
-every dot product as it was, and the scale stays 1/sqrt(D).
+:func:`flash_attention_bwd`, the gradient (dq, dk, dv) of the forward
+with lse: plain version ``ref.flash_attention_bwd_plain``, operator
+``repro_torch::flash_attention_bwd``.  Its kernel runs on CUDA cores and
+takes every D of :data:`HEAD_DIMS` in both dtypes as it is, with no
+padding.  ``BWD_LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_plain,
+    flash_attention_ref,
+)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BF16_MIN_D = 64       # the bf16 kernel's panel width
 _ERR_TENSOR_MAP = 10001   # flash_attention_launch's code beside cudaError_t
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: the forward, those
+# of them with the lse, the backward
 LAUNCHES = 0
 LSE_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -213,5 +227,116 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     return flash_attention_plain(q, k, v, **kw)
 
 
-__all__ = ["flash_attention", "flash_attention_plain", "tensor_map_ns",
-           "HEAD_DIMS", "LAUNCHES", "LSE_LAUNCHES"]
+# q, k, v, o, do, lse, delta, dq, dk, dv, scratch; dtype, B, Sq, Skv, H,
+# KVH, D, causal, window; logit_cap, scale; sms; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
+    [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_FN = None
+
+
+def _check_bwd(q, k, v, o, lse, do) -> None:
+    """What :func:`_check` asks of q, k and v, and of the rest: o and do
+    like q, lse (B, KVH, G, Sq) float32, all contiguous on q's device."""
+    _check(q, k, v)
+    b, sq, h, _ = q.shape
+    kvh = k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} must be like q "
+                             f"({q.dtype} {tuple(q.shape)}), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if lse.shape != (b, kvh, h // kvh, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 of shape "
+                         f"{(b, kvh, h // kvh, sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    for name, t in (("o", o), ("do", do), ("lse", lse)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"contiguous")
+        if t.device != q.device:
+            raise ValueError("flash_attention_bwd: inputs on different "
+                             "devices")
+
+
+def _bind_bwd():
+    """The backward's launch function, built and bound on first use."""
+    global _BWD_FN
+    _BWD_FN = build.function("flash_attention", "flash_attention_bwd_launch",
+                             _BWD_ARGTYPES)
+    return _BWD_FN
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_scratch(b: int, sq: int, skv: int, h: int, kvh: int, d: int,
+                 sms: int) -> int:
+    """f32 scratch the backward kernel takes at this shape on a card of
+    ``sms`` SMs: the partial sums of the runs it cuts dK/dV and dQ into
+    to fill the card."""
+    fn = build.function("flash_attention", "flash_attention_bwd_scratch",
+                        [ctypes.c_int] * 7, restype=ctypes.c_longlong)
+    return fn(b, sq, skv, h, kvh, d, sms)
+
+
+def _bwd_kernel(q, k, v, o, lse, do, *, causal, window, logit_cap):
+    global BWD_LAUNCHES
+    o, do = o.contiguous(), do.contiguous()
+    _check_bwd(q, k, v, o, lse, do)
+    fn = _BWD_FN or _bind_bwd()
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dev = q.get_device()
+    sms = build.sm_count(dev)
+    n_scratch = _bwd_scratch(b, sq, skv, h, kvh, d, sms)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    scratch = delta.new_empty((n_scratch,)) if n_scratch else None
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(),
+             None if scratch is None else scratch.data_ptr(),
+             _DTYPES[q.dtype], b, sq, skv, h, kvh, d, int(bool(causal)),
+             int(window or 0), float(logit_cap), 1.0 / math.sqrt(d), sms,
+             build.raw_stream(dev))
+    build.check(err, "flash_attention_bwd_launch")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+# the backward's shape rule: dq, dk, dv like q, k, v
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor lse, Tensor dout, bool causal, int window, "
+            "float logit_cap) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_attention_bwd",
+          lambda q, k, v, o, lse, dout, causal, window, logit_cap: (
+              torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+          "Meta")
+_bwd_shape_rule = torch.ops.repro_torch.flash_attention_bwd
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window=None, logit_cap: float = 0.0,
+                        q_block: int = 512, kv_block: int = 1024):
+    """(dq, dk, dv) of :func:`flash_attention` with its lse, each in its
+    input's dtype: q, o, do (B, Sq, H, D); k, v (B, Skv, KVH, D); lse
+    (B, KVH, G, Sq) float32 as the forward returned it; every key below
+    Skv valid.  The Hopper kernel on a CUDA tensor, the plain version
+    (``q_block`` x ``kv_block`` blocks, as ``repro``'s ``_flash_bwd``) on
+    the CPU, the shape rule on ``meta``."""
+    window = int(window or 0)
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap)
+    if q.device.type == "cuda":
+        return _bwd_kernel(q, k, v, o, lse, do, **kw)
+    if q.is_meta:
+        o, do = o.contiguous(), do.contiguous()
+        _check_bwd(q, k, v, o, lse, do)
+        return _bwd_shape_rule(q, k, v, o, lse, do, bool(causal), window,
+                               float(logit_cap))
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, q_block=q_block,
+                                     kv_block=kv_block, **kw)
+
+
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
+           "tensor_map_ns", "HEAD_DIMS", "LAUNCHES", "LSE_LAUNCHES",
+           "BWD_LAUNCHES"]

@@ -45,11 +45,48 @@
 //   memory, double-buffered: the next tile is loaded with cp.async while
 //   this one is scanned (bf16 dt/x take ordinary loads).
 //
-// C interface: ssm_scan_launch returns 0 or a cudaError_t.
+// The backward (`ssm_scan_bwd_launch`, behind `ops.ssm_scan_bwd` and
+// `SSMScan.backward`).  It replaces no TPU kernel: `repro` lets XLA
+// differentiate its chunked scan (src/repro/layers/mamba.py:129 calls
+// `ssm_scan_chunked`); this computes what `ref.ssm_scan_bwd_plain` does.
+// The cotangent of the state runs backward in time,
+//     g_t = exp(dt_{t+1} A) * g_{t+1} + gy_t * C_t,   from ghf,
+// and with gf_t = g_t * h_{t-1} * exp(dt_t A):
+//     d dt_t = sum_n gf_t A + x_t sum_n g_t B_t,  d x_t = dt_t sum_n g_t B_t,
+//     d A = sum_{b,t} dt_t gf_t,  d B_t = sum_d g_t dt_t x_t,
+//     d C_t = sum_d h_t gy_t,  d h0 = exp(dt_0 A) g_0.
+// Precision: over a state that lives hundreds of steps (mamba's dt and
+// A at hymba-1.5b's train shape) a float32 backward misses the exact
+// d dt and d C by more than 2e-5 where their terms cancel, so both
+// recurrences, the factors exp(dt A) and every sum run in float64, as
+// the plain version does; reads and writes stay in the inputs' dtypes.
+// What bounds it: about 20 float64 operations a state element and step
+// (2 x 256 x 3200 x 16 at hymba: 0.52 GFLOP, 15 us at the 34 TFLOP/s of
+// float64 outside the tensor cores) against 34.5 MB of inputs,
+// cotangents and gradients (10 us at 3.35 TB/s).
+// Design, four launches in a fixed order and no atomics, so a call's
+// bits do not depend on scheduling:
+// - chunks of 16 steps; pass 1 (`ssm_bwd_chunk`), one thread per (row,
+//   chunk, channel, state), keeps each chunk's end state from 0, its
+//   decay, and the cotangent it sends back when none arrives at its end;
+// - `ssm_bwd_carry` runs both carries over the chunks (forward from h0,
+//   backward from ghf), in place, and writes d h0;
+// - pass 2 (`ssm_bwd_grad`) rescans a chunk's 16 states from its start
+//   into registers and walks back from its carried cotangent; the sums
+//   over N (d dt, d x) and over a block's channels (d B, d C) are taken
+//   in shared memory in a fixed order.  No tensor holds a state for
+//   every step: the chunk aggregates are 3 / 16 of one;
+// - `ssm_bwd_reduce` sums d A over rows and chunks and d B, d C over the
+//   channel blocks, in order.
+//
+// C interface: ssm_scan_launch and ssm_scan_bwd_launch return 0 or a
+// cudaError_t.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -380,7 +417,425 @@ int dispatch_n(int N, const Args& g) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward: the gradients of (y, h_final), in float64
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;   // one thread per (channel, state)
+constexpr int kBwdChunk = 16;      // time steps a chunk (held in registers)
+constexpr int kBwdGroups = 4;      // channel groups the gradient pass walks
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ double to_d(float v) {
+  return static_cast<double>(v);
+}
+__device__ __forceinline__ double to_d(__nv_bfloat16 v) {
+  return static_cast<double>(__bfloat162float(v));
+}
+
+// A load the compiler may not merge with an earlier one of the same
+// address: the gradient pass reads a step's inputs again on its way back
+// (from L1) instead of holding 16 steps of them in registers.
+__device__ __forceinline__ double ld_again(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return static_cast<double>(v);
+}
+__device__ __forceinline__ double ld_again(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.b16 %0, [%1];" : "=h"(v) : "l"(p));
+  return static_cast<double>(__bfloat162float(__ushort_as_bfloat16(v)));
+}
+
+// Pass 1, one thread per (batch row, chunk, channel, state): the chunk's
+// end state from h = 0 (E), its decay D = prod exp(dt_t a), and the
+// cotangent it sends back through its first step when none arrives at
+// its end, Eg = sum_t (prod_{s <= t} exp(dt_s a)) * gy_t c_t.
+// agg: [3][B][n_chunks][di * N] doubles (E, D, Eg).
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads)
+ssm_bwd_chunk(const T* __restrict__ dt, const T* __restrict__ x,
+              const float* __restrict__ a, const float* __restrict__ bm,
+              const float* __restrict__ cm, const T* __restrict__ gy,
+              double* __restrict__ agg, int S, int di, int n_chunks) {
+  const long long din = static_cast<long long>(di) * N;
+  const long long j = static_cast<long long>(blockIdx.x) * kBwdThreads +
+                      threadIdx.x;
+  if (j >= din) return;
+  const int d = static_cast<int>(j / N), n = static_cast<int>(j % N);
+  const int k = blockIdx.y;
+  const long long bi = blockIdx.z;
+  const int t0 = k * kBwdChunk;
+  const int len = min(kBwdChunk, S - t0);
+  const double an = a[j];
+  double h = 0.0, dec = 1.0, eg = 0.0;
+#pragma unroll 4
+  for (int i = 0; i < len; ++i) {
+    const long long row = bi * S + t0 + i;
+    const double dtv = to_d(dt[row * di + d]);
+    const double f = exp(dtv * an);
+    h = f * h + (dtv * to_d(x[row * di + d])) * static_cast<double>(bm[row * N + n]);
+    dec *= f;
+    if (gy != nullptr)
+      eg += dec * (to_d(gy[row * di + d]) * static_cast<double>(cm[row * N + n]));
+  }
+  const long long plane = static_cast<long long>(gridDim.z) * n_chunks * din;
+  double* out = agg + (bi * n_chunks + k) * din + j;
+  out[0] = h;
+  out[plane] = dec;
+  out[2 * plane] = eg;
+}
+
+// The two carries, one thread per (batch row, channel, state) chain, in
+// place: forward from h0, E_k becomes chunk k's start state; backward
+// from ghf, Eg_k becomes the cotangent arriving at chunk k's last step.
+// What is left after chunk 0 is the cotangent of h0.  Eight chunks'
+// loads are issued before their results are stored.
+constexpr int kCarryBatchBwd = 8;
+
+__global__ void __launch_bounds__(kBwdThreads)
+ssm_bwd_carry(double* __restrict__ agg, const float* __restrict__ h0,
+              const float* __restrict__ ghf, float* __restrict__ dh0,
+              long long din, long long total, int nk) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (idx >= total) return;
+  const long long bi = idx / din, j = idx % din;
+  const long long plane = total * nk;
+  double* e = agg + bi * nk * din + j;
+  const double* dec = e + plane;
+  double* eg = e + 2 * plane;
+  double h = h0[idx];
+  for (int k0 = 0; k0 < nk; k0 += kCarryBatchBwd) {
+    double ev[kCarryBatchBwd], dv[kCarryBatchBwd];
+#pragma unroll
+    for (int u = 0; u < kCarryBatchBwd; ++u) {
+      const long long k = k0 + u < nk ? k0 + u : k0;
+      ev[u] = e[k * din];
+      dv[u] = dec[k * din];
+    }
+#pragma unroll
+    for (int u = 0; u < kCarryBatchBwd; ++u) {
+      if (k0 + u < nk) {
+        e[(k0 + u) * din] = h;
+        h = dv[u] * h + ev[u];
+      }
+    }
+  }
+  double g = ghf != nullptr ? static_cast<double>(ghf[idx]) : 0.0;
+  for (int k1 = nk - 1; k1 >= 0; k1 -= kCarryBatchBwd) {
+    double ev[kCarryBatchBwd], dv[kCarryBatchBwd];
+#pragma unroll
+    for (int u = 0; u < kCarryBatchBwd; ++u) {
+      const long long k = k1 - u >= 0 ? k1 - u : k1;
+      ev[u] = eg[k * din];
+      dv[u] = dec[k * din];
+    }
+#pragma unroll
+    for (int u = 0; u < kCarryBatchBwd; ++u) {
+      if (k1 - u >= 0) {
+        eg[(k1 - u) * din] = g;
+        g = dv[u] * g + ev[u];
+      }
+    }
+  }
+  dh0[idx] = static_cast<float>(g);
+}
+
+// Pass 2: the gradients.  A block takes one chunk of one batch row and
+// walks kBwdGroups groups of 256 / N channels; a thread owns one
+// (channel, state).  It rescans the chunk's 16 states from the carried
+// start state into registers, then walks back from the carried
+// cotangent: g_t = exp(dt_{t+1} a) g_{t+1} + gy_t c_t.  The sums over N
+// (d dt, d x) are taken across the channel's N lanes with shuffles (a
+// fixed butterfly), and the channel's first lane stages d dt and d x in
+// shared memory for one coalesced write of the group.  The terms of d b
+// and d c go to shared memory, where the group's channels are summed in
+// order; d b and d c are summed over the groups in registers and written
+// as the block's partial; each thread's d a over the chunk overwrites D
+// in agg (no longer read).  part: [2][n_cb][B][S][N] doubles.  In shared
+// memory a channel's N terms of a step sit in a row of N + 1 doubles
+// (N > 1), so that the sums read 16 different banks across a half warp.
+// About 72 KB of shared memory at N = 16.
+template <int N>
+struct BwdRed {
+  static constexpr int kCh = kBwdThreads / N;               // channels a group
+  static constexpr int kPairs = (kBwdChunk * N + kBwdThreads - 1) /
+                                kBwdThreads;                // (t, n) a thread
+  static constexpr int kRow = N == 1 ? 1 : N + 1;          // a channel's terms
+  static constexpr int kStep = kCh * kRow;                  // a step's terms
+  static constexpr int kBytes = 2 * kBwdChunk * kStep * 8 +
+                                2 * kBwdChunk * kCh * 4;
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads)
+ssm_bwd_grad(const T* __restrict__ dt, const T* __restrict__ x,
+             const float* __restrict__ a, const float* __restrict__ bm,
+             const float* __restrict__ cm, const T* __restrict__ gy,
+             double* __restrict__ agg, double* __restrict__ part,
+             T* __restrict__ ddt, T* __restrict__ dx, int S, int di,
+             int n_chunks) {
+  using R = BwdRed<N>;
+  // [2][kBwdChunk][kCh][N + 1] doubles, then [2][kBwdChunk][kCh] floats
+  extern __shared__ __align__(16) double red[];
+  double* r_c = red;
+  double* r_b = red + kBwdChunk * R::kStep;
+  float* o_dt = reinterpret_cast<float*>(red + 2 * kBwdChunk * R::kStep);
+  float* o_dx = o_dt + kBwdChunk * R::kCh;
+  const int tid = threadIdx.x;
+  const int n = tid % N, cl = tid / N;
+  const int k = blockIdx.y;
+  const long long bi = blockIdx.z;
+  const int t0 = k * kBwdChunk;
+  const int len = min(kBwdChunk, S - t0);
+  const long long din = static_cast<long long>(di) * N;
+  const long long plane = static_cast<long long>(gridDim.z) * n_chunks * din;
+  const long long chunk_off = (bi * n_chunks + k) * din;
+  double acc_c[R::kPairs], acc_b[R::kPairs];
+#pragma unroll
+  for (int q = 0; q < R::kPairs; ++q) acc_c[q] = acc_b[q] = 0.0;
+
+  for (int grp = 0; grp < kBwdGroups; ++grp) {
+    const int base = (blockIdx.x * kBwdGroups + grp) * R::kCh;
+    if (base >= di) break;                       // uniform over the block
+    const int d = base + cl;
+    const bool live = d < di;
+    const long long j = static_cast<long long>(d) * N + n;
+    const double an = live ? static_cast<double>(a[j]) : 0.0;
+    const double h_start = live ? agg[chunk_off + j] : 0.0;
+    double g = live ? agg[2 * plane + chunk_off + j] : 0.0;
+
+    double hs[kBwdChunk], fs[kBwdChunk];
+    double h = h_start;
+#pragma unroll
+    for (int i = 0; i < kBwdChunk; ++i) {
+      const bool in = live && i < len;
+      const long long row = bi * S + t0 + i;
+      const double dtv = in ? to_d(dt[row * di + d]) : 0.0;
+      const double xv = in ? to_d(x[row * di + d]) : 0.0;
+      const double bv = i < len ? static_cast<double>(bm[row * N + n]) : 0.0;
+      const double f = exp(dtv * an);
+      h = f * h + (dtv * xv) * bv;
+      hs[i] = h;
+      fs[i] = f;
+    }
+    double da = 0.0;
+#pragma unroll
+    for (int i = kBwdChunk - 1; i >= 0; --i) {
+      const bool in = live && i < len;
+      const long long row = bi * S + t0 + i;
+      const double dtv = in ? ld_again(dt + row * di + d) : 0.0;
+      const double xv = in ? ld_again(x + row * di + d) : 0.0;
+      const double gyv = in && gy != nullptr ? to_d(gy[row * di + d]) : 0.0;
+      const double bv = i < len ? ld_again(bm + row * N + n) : 0.0;
+      const double cv = i < len ? static_cast<double>(cm[row * N + n]) : 0.0;
+      g = g + gyv * cv;                                   // g_t
+      const double hp = i > 0 ? hs[i - 1] : h_start;     // h_{t-1}
+      const double gf = g * hp * fs[i];                  // d / d(dt a)
+      double s_dt = gf * an, s_u = g * bv;
+#pragma unroll
+      for (int o = N / 2; o > 0; o >>= 1) {
+        s_dt += __shfl_xor_sync(0xffffffffu, s_dt, o);
+        s_u += __shfl_xor_sync(0xffffffffu, s_u, o);
+      }
+      if (n == 0) {
+        o_dt[i * R::kCh + cl] = static_cast<float>(s_dt + xv * s_u);
+        o_dx[i * R::kCh + cl] = static_cast<float>(dtv * s_u);
+      }
+      const int at = i * R::kStep + cl * R::kRow + n;
+      r_c[at] = hs[i] * gyv;
+      r_b[at] = g * (dtv * xv);
+      da += gf * dtv;
+      g = fs[i] * g;                                      // to h_{t-1}
+    }
+    if (live) agg[plane + chunk_off + j] = da;
+    __syncthreads();
+    // d dt = sum_n gf a + x sum_n g b and d x = dt sum_n g b of the
+    // group, written a step at a time across its channels
+    for (int p = tid; p < R::kCh * kBwdChunk; p += kBwdThreads) {
+      const int c2 = p % R::kCh, i = p / R::kCh;
+      const int d2 = base + c2;
+      if (d2 < di && i < len) {
+        const long long at = (bi * S + t0 + i) * di + d2;
+        store_f(ddt + at, o_dt[i * R::kCh + c2]);
+        store_f(dx + at, o_dx[i * R::kCh + c2]);
+      }
+    }
+    // d c and d b: one (step, state) a thread, the group's channels
+    // summed in order, the groups in order
+#pragma unroll
+    for (int q = 0; q < R::kPairs; ++q) {
+      const int p = tid + q * kBwdThreads;
+      if (p < kBwdChunk * N) {
+        const int i = p / N, m = p % N;
+        double s_c = 0.0, s_b = 0.0;
+        for (int c2 = 0; c2 < R::kCh; ++c2) {
+          s_c += r_c[i * R::kStep + c2 * R::kRow + m];
+          s_b += r_b[i * R::kStep + c2 * R::kRow + m];
+        }
+        acc_c[q] += s_c;
+        acc_b[q] += s_b;
+      }
+    }
+    __syncthreads();   // the terms are rewritten by the next group
+  }
+  const long long bsn = static_cast<long long>(gridDim.z) * S * N;
+#pragma unroll
+  for (int q = 0; q < R::kPairs; ++q) {
+    const int p = tid + q * kBwdThreads;
+    if (p < kBwdChunk * N) {
+      const int i = p / N, m = p % N;
+      if (i < len) {
+        const long long at = blockIdx.x * bsn + (bi * S + t0 + i) * N + m;
+        part[at] = acc_c[q];
+        part[gridDim.x * bsn + at] = acc_b[q];
+      }
+    }
+  }
+}
+
+// The cross-block sums in a fixed order: d a over batch rows and chunks,
+// d c and d b over the channel blocks.
+__global__ void __launch_bounds__(kBwdThreads)
+ssm_bwd_reduce(const double* __restrict__ agg,
+               const double* __restrict__ part, float* __restrict__ da,
+               float* __restrict__ dc, float* __restrict__ db,
+               long long din, long long bsn, int rows_chunks, int n_cb) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (idx < din) {
+    const double* p = agg + static_cast<long long>(rows_chunks) * din + idx;
+    double s = 0.0;
+    for (int r = 0; r < rows_chunks; ++r) s += p[r * din];
+    da[idx] = static_cast<float>(s);
+  } else if (idx < din + bsn) {
+    const long long m = idx - din;
+    double s_c = 0.0, s_b = 0.0;
+    for (int cb = 0; cb < n_cb; ++cb) {
+      s_c += part[cb * bsn + m];
+      s_b += part[(n_cb + cb) * bsn + m];
+    }
+    dc[m] = static_cast<float>(s_c);
+    db[m] = static_cast<float>(s_b);
+  }
+}
+
+// the channel blocks of the gradient pass
+int bwd_channel_blocks(int di, int N) {
+  const int per = (kBwdThreads / N) * kBwdGroups;
+  return (di + per - 1) / per;
+}
+
+long long bwd_chunks(int S) { return (S + kBwdChunk - 1) / kBwdChunk; }
+
+struct BwdArgs {
+  const void *dt, *x, *a, *b, *c, *h0, *gy, *ghf;
+  void *ddt, *dx, *da, *db, *dc, *dh0;
+  double* work;
+  int B, S, di;
+  cudaStream_t stream;
+};
+
+template <typename T, int N>
+int launch_bwd(const BwdArgs& g) {
+  using R = BwdRed<N>;
+  auto grad = ssm_bwd_grad<T, N>;
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(
+        grad, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev].store(true, std::memory_order_relaxed);
+  }
+  const T* dt = static_cast<const T*>(g.dt);
+  const T* x = static_cast<const T*>(g.x);
+  const T* gy = static_cast<const T*>(g.gy);
+  const float* a = static_cast<const float*>(g.a);
+  const float* b = static_cast<const float*>(g.b);
+  const float* c = static_cast<const float*>(g.c);
+  const int nk = static_cast<int>(bwd_chunks(g.S));
+  const long long din = static_cast<long long>(g.di) * N;
+  const long long total = din * g.B;
+  const long long bsn = static_cast<long long>(g.B) * g.S * N;
+  const int n_cb = bwd_channel_blocks(g.di, N);
+  double* agg = g.work;
+  double* part = g.work + 3 * total * nk;
+  ssm_bwd_chunk<T, N><<<dim3(static_cast<unsigned>(
+                                 (din + kBwdThreads - 1) / kBwdThreads),
+                             nk, g.B),
+                        kBwdThreads, 0, g.stream>>>(dt, x, a, b, c, gy, agg,
+                                                    g.S, g.di, nk);
+  ssm_bwd_carry<<<static_cast<unsigned>((total + kBwdThreads - 1) /
+                                        kBwdThreads),
+                  kBwdThreads, 0, g.stream>>>(
+      agg, static_cast<const float*>(g.h0),
+      static_cast<const float*>(g.ghf), static_cast<float*>(g.dh0), din,
+      total, nk);
+  grad<<<dim3(n_cb, nk, g.B), kBwdThreads, R::kBytes, g.stream>>>(
+      dt, x, a, b, c, gy, agg, part, static_cast<T*>(g.ddt),
+      static_cast<T*>(g.dx), g.S, g.di, nk);
+  ssm_bwd_reduce<<<static_cast<unsigned>((din + bsn + kBwdThreads - 1) /
+                                         kBwdThreads),
+                   kBwdThreads, 0, g.stream>>>(
+      agg, part, static_cast<float*>(g.da), static_cast<float*>(g.dc),
+      static_cast<float*>(g.db), din, bsn, g.B * nk, n_cb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_bwd(int N, const BwdArgs& g) {
+  switch (N) {
+    case 1: return launch_bwd<T, 1>(g);
+    case 2: return launch_bwd<T, 2>(g);
+    case 4: return launch_bwd<T, 4>(g);
+    case 8: return launch_bwd<T, 8>(g);
+    case 16: return launch_bwd<T, 16>(g);
+    case 32: return launch_bwd<T, 32>(g);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+// Doubles of scratch ssm_scan_bwd_launch needs: the chunk aggregates
+// (3 * B * ceil(S / 16) * di * N) and the d b / d c partials of the
+// channel blocks (2 * n_cb * B * S * N).
+extern "C" long long ssm_scan_bwd_scratch(int B, int S, int di, int N) {
+  if (B < 1 || S < 1 || di < 1 || N < 1 || N > 32) return -1;
+  return 3LL * B * bwd_chunks(S) * di * N +
+         2LL * bwd_channel_blocks(di, N) * B * S * N;
+}
+
+// Gradients of (y, h_final) = scan(dt, x, a, b, c, h0) for the
+// cotangents gy (B, S, di) in dt's dtype and ghf (B, di, N) float32;
+// either may be null (zero).  Writes ddt, dx (dt's dtype) and da, db,
+// dc, dh0 (float32); `work` holds ssm_scan_bwd_scratch(...) doubles.
+// dtype: 0 = float32, 1 = bfloat16.  Four launches, no atomics: the
+// same inputs give the same bits.
+extern "C" int ssm_scan_bwd_launch(const void* dt, const void* x,
+                                   const void* a, const void* b,
+                                   const void* c, const void* h0,
+                                   const void* gy, const void* ghf,
+                                   void* ddt, void* dx, void* da, void* db,
+                                   void* dc, void* dh0, void* work,
+                                   int dtype, int B, int S, int di, int N,
+                                   void* stream) {
+  if (B < 1 || S < 1 || di < 1 || work == nullptr ||
+      bwd_chunks(S) > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs g{dt, x, a, b, c, h0, gy, ghf, ddt, dx, da, db, dc, dh0,
+            static_cast<double*>(work), B, S, di,
+            static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_bwd<float>(N, g);
+  if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(N, g);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // dtype of dt, x and y: 0 = float32, 1 = bfloat16.  a, b, c, h0 and hf
 // are float32; all tensors contiguous.  The sequence is cut into

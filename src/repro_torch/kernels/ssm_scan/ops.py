@@ -1,21 +1,27 @@
-"""Public wrapper for the SSM-scan kernel (``csrc/ssm_scan.cu``).
+"""Public wrappers for the SSM-scan kernels (``csrc/ssm_scan.cu``).
 
-Given CUDA tensors it launches the Hopper kernel (or raises); given CPU
-tensors it runs the plain version, ``ref.ssm_scan_ref``; given ``meta``
-tensors it calls the operator ``repro_torch::ssm_scan``, the kernel's
-shape rule, which a dispatch mode sees (``analysis/cost.py`` prices
-it).  Unlike
-``repro``'s wrapper it pads nothing: the kernel takes any sequence
-length.  The kernel scans time chunks in parallel and carries the state
-between them (:func:`chunk_plan` cuts the sequence); ``ref.py`` mirrors
-that algorithm in plain torch for the tests.  ``LAUNCHES`` counts calls
-that launched the kernel: one CUDA launch for a one-chunk scan (decode,
-short prompts), three for a chunked one (chunk states, carry, scan).
+Given CUDA tensors each launches its Hopper kernel (or raises); given
+CPU tensors it runs the plain version; given ``meta`` tensors it calls
+an operator with a Meta kernel only, the kernel's shape rule, which a
+dispatch mode sees (``analysis/cost.py`` prices it).
 
-:class:`SSMScan` is the scan with a gradient: the kernel forward (or the
-plain one) and ``ref.ssm_scan_bwd_plain`` as its backward, a plain-torch
-port of the gradient XLA derives for ``repro``'s chunked scan (``repro``
-has no backward kernel).
+* :func:`ssm_scan`, the forward: plain version ``ref.ssm_scan_ref``,
+  operator ``repro_torch::ssm_scan``.  Unlike ``repro``'s wrapper it
+  pads nothing: the kernel takes any sequence length.  The kernel scans
+  time chunks in parallel and carries the state between them
+  (:func:`chunk_plan` cuts the sequence); ``ref.py`` mirrors that
+  algorithm in plain torch for the tests.  ``LAUNCHES`` counts calls
+  that launched it: one CUDA launch for a one-chunk scan (decode, short
+  prompts), three for a chunked one (chunk states, carry, scan).
+* :func:`ssm_scan_bwd`, the gradient of (y, h_final): plain version
+  ``ref.ssm_scan_bwd_plain`` (float64, as the kernel computes),
+  operator ``repro_torch::ssm_scan_bwd``.  ``repro`` has no backward
+  kernel: XLA differentiates its chunked scan.  ``BWD_LAUNCHES`` counts
+  calls that launched the backward kernel (four CUDA launches a call).
+
+:class:`SSMScan` is the scan with a gradient: the kernel forward and the
+kernel backward on a CUDA tensor, the plain versions on the CPU or with
+``plain=True``.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_plain, ssm_scan_ref
 STATE_SIZES = (1, 2, 4, 8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel calls since the count was last set to 0
+# kernel calls since the count was last set to 0: forward, backward
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 CHANNELS_PER_BLOCK = 128   # one thread per channel (csrc/ssm_scan.cu)
 MIN_CHUNK_STEPS = 16       # shorter sequences keep one chunk
@@ -205,26 +212,135 @@ def ssm_scan(dt, x, a, b, c, h0=None, *, chunk: int = 128,
     return ssm_scan_plain(dt, x, a, b, c, h0)
 
 
+# dt, x, a, b, c, h0, gy, ghf, ddt, dx, da, db, dc, dh0, work; dtype, B,
+# S, di, N; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + \
+    [ctypes.c_void_p]
+_BWD_FN = None
+
+
+def _check_bwd(dt, x, a, b, c, h0, gy, ghf) -> int:
+    """:func:`_check` and the cotangents: gy as dt (or None), ghf as h0
+    (or None), contiguous, on the same card.  Returns the device index."""
+    dev = _check(dt, x, a, b, c, h0)
+    if ((gy is None or (gy.shape == dt.shape and gy.dtype == dt.dtype
+                        and gy.is_contiguous() and gy.get_device() == dev))
+            and (ghf is None or (ghf.shape == h0.shape and ghf.dtype == F32
+                                 and ghf.is_contiguous()
+                                 and ghf.get_device() == dev))):
+        return dev
+    _explain_bwd(dt, h0, gy, ghf)
+    return dev
+
+
+def _explain_bwd(dt, h0, gy, ghf) -> None:
+    for name, t, like, dtype in (("gy", gy, dt, dt.dtype),
+                                 ("ghf", ghf, h0, F32)):
+        if t is None:
+            continue
+        if t.shape != like.shape or t.dtype != dtype:
+            raise ValueError(f"ssm_scan_bwd: {name} must be {dtype} of shape "
+                             f"{tuple(like.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssm_scan_bwd: {name} must be contiguous")
+        if t.device != dt.device:
+            raise ValueError("ssm_scan_bwd: inputs on different devices")
+
+
+def _bind_bwd():
+    """The backward's launch function, built and bound on first use."""
+    global _BWD_FN
+    _BWD_FN = build.function("ssm_scan", "ssm_scan_bwd_launch",
+                             _BWD_ARGTYPES)
+    return _BWD_FN
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_scratch(bsz: int, s: int, di: int, n: int) -> int:
+    """Doubles of scratch the backward kernel takes at this shape."""
+    fn = build.function("ssm_scan", "ssm_scan_bwd_scratch",
+                        [ctypes.c_int] * 4, restype=ctypes.c_longlong)
+    return fn(bsz, s, di, n)
+
+
+def _bwd_kernel(dt, x, a, b, c, h0, gy, ghf):
+    global BWD_LAUNCHES
+    gy = None if gy is None else gy.contiguous()
+    ghf = None if ghf is None else ghf.contiguous()
+    dev = _check_bwd(dt, x, a, b, c, h0, gy, ghf)
+    fn = _BWD_FN or _bind_bwd()
+    bsz, s, di = dt.shape
+    n = a.shape[1]
+    work = dt.new_empty((_bwd_scratch(bsz, s, di, n),), dtype=torch.float64)
+    grads = tuple(torch.empty_like(t) for t in (dt, x, a, b, c, h0))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(dt.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(),
+             c.data_ptr(), h0.data_ptr(), ptr(gy), ptr(ghf),
+             *(g.data_ptr() for g in grads), work.data_ptr(),
+             _DTYPES[dt.dtype], bsz, s, di, n, build.raw_stream(dev))
+    if err:
+        build.check(err, "ssm_scan_bwd_launch")
+    BWD_LAUNCHES += 1
+    return grads
+
+
+# the backward's shape rule: the six gradients, each like its input
+_LIB.define("ssm_scan_bwd(Tensor dt, Tensor x, Tensor a, Tensor b, "
+            "Tensor c, Tensor h0, Tensor? gy, Tensor? ghf) -> (Tensor, "
+            "Tensor, Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("ssm_scan_bwd",
+          lambda dt, x, a, b, c, h0, gy, ghf: tuple(
+              torch.empty_like(t) for t in (dt, x, a, b, c, h0)), "Meta")
+_bwd_shape_rule = torch.ops.repro_torch.ssm_scan_bwd
+
+
+def ssm_scan_bwd(dt, x, a, b, c, h0, gy, ghf):
+    """Gradients (d dt, d x, d a, d b, d c, d h0) of ``(y, h_final) =
+    ssm_scan(dt, x, a, b, c, h0)`` for the cotangents ``gy`` (B, S, di,
+    dt's dtype) and ``ghf`` (B, di, N, float32); either may be None
+    (zero).  Each gradient has its input's dtype.  The Hopper kernel on a
+    CUDA tensor (it takes what :func:`ssm_scan`'s kernel takes), its plain
+    version ``ref.ssm_scan_bwd_plain`` on the CPU, the shape rule on
+    ``meta``; both compute in float64."""
+    if dt.is_cuda:
+        return _bwd_kernel(dt, x, a, b, c, h0, gy, ghf)
+    if dt.is_meta:
+        gy = None if gy is None else gy.contiguous()
+        ghf = None if ghf is None else ghf.contiguous()
+        if not all(t is None or t.is_meta for t in (x, a, b, c, h0, gy, ghf)):
+            raise ValueError("ssm_scan_bwd: inputs on different devices")
+        _check_bwd(dt, x, a, b, c, h0, gy, ghf)
+        return _bwd_shape_rule(dt, x, a, b, c, h0, gy, ghf)
+    if dt.device.type != "cpu":
+        raise ValueError(f"no ssm_scan_bwd kernel for device {dt.device}")
+    return ssm_scan_bwd_plain(dt, x, a, b, c, h0, gy, ghf)
+
+
 class SSMScan(torch.autograd.Function):
-    """The selective scan with a gradient.  Forward: :func:`ssm_scan`
-    (the Hopper kernel on a CUDA tensor, its plain version on the CPU),
-    or :func:`ssm_scan_plain` on any device with ``plain=True``, so the
-    card can hold the kernel against it inside the same function.
-    Backward: ``ref.ssm_scan_bwd_plain`` from the saved inputs, which
-    recomputes the states a chunk at a time.  Returns (y, h_final)."""
+    """The selective scan with a gradient.  On a CUDA tensor the forward
+    is :func:`ssm_scan`'s kernel and the backward :func:`ssm_scan_bwd`'s;
+    on the CPU both wrappers take their plain versions.  With
+    ``plain=True`` the forward is :func:`ssm_scan_plain` and the backward
+    ``ref.ssm_scan_bwd_plain`` on any device, so the card can hold the
+    kernels against them inside the same function.  The backward works
+    from the saved inputs and recomputes the states a chunk at a time.
+    Returns (y, h_final)."""
 
     @staticmethod
     def forward(ctx, dt, x, a, b, c, h0, plain):
         fwd = ssm_scan_plain if plain else ssm_scan
         y, hf = fwd(dt, x, a, b, c, h0)
         ctx.save_for_backward(dt, x, a, b, c, h0)
+        ctx.plain = plain
         return y, hf
 
     @staticmethod
     def backward(ctx, gy, ghf):
-        grads = ssm_scan_bwd_plain(*ctx.saved_tensors, gy, ghf)
+        bwd = ssm_scan_bwd_plain if ctx.plain else ssm_scan_bwd
+        grads = bwd(*ctx.saved_tensors, gy, ghf)
         return (*grads, None)
 
 
-__all__ = ["ssm_scan", "ssm_scan_plain", "chunk_plan", "SSMScan",
-           "STATE_SIZES", "LAUNCHES"]
+__all__ = ["ssm_scan", "ssm_scan_plain", "ssm_scan_bwd", "chunk_plan",
+           "SSMScan", "STATE_SIZES", "LAUNCHES", "BWD_LAUNCHES"]

@@ -12,9 +12,9 @@ chunk modes, which JAX also computes outside its Pallas kernel.
 
 With gradients wanted, whole-sequence attention is :class:`FlashAttention`,
 an autograd function: its forward is the kernel with its log-sum-exp, its
-backward :func:`flash_attention_bwd`, a plain-torch port of ``repro``'s
-blockwise ``_flash_bwd`` (``repro`` too computes the backward outside any
-Pallas kernel).
+backward :func:`flash_attention_bwd`, the flash backward kernel (its
+plain version on the CPU: a port of ``repro``'s blockwise ``_flash_bwd``,
+which ``repro`` computes outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -137,71 +137,28 @@ def _check_iota(pos: torch.Tensor, n: int, what: str) -> None:
                          f" (whole-sequence prefill)")
 
 
-def _blocking(sq: int, skv: int, q_block: int, kv_block: int):
-    qb = min(q_block, sq)
-    while sq % qb:
-        qb -= 1
-    kb = min(kv_block, skv)
-    while skv % kb:
-        kb -= 1
-    return qb, kb
-
-
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window,
                         logit_cap: float = 0.0, q_block: int = 512,
                         kv_block: int = 1024):
     """(dq, dk, dv) of whole-sequence attention (positions 0..S-1) from
-    the forward's ``o`` and ``lse`` (B, KVH, G, Sq): ``repro``'s
-    ``_flash_bwd``, block by block in the same order (kv blocks outer, q
-    blocks inner), the probabilities recomputed from the saved lse,
-    ``delta = rowsum(do * o)``, the soft cap's derivative, all in float32
-    and cast to the inputs' dtypes at the end."""
-    b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    scale = 1.0 / math.sqrt(d)
-    qb, kb = _blocking(sq, skv, q_block, kv_block)
-    dev = q.device
-    delta = (do.float() * o.float()).sum(-1)                  # (b, sq, h)
-    delta = delta.reshape(b, sq, kvh, g).permute(0, 2, 3, 1)  # (b,kvh,g,sq)
-    qg = q.reshape(b, sq, kvh, g, d).float()
-    dog = do.reshape(b, sq, kvh, g, d).float()
-    kf, vf = k.float(), v.float()
-    q_pos = torch.arange(sq, dtype=torch.int32, device=dev)
-    k_pos = torch.arange(skv, dtype=torch.int32, device=dev)
-    dq = torch.zeros((b, sq, kvh, g, d), dtype=torch.float32, device=dev)
-    dk = torch.zeros((b, skv, kvh, d), dtype=torch.float32, device=dev)
-    dv = torch.zeros((b, skv, kvh, d), dtype=torch.float32, device=dev)
-    for j in range(0, skv, kb):
-        kj, vj = kf[:, j:j + kb], vf[:, j:j + kb]
-        for i in range(0, sq, qb):
-            qi, doi = qg[:, i:i + qb], dog[:, i:i + qb]
-            raw = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj)
-            logits = _softcap(raw * scale, logit_cap)
-            mask = make_mask(q_pos[i:i + qb], k_pos[j:j + kb],
-                             causal=causal, window=window)
-            logits = torch.where(mask, logits,
-                                 torch.full_like(logits, NEG_INF))
-            p = torch.exp(logits - lse[..., i:i + qb, None])
-            dp = torch.einsum("bqhgd,bkhd->bhgqk", doi, vj)
-            ds = p * (dp - delta[..., i:i + qb, None])
-            if logit_cap > 0:   # soft cap's derivative: 1 - tanh(raw/cap)^2
-                ds = ds * (1.0 - torch.square(torch.tanh(
-                    raw * scale / logit_cap)))
-            dq[:, i:i + qb] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
-                                            kj) * scale
-            dk[:, j:j + kb] += torch.einsum("bhgqk,bqhgd->bkhd", ds,
-                                            qi) * scale
-            dv[:, j:j + kb] += torch.einsum("bhgqk,bqhgd->bkhd", p, doi)
-    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    the forward's ``o`` and ``lse`` (B, KVH, G, Sq):
+    ``kernels/flash_attention.ops.flash_attention_bwd``, the Hopper
+    backward kernel on a CUDA tensor and its plain version
+    (``ref.flash_attention_bwd_plain``, ``repro``'s blockwise
+    ``_flash_bwd`` in ``q_block`` x ``kv_block`` blocks) on the CPU."""
+    from repro_torch.kernels.flash_attention import ops
+    return ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window, logit_cap=logit_cap,
+                                   q_block=q_block, kv_block=kv_block)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Whole-sequence attention with a gradient.  Forward: the flash
-    kernel with its log-sum-exp (its plain version on the CPU, or with
-    ``plain=True`` anywhere, so the card can hold the kernel against it
-    inside the same function); backward: :func:`flash_attention_bwd`."""
+    """Whole-sequence attention with a gradient.  On a CUDA tensor the
+    forward is the flash kernel with its log-sum-exp and the backward the
+    flash backward kernel (:func:`flash_attention_bwd`); on the CPU both
+    take their plain versions.  With ``plain=True`` both are the plain
+    versions on any device, so the card can hold the kernels against them
+    inside the same function."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_cap, plain):
@@ -211,15 +168,17 @@ class FlashAttention(torch.autograd.Function):
         o, lse = fwd(q, k, v, causal=causal, window=int(window or 0),
                      logit_cap=logit_cap, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = (causal, window, logit_cap)
+        ctx.opts = (causal, window, logit_cap, plain)
         return o
 
     @staticmethod
     def backward(ctx, do):
+        from repro_torch.kernels.flash_attention import ref
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, logit_cap = ctx.opts
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                         window=window, logit_cap=logit_cap)
+        causal, window, logit_cap, plain = ctx.opts
+        bwd = ref.flash_attention_bwd_plain if plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                         logit_cap=logit_cap)
         return dq, dk, dv, None, None, None, None
 
 

@@ -16,7 +16,10 @@ Tolerances:
   harness's 8 CPU devices, summed over them.  (a) ``repro``'s XLA
   attention computes every (query, key) block in full, while the flash
   kernel's shape rule is priced by the pairs its masks leave; the port's
-  forward attention is therefore taken in full here, 4·B·H·S²·D a layer.
+  forward attention is therefore taken in full here, 4·B·H·S²·D a layer
+  (two products), and in the train step its backward too, 10·B·H·S²·D a
+  layer (five products), which XLA computes block by block in full and
+  the flash backward kernel's shape rule prices by the pairs.
   (b) GSPMD computes the prefill's last-token logits on every device of
   the data axis (its batch is replicated there, its sequence sharded),
   so the summed HLO holds them 8 times; and the port's chunked
@@ -205,9 +208,12 @@ def _cells(kind):
     return jcfg, jbuild(jcfg), jdp, tcfg, tm, tdp
 
 
-def _attention_in_full(tcfg) -> int:
+def _attention_in_full(tcfg, products: int = 2) -> int:
+    """FLOPs of ``products`` attention products a layer, every (query,
+    key) pair counted: 2 per pair, head and head dimension each."""
     a = tcfg.attention
-    return tcfg.num_layers * 4 * B * a.num_heads * S * S * a.head_dim
+    return (tcfg.num_layers * 2 * products * B * a.num_heads * S * S
+            * a.head_dim)
 
 
 def test_prefill_flops_match_the_hlo():
@@ -244,5 +250,7 @@ def test_train_step_flops_match_the_hlo():
           for k in ("tokens", "labels")}
     with CostCounter() as c:
         tshard(ts, tb)(ts, tb)
+    assert c.kernels["flash_attention_bwd"]["calls"] == tcfg.num_layers
     logits = 2 * B * S * tcfg.d_model * tcfg.vocab_size
-    assert c.matmul_flops + _attention_in_full(tcfg) - logits == want
+    assert c.matmul_flops + _attention_in_full(tcfg) + _attention_in_full(
+        tcfg, products=5) - logits == want

@@ -1,6 +1,7 @@
 """The scan's gradient: ``kernels/ssm_scan/ops.SSMScan`` (the kernel
-forward, or its plain version on the CPU, and ``ref.ssm_scan_bwd_plain``
-as its backward) against ``jax.grad`` of ``repro``'s ``ssm_scan_chunked``
+forward and backward on a CUDA tensor; on the CPU their plain versions,
+``ref.ssm_scan_ref`` and ``ref.ssm_scan_bwd_plain``) against ``jax.grad``
+of ``repro``'s ``ssm_scan_chunked``
 and against autograd through the plain time loop ``ssm_scan_ref``.  The
 loss is a sum of y * w plus h_final * w', so both outputs carry a
 cotangent.  Inputs are made with numpy from a seed.
@@ -164,8 +165,9 @@ def test_kernel_forward_never_falls_back(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [37, 256])
 def test_kernel_forward_and_plain_backward_on_card(s):
-    """On the card: the kernel forward inside ``SSMScan`` against the plain
-    forward inside it, and the gradients against the CPU's."""
+    """On the card: the kernel forward and backward inside ``SSMScan``
+    against the plain versions inside it (``plain=True``), and the
+    gradients against the CPU's."""
     dev = cuda_device()
     arrs, weights = _inputs((2, s, 256, 16), seed=s)
     got, y = _port_grads(arrs, weights, device=dev)

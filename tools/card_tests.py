@@ -37,7 +37,9 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_elastic.py",
                    "tests/test_torch_moe_model.py",
                    "tests/test_torch_ssm_grad.py",
-                   "tests/test_torch_encdec.py")
+                   "tests/test_torch_encdec.py",
+                   "tests/test_torch_ssm_bwd_kernel.py",
+                   "tests/test_torch_flash_bwd_kernel.py")
 _STANDING_IN = ("jax", "repro")
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the bounce and SSM-scan kernels of several checkouts on one card.
+"""Time the port's kernels of several checkouts on one card.
 
     python3 tools/kernel_ab.py ROOT [ROOT ...] [--out results.json]
 
@@ -17,7 +17,13 @@ to ``--out``, at the main path's shapes:
   synchronisation between them) for the two small payloads;
 * ssm_scan at hymba-1.5b shapes (d_inner 3200, N 16, f32): prefill
   S = 300 and 2048 and the 4-slot decode tick: event ms, device ms, and
-  host us per call at decode.
+  host us per call at decode;
+* the backward kernels at the train shapes: ``ssm_scan_bwd`` at a rank's
+  hymba-1.5b 2 x 256 (mamba's dt and A, f32) and ``flash_attention_bwd``
+  at gemma3-1b's B=2 S=256 window 512 and hymba-1.5b's 25 over 5 heads,
+  D 64, window 1024 (bf16): event ms, device ms, host us per call (100
+  calls) and each CUDA kernel's device us per call.  A root whose
+  wrappers have no backward kernel reports them as absent.
 
 Every number names the card and its power limit.  It needs a card.
 """
@@ -51,7 +57,8 @@ def worker(root: str) -> dict:
     gen.manual_seed(0)
     iters = tech.iters_for_ns(400.0, device=dev)
     out = {"root": root, "ns_per_iter": tech.calibrate(device=dev),
-           "syscall_iters": iters, "bounce": {}, "ssm_scan": {}}
+           "syscall_iters": iters, "bounce": {}, "ssm_scan": {},
+           "backward": {}}
     for label, shape, dtype in (
             ("table_1.21GB", (262_144, 1152), torch.float32),
             ("act_1x512x1152_bf16", (1, 512, 1152), torch.bfloat16),
@@ -80,7 +87,75 @@ def worker(root: str) -> dict:
         if label == "decode":
             row["host_us"] = _host_us(call)
         out["ssm_scan"][label] = row
+    out["backward"] = _backward(gen, dev)
     return out
+
+
+def _by_kernel(fn, n: int = 10) -> dict:
+    """Device us per call of each CUDA kernel ``fn`` launches (profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    def name(key):   # "void (anonymous namespace)::kern<T, 16>(args)"
+        return key.split("::")[-1].split("(")[0] if "::" in key else key
+    return {name(e.key): e.self_device_time_total / n
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def _backward(gen, dev) -> dict:
+    """The backward kernels at the train shapes; absent from a root whose
+    wrappers have none."""
+    import math
+
+    import torch
+    from chip_smoke import _cuda_ms, _device_ms, _host_us
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssm_scan import ops as ssm
+
+    rows = {}
+    if hasattr(ssm, "ssm_scan_bwd"):
+        bsz, s, di, n = 2, 256, 3200, 16
+        u = torch.rand(bsz, s, di, generator=gen, device=dev)
+        rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa
+        args = (torch.exp(math.log(1e-3) + u * math.log(100.0)),
+                rnd(bsz, s, di), -torch.arange(1, n + 1, dtype=torch.float32,
+                                               device=dev).expand(di, n)
+                .contiguous(), rnd(bsz, s, n), rnd(bsz, s, n),
+                rnd(bsz, di, n), rnd(bsz, s, di), rnd(bsz, di, n))
+        call = lambda: ssm.ssm_scan_bwd(*args)  # noqa: E731
+        rows["ssm_scan_bwd_2x256"] = {"ms": _cuda_ms(call, n=20),
+                                      "device_ms": _device_ms(call),
+                                      "host_us": _host_us(call, n=100),
+                                      "kernel_us": _by_kernel(call)}
+    else:
+        rows["ssm_scan_bwd_2x256"] = "absent"
+    for label, (h, kvh, d, window) in (("flash_bwd_gemma3_w512",
+                                        (4, 1, 256, 512)),
+                                       ("flash_bwd_hymba_w1024",
+                                        (25, 5, 64, 1024))):
+        if not hasattr(fa, "flash_attention_bwd"):
+            rows[label] = "absent"
+            continue
+        b, s = 2, 256
+        q, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, s, kvh, d, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+        call = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, causal=True, window=window)
+        rows[label] = {"ms": _cuda_ms(call, n=20),
+                       "device_ms": _device_ms(call),
+                       "host_us": _host_us(call, n=100),
+                       "kernel_us": _by_kernel(call)}
+    return rows
 
 
 def main(argv=None) -> int:
@@ -121,6 +196,10 @@ def main(argv=None) -> int:
             print(f"  ssm_scan {label}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in row.items() if v is not None),
                 flush=True)
+        for label, row in res["backward"].items():
+            print(f"  {label}: " + (row if isinstance(row, str) else ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items() if v is not None)), flush=True)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
