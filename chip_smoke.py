@@ -84,9 +84,10 @@ Phases, one line each; any failure raises and the script exits nonzero:
    flash backward kernel against its plain version: f32 within 2e-5 x
    max(1, |plain|), bf16 each gradient at cosine > 0.999 and within 2e-2
    x max |plain|, two calls bit for bit; its ms, device ms and host us
-   against its bound, its plain version and ATen's flash backward where
-   that computes the same gradients (bf16, no soft cap, no binding
-   window);
+   against its bound, its plain version and ATen's backward where that
+   computes the same gradients (no soft cap; bf16 its flash backward
+   with no binding window, f32 its efficient attention backward with a
+   binding window as a bias);
 5. training: full-width, full-depth gemma3-1b from seed 0 (f32
    parameters, bf16 compute) through ``make_explicit_dp_step`` on a mesh
    of 2 ranks on the card, global batch 4, seq 256, 3 steps, with
@@ -785,8 +786,10 @@ def _flash_bwd_case(gen, q, k, v, o, lse, *, causal: bool, window: int,
     and within FLASH_BWD_BF16_REL x max |plain|; two calls bit for bit; its
     time (CUDA events, profiler device time, host us a call) against its
     bound (``analysis/cost.flash_bwd_cost`` at the dtype's peak), its plain
-    version and ATen's flash attention backward where that computes the
-    same gradients (bf16, no soft cap, a window that does not bind)."""
+    version and ATen's backward where that computes the same gradients
+    (no soft cap): its flash attention backward in bf16 where the window
+    does not bind, its efficient attention backward in f32, a binding
+    window there as an additive bias."""
     import torch
     from repro_torch.analysis.cost import flash_bwd_cost
     from repro_torch.kernels.flash_attention import ops as fa
@@ -833,25 +836,48 @@ def _flash_bwd_case(gen, q, k, v, o, lse, *, causal: bool, window: int,
     plain = _cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                        **kw), n=3, warmup=1)
     lib, lib_why = None, None
-    if not bf16:
-        lib_why = "ATen's flash attention backward takes fp16 or bf16 only"
-    elif cap:
+    binds = bool(window) and window < max(sq, skv)
+    # ATen's forward for its own out and lse, (B, H, S, D), k and v
+    # repeated over the group; its backward is what is timed
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+              .contiguous() for t in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+    if cap:
         lib_why = "no library call applies a tanh soft cap"
-    elif window and window < max(sq, skv):
+    elif bf16 and binds:
         lib_why = "ATen's flash attention has no sliding window"
-    else:
-        # ATen's forward for its own out and lse, (B, H, S, D), k and v
-        # repeated over the group; its backward is what is timed
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (t.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-                  .contiguous() for t in (k, v))
-        dot = do.transpose(1, 2).contiguous()
+    elif bf16:
         out, lse_a, cq, ck, mq, mk, seed, off, _ = \
             torch.ops.aten._scaled_dot_product_flash_attention(
                 qt, kt, vt, 0.0, causal)
         bwd_op = torch.ops.aten._scaled_dot_product_flash_attention_backward
         lib = _cuda_ms(lambda: bwd_op(dot, qt, kt, vt, out, lse_a, cq, ck,
                                       mq, mk, 0.0, causal, seed, off), n=10)
+    else:
+        # f32: ATen's efficient attention backward (its flash backward
+        # takes fp16 or bf16 only); a window that binds goes in as an
+        # additive bias that also holds the causal mask, as phase 11's
+        # forward case gives it
+        bias, is_causal = None, causal
+        if binds:
+            qp = torch.arange(sq, device=q.device)[:, None]
+            kp = torch.arange(skv, device=q.device)[None]
+            mask = qp - kp < window
+            if causal:
+                mask &= kp <= qp
+            bias = torch.zeros(sq, skv, device=q.device).masked_fill(
+                ~mask, float("-inf")).expand(b, h, sq, skv).contiguous()
+            is_causal = False
+        out, lse_a, seed, off = \
+            torch.ops.aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, bias, True, 0.0, is_causal)
+        bwd_op = \
+            torch.ops.aten._scaled_dot_product_efficient_attention_backward
+        lib = _cuda_ms(lambda: bwd_op(dot, qt, kt, vt, bias, out, lse_a,
+                                      seed, off, 0.0,
+                                      [True, True, True, False], is_causal),
+                       n=10)
     flops, nbytes = flash_bwd_cost(tuple(q.shape), skv, kvh,
                                    q.element_size(), causal=causal,
                                    window=window)

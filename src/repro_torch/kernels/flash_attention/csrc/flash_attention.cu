@@ -89,26 +89,68 @@
 // leave, delta = rowsum(dO * O), dS = P (dO.v - delta) times the soft
 // cap's derivative 1 - tanh^2, dV = P^T dO, dK = dS^T q * scale,
 // dQ = dS k * scale; every mask the forward with lse takes (causal,
-// window, soft cap, GQA, Sq != Skv).  Bound: 10 * D operations a pair
-// (five products), against q, k, v, o, dO, lse read and dQ, dK, dV
-// written once.  This first design is simple and exact in f32 on both
-// dtypes (bf16 is read and written as bf16, P and dS stay f32); it takes
-// no tensor cores, so at large D and S it sits far above the bound:
-// - the row pass for delta; one block per (kv tile, kv head, batch) for
-//   dK and dV, which walks the G query heads of its group and the q
-//   tiles its masks leave, so the group's sum stays in its registers;
-//   one block per (q tile, head, batch) for dQ, which walks the kv
-//   tiles.  Both skip tiles as the forward does (above the diagonal,
-//   left of the window).  Where that grid is too small for the card
-//   (gemma3-1b's one kv head: 16 dK/dV blocks at B=2, S=256), a pass
-//   cuts its reduction list into up to 8 contiguous runs, one block
-//   each, whose f32 partials a sum kernel adds in order (`bwd_plan`
-//   picks the runs from the shape and the SM count).  No atomics: every sum runs in a fixed order, so two calls
-//   give the same bits;
-// - 256 threads a block as a 16 x 16 grid, each with a micro-tile of
-//   every product in registers; tiles of 64 x 64 (32 x 32 at D = 256,
-//   where the dK and dV accumulators of a 64-row tile would spill) in
-//   shared memory with odd row strides.
+// window, soft cap, GQA, Sq != Skv, ragged ends).
+//
+// What bounds it.  10 * D operations a pair (five products) against q,
+// k, v, o, dO, lse read and dQ, dK, dV written once: the operations at
+// whisper's encoder (17.3 GFLOP, 17.5 us at 989 TFLOP/s), the bytes at
+// the S=256 train shapes (1.6 us at gemma3-1b's B=2).  Without atomics the
+// design pays two more products (S and dP are recomputed in a second
+// pass), 14 * D a pair.  What the card loses is latency and occupancy:
+// each 64 x 64 tile pair chains a product, a pass over its scores in
+// registers and a product that depends on them.  At D=64 that pass over
+// the scores (exp, masks, the exchange), not the products, bounds both
+// passes, so it is kept short: it is specialised at compile time on the
+// mask and the soft cap (an interior tile without a cap evaluates
+// neither), exp is one ex2.approx (exp2f costs several instructions),
+// and the exchange and the rows' lse and delta move as float4 / float2.
+// Whisper's encoder has 288 dK/dV blocks for 264 places (two an SM): two
+// waves.
+//
+// The bf16 path (D in {64, 128, 256}; the wrapper zero-pads D of 16 and
+// 32 to 64 and passes the scale of the real D), in three to five
+// launches: delta (one warp a row), then two passes that each recompute
+// S and P from the lse, as the f32 path always did.
+// - dK/dV pass, one block per (64-row kv tile, kv head, batch): K and V
+//   stay in shared memory; a TMA ring (3 stages, 2 at D=256) streams Q,
+//   dO and the rows' lse and delta over the G query heads of the group
+//   times the q tiles the masks leave (heads outer, tiles skipped above
+//   the diagonal and left of the window as the forward skips them), so
+//   the group's sum stays in the block.  Two consumer warpgroups split
+//   the products, not the rows: group 0 computes S^T = K Q^T
+//   (m64n64k16, both operands K-major from shared memory), turns it into
+//   P^T in f32 registers and accumulates dV += P^T dO with P^T in bf16
+//   as the register A operand and dO through wgmma's transpose bit (the
+//   forward's P.V); group 1 computes dP^T = V dO^T and dK += dS^T Q the
+//   same way.  dS^T = P^T dcap (dP^T - delta) needs group 0's P^T dcap:
+//   it crosses through 16 KB of shared memory, thread to thread in the
+//   accumulator layout (no swizzle, no proxy fence), behind two named
+//   barriers (written / read).  Each group holds one 64 x D f32
+//   accumulator: 128 registers a thread at D=256, where a producer
+//   warpgroup hands its registers to the consumers (setmaxnreg 40 / 232;
+//   one block an SM by shared memory, 210 KB) and nothing spills.
+// - dQ pass, one block per (64-row q tile, head, batch): Q, dO and the
+//   rows' lse and delta stay resident, a TMA ring streams K and V (3
+//   stages at D=64, 2 above); one consumer warpgroup computes S = Q K^T
+//   and dP = dO V^T, dS in registers and dQ += dS K with dS as the
+//   register A operand.  Three blocks an SM at D=64.
+// - All five kinds of product run on the bf16 tensor cores with f32
+//   accumulators; P and dS are rounded to bf16 before they enter a
+//   product, as the forward rounds P; the masks, the soft cap and its
+//   derivative stay in f32.  One producer warp issues the TMA loads
+//   (64 x 64 boxes, 128-byte swizzle, rows past S read as 0) behind
+//   full/empty mbarriers that trap after 2 s.
+// - No atomics: each block sums its reduction list in a fixed order.
+//   Where the grid is too small for the card (gemma3-1b's one kv head:
+//   8 dK/dV blocks at B=2, S=256) a pass cuts its list into up to 8
+//   contiguous runs, one block each, whose f32 partials a sum kernel adds
+//   in order (`bwd_plan` picks the runs from the shape and the SM
+//   count).  So two calls give the same bits.
+// The f32 path (the smoke configs, any D of 16-256) stays on CUDA cores,
+// as the forward's f32 path does (TF32 would not hold its 2e-5 gate):
+// 256 threads a block as a 16 x 16 grid, each with a micro-tile of every
+// product in registers, tiles of 64 x 64 (32 x 32 at D = 256) in shared
+// memory with odd row strides, the same two passes and plan.
 //
 // C interface: flash_attention_launch and flash_attention_bwd_launch
 // return 0, a cudaError_t, or (the forward) kErrTensorMap below.
@@ -887,7 +929,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// Backward: dQ, dK, dV on CUDA cores, f32 arithmetic, bf16 or f32 I/O
+// Backward: the delta rows and the partials' sum (both dtypes); dQ, dK,
+// dV on CUDA cores (f32)
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 256;   // a 16 x 16 grid of threads
@@ -969,6 +1012,15 @@ __device__ __forceinline__ void bwd_load_rows(float* s_lse, float* s_delta,
   }
 }
 
+// Whether the masks leave the pair (qpos, kpos) of a backward call.
+__device__ __forceinline__ bool bwd_pair_ok(int qpos, int kpos, int Sq,
+                                            int Skv, int causal, int window) {
+  bool ok = qpos < Sq && kpos < Skv;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && qpos - kpos < window;
+  return ok;
+}
+
 // P and dS of one (q tile, kv tile) from the raw scores s = q.k and
 // dp = dO.v of a thread's micro-tile: p = exp(cap(s * scale) - lse) on
 // the pairs the masks leave, 0 elsewhere; dS = p (dp - delta), times
@@ -987,10 +1039,8 @@ __device__ __forceinline__ void bwd_probs(float (&s)[MI][NJ],
     const int qr = ty + 16 * i, qpos = i0 + qr;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int kpos = k0 + tx + 16 * j;
-      bool ok = qpos < Sq && kpos < Skv;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window > 0) ok = ok && qpos - kpos < window;
+      const bool ok = bwd_pair_ok(qpos, k0 + tx + 16 * j, Sq, Skv, causal,
+                                  window);
       float x = s[i][j] * scale, dcap = 1.f;
       if (logit_cap > 0.f) {
         const float t = tanhf(x / logit_cap);
@@ -1238,9 +1288,542 @@ flash_bwd_sum(const float* __restrict__ part, T* __restrict__ out0,
     st_f(out1 + e, acc * scale1);
 }
 
+// ---------------------------------------------------------------------------
+// Backward, bf16 path: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+
+constexpr int kWG = 128;                      // threads of a warpgroup
+constexpr int kQThreads = kWG + 32;           // the dQ group + producer
+constexpr int kBarExchange = 1;               // named barriers of the dK/dV
+constexpr int kBarFree = 2;                   // pass's P exchange
+
+// Shared memory of the two bf16 passes: 64-row tiles of D columns in
+// 64-column panels (one TMA box each, 128-byte swizzle).
+template <int D>
+struct BwdSmem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTile = kPanels * kPanelBytes;
+  // dK/dV pass: K and V resident, a ring of (Q, dO, lse, delta), and the
+  // P exchange (32 f32 a thread of a warpgroup)
+  static constexpr int kKvStages = D == 256 ? 2 : 3;
+  static constexpr int KV_K = 0;
+  static constexpr int KV_V = KV_K + kTile;
+  static constexpr int KV_Q = KV_V + kTile;
+  static constexpr int KV_DO = KV_Q + kKvStages * kTile;
+  static constexpr int KV_X = KV_DO + kKvStages * kTile;
+  static constexpr int KV_ROWS = KV_X + 32 * kWG * 4;   // [st][lse, delta]
+  static constexpr int KV_BAR = KV_ROWS + kKvStages * 2 * kBQ * 4;
+  // full[st], empty[st], kv
+  static constexpr int KV_ALLOC = KV_BAR + (2 * kKvStages + 1) * 8 + 1024;
+  // dQ pass: Q and dO resident, a ring of (K, V)
+  static constexpr int kQStages = D == 64 ? 3 : 2;
+  static constexpr int Q_Q = 0;
+  static constexpr int Q_DO = kTile;
+  static constexpr int Q_K = 2 * kTile;
+  static constexpr int Q_V = Q_K + kQStages * kTile;
+  static constexpr int Q_BAR = Q_V + kQStages * kTile;
+  // full[st], empty[st], q
+  static constexpr int Q_ALLOC = Q_BAR + (2 * kQStages + 1) * 8 + 1024;
+  // dV and dK groups + a producer warp; at D=256 a whole producer
+  // warpgroup, which hands its registers to the other two (setmaxnreg)
+  static constexpr bool kRebalance = D == 256;
+  static constexpr int kKvThreads = kRebalance ? 3 * kWG : 2 * kWG + 32;
+  // blocks an SM should hold (launch bounds): registers cap them
+  static constexpr int kKvMinBlocks = D == 64 ? 2 : 1;
+  static constexpr int kQMinBlocks = D == 256 ? 1 : D == 128 ? 2 : 3;
+};
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Whether any (q, k) pair of a 64 x 64 tile pair is masked: rows past Sq
+// or Skv, the causal diagonal, the window edge.
+__device__ __forceinline__ bool bwd_tile_cut(int i0, int k0, int Sq, int Skv,
+                                             int causal, int window) {
+  return i0 + kBQ > Sq || k0 + kBK > Skv || (causal && k0 + kBK - 1 > i0) ||
+         (window > 0 && i0 + kBQ - 1 - k0 >= window);
+}
+
+// The scaled (soft-capped) base-2 logit of a raw score.
+struct BwdLogit {
+  float scale_log2, cap, cap_scale;   // cap_scale = scale / cap
+};
+
+// The masks of a backward call.
+struct BwdMask {
+  int Sq, Skv, causal, window;
+};
+
+// 2^x in one MUFU instruction (2 ulp; subnormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p = exp(logit - lse) of a raw score s, lse2 the row's lse in base 2;
+// dc = the soft cap's derivative 1 - tanh^2 (1 without a cap).  The cap
+// is a template argument, so a call without one computes no tanh.
+template <bool kCap>
+__device__ __forceinline__ float bwd_prob(float s, float lse2,
+                                          const BwdLogit& lg, float& dc) {
+  if constexpr (kCap) {
+    const float t = tanhf(s * lg.cap_scale);
+    dc = 1.f - t * t;
+    return ex2(lg.cap * kLog2e * t - lse2);
+  }
+  dc = 1.f;
+  return ex2(s * lg.scale_log2 - lse2);
+}
+
+// dK/dV pass, group 0: P^T of one tile from S^T in s (rows the keys ka
+// and ka + 8, columns the queries i0 + col), and P^T dcap to `xrow`
+// (this thread's float4 column of the exchange, [8][kWG] float4).  lse2
+// holds the tile's rows.  Elements 4i..4i+3 are columns 8i + 2c and
+// 8i + 2c + 1 of both rows.
+template <bool kMask, bool kCap>
+__device__ __forceinline__ void bwd_probs_t(float (&s)[32], float4* xrow,
+                                            const float* lse2,
+                                            const BwdLogit& lg,
+                                            const BwdMask& mk, int i0,
+                                            int ka, int c) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * i + 2 * c;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+    float pd[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = 4 * i + u;
+      float dc;
+      float p = bwd_prob<kCap>(s[e], (u & 1) ? l2.y : l2.x, lg, dc);
+      if constexpr (kMask) {
+        if (!bwd_pair_ok(i0 + col + (u & 1), ka + ((u & 2) ? 8 : 0), mk.Sq,
+                         mk.Skv, mk.causal, mk.window))
+          p = 0.f;
+      }
+      s[e] = p;
+      pd[u] = p * dc;
+    }
+    xrow[i * kWG] = make_float4(pd[0], pd[1], pd[2], pd[3]);
+  }
+}
+
+// dQ pass: dS = P dcap (dP - delta) of one tile in s, from S in s and dP
+// (rows the queries qa and qa + 8, columns the keys k0 + col).
+template <bool kMask, bool kCap>
+__device__ __forceinline__ void bwd_grads_q(float (&s)[32],
+                                            const float (&dp)[32],
+                                            const BwdLogit& lg,
+                                            const BwdMask& mk, float lse_a,
+                                            float lse_b, float del_a,
+                                            float del_b, int qa, int k0,
+                                            int c) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const bool lower = (e & 2) != 0;
+    float dc;
+    float p = bwd_prob<kCap>(s[e], lower ? lse_b : lse_a, lg, dc);
+    if constexpr (kMask) {
+      if (!bwd_pair_ok(qa + (lower ? 8 : 0),
+                       k0 + 8 * (e >> 2) + 2 * c + (e & 1), mk.Sq, mk.Skv,
+                       mk.causal, mk.window))
+        p = 0.f;
+    }
+    s[e] = p * dc * (dp[e] - (lower ? del_b : del_a));
+  }
+}
+
+// The dV and dK group's product wait: the group's stage is read, its
+// accumulators are settled.
+template <int D>
+__device__ __forceinline__ void settle(float (&acc)[D / 64][32]) {
+  wg_wait<0>();
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) reg_fence(acc[p][e]);
+}
+
+// dK and dV of one 64-row kv tile of one kv head, bf16.  Its reduction
+// list is the G query heads of the group times the q tiles its masks
+// leave (heads outer); a block takes run `split` of it (blockIdx.z =
+// b * nsplit + split).  Warpgroup 0 owns dV: S^T = K Q^T, P^T =
+// exp(S^T - lse) in f32 registers, dV += P^T dO with P^T as the
+// register A operand.  Warpgroup 1 owns dK: dP^T = V dO^T, dS^T = P^T
+// (dP^T - delta) dcap, dK += dS^T Q.  P^T dcap crosses from group 0 to
+// group 1 through shared memory, thread to thread in the accumulator
+// layout, behind two named barriers.  With nsplit > 1 the f32 partials
+// go to `part` ([nsplit][B][Skv][KVH][D] for dK, then as much for dV).
+template <int D>
+__global__ void __launch_bounds__(BwdSmem<D>::kKvThreads,
+                                  BwdSmem<D>::kKvMinBlocks)
+flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                    int Sq, int Skv, int H, int KVH, int causal, int window,
+                    float logit_cap, float scale, int nsplit) {
+  using L = BwdSmem<D>;
+  constexpr int kPanels = L::kPanels, kStages = L::kKvStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // 128-byte swizzle atoms
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + L::KV_BAR;         // full, empty, kv
+  const uint32_t kv_bar = bars + 8u * (2 * kStages);
+  float* xbuf = reinterpret_cast<float*>(gbase + L::KV_X);
+  float* rows = reinterpret_cast<float*>(gbase + L::KV_ROWS);
+
+  const int k0 = blockIdx.x * kBK, kvh = blockIdx.y;
+  const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
+  const int G = H / KVH;
+  // query rows that see a key of this tile: causal, q >= k0; a window,
+  // q - (k0 + 63) < window
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? static_cast<int>(min(
+      static_cast<long long>(Sq),
+      static_cast<long long>(k0) + kBK - 1 + window)) : Sq;
+  const int qt0 = q_lo / kBQ * kBQ;
+  const int n_qt = q_hi > qt0 ? (q_hi - qt0 + kBQ - 1) / kBQ : 0;
+  int it_lo, it_hi;
+  split_range(G * n_qt, nsplit, split, it_lo, it_hi);
+  const int n_items = it_hi - it_lo;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 8u * st, 32);                  // the producer warp
+      mbar_init(bars + 8u * (kStages + st), 2 * kWG);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 2 * kWG / 32) {
+    // ---------------- producer warp ----------------
+    // one block an SM at D=256 (its shared memory): 128 x 40 + 256 x 232
+    // registers fit the SM's 65,536
+    if constexpr (L::kRebalance)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (warp == 2 * kWG / 32 && n_items > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * L::kTile);
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(base + L::KV_K + p * kPanelBytes, &tm_k, kv_bar,
+                   kvh * D + 64 * p, k0, b);
+          tma_load(base + L::KV_V + p * kPanelBytes, &tm_v, kv_bar,
+                   kvh * D + 64 * p, k0, b);
+        }
+      }
+      for (int j = 0; j < n_items; ++j) {
+        const int it = it_lo + j, st = j % kStages;
+        const int h = kvh * G + it / n_qt, i0 = qt0 + (it % n_qt) * kBQ;
+        const uint32_t filled = bars + 8u * st;
+        mbar_wait(bars + 8u * (kStages + st), ((j / kStages) & 1) ^ 1);
+        // lse (in base 2) and delta of the tile's 64 rows, 0 past Sq
+        float* r = rows + st * 2 * kBQ;
+        const long long at = (static_cast<long long>(b) * H + h) * Sq;
+        for (int x = lane; x < kBQ; x += 32) {
+          const bool in = i0 + x < Sq;
+          r[x] = in ? lse[at + i0 + x] * kLog2e : 0.f;
+          r[kBQ + x] = in ? delta[at + i0 + x] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(filled, 2 * L::kTile);
+          const uint32_t sQ = base + L::KV_Q + st * L::kTile;
+          const uint32_t sdO = base + L::KV_DO + st * L::kTile;
+          for (int p = 0; p < kPanels; ++p) {
+            tma_load(sQ + p * kPanelBytes, &tm_q, filled, h * D + 64 * p, i0,
+                     b);
+            tma_load(sdO + p * kPanelBytes, &tm_do, filled, h * D + 64 * p,
+                     i0, b);
+          }
+        } else {
+          mbar_arrive(filled);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups: 0 dV, 1 dK ----------------
+    if constexpr (L::kRebalance)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int wg = warp / 4, tid = threadIdx.x % kWG;
+    const int g = lane / 4, c = lane % 4;
+    const int ra = (warp % 4) * 16 + g;   // kv rows ra and ra + 8
+    const bool capped = logit_cap > 0.f;
+    const BwdLogit lg{scale * kLog2e, logit_cap,
+                      capped ? scale / logit_cap : 0.f};
+    const BwdMask mk{Sq, Skv, causal, window};
+    const uint32_t sMine = base + (wg == 0 ? L::KV_K : L::KV_V);
+
+    float acc[kPanels][32];
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+    float s[32];
+    uint32_t fa[4][4];
+
+    if (n_items > 0) mbar_wait(kv_bar, 0);
+    for (int j = 0; j < n_items; ++j) {
+      const int it = it_lo + j, st = j % kStages;
+      const int i0 = qt0 + (it % n_qt) * kBQ;
+      const uint32_t sQ = base + L::KV_Q + st * L::kTile;
+      const uint32_t sdO = base + L::KV_DO + st * L::kTile;
+      const float* r = rows + st * 2 * kBQ;
+      mbar_wait(bars + 8u * st, (j / kStages) & 1);
+      // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1): rows are keys,
+      // columns the tile's queries
+      issue_qk<D>(s, sMine, wg == 0 ? sQ : sdO);
+      wg_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(s[e]);
+      const bool cut = bwd_tile_cut(i0, k0, Sq, Skv, causal, window);
+      if (wg == 0) {
+        // P^T in s; P^T dcap to group 1
+        if (j > 0) named_sync(kBarFree, 2 * kWG);   // group 1 read the last
+        float4* xrow = reinterpret_cast<float4*>(xbuf) + tid;
+        if (cut && capped)
+          bwd_probs_t<true, true>(s, xrow, r, lg, mk, i0, k0 + ra, c);
+        else if (cut)
+          bwd_probs_t<true, false>(s, xrow, r, lg, mk, i0, k0 + ra, c);
+        else if (capped)
+          bwd_probs_t<false, true>(s, xrow, r, lg, mk, i0, k0 + ra, c);
+        else
+          bwd_probs_t<false, false>(s, xrow, r, lg, mk, i0, k0 + ra, c);
+        named_arrive(kBarExchange, 2 * kWG);
+      } else {
+        // dS^T = P^T dcap (dP^T - delta) in s
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(r + kBQ + 8 * i + 2 * c);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) s[4 * i + u] -= (u & 1) ? d2.y : d2.x;
+        }
+        named_sync(kBarExchange, 2 * kWG);
+        const float4* xrow = reinterpret_cast<const float4*>(xbuf) + tid;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 x4 = xrow[i * kWG];
+          s[4 * i] *= x4.x;
+          s[4 * i + 1] *= x4.y;
+          s[4 * i + 2] *= x4.z;
+          s[4 * i + 3] *= x4.w;
+        }
+        if (j + 1 < n_items) named_arrive(kBarFree, 2 * kWG);
+      }
+      // dV += P^T dO (group 0), dK += dS^T Q (group 1); P and dS rounded
+      // to bf16 as the register A operand
+      pack_p(fa, s);
+      issue_pv<D>(acc, fa, wg == 0 ? sdO : sQ);
+      settle<D>(acc);
+      mbar_arrive(bars + 8u * (kStages + st));   // the stage may be refilled
+    }
+
+    // ---- epilogue: dV (group 0) or dK * scale (group 1)
+    const float mult = wg == 0 ? 1.f : scale;
+    __nv_bfloat16* out = wg == 0 ? dv : dk;
+    const long long plane = static_cast<long long>(gridDim.z / nsplit) * Skv *
+                            KVH * D;
+    float* mine = nsplit == 1 ? nullptr
+        : part + static_cast<long long>(wg == 0 ? nsplit + split : split) *
+                     plane;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kr = k0 + ra + 8 * half;
+      if (kr >= Skv) continue;
+      const long long at =
+          ((static_cast<long long>(b) * Skv + kr) * KVH + kvh) * D;
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = 64 * p + 8 * i + 2 * c;
+          const float lo = acc[p][4 * i + 2 * half];
+          const float hi = acc[p][4 * i + 2 * half + 1];
+          if (nsplit == 1)
+            *reinterpret_cast<uint32_t*>(out + at + col) =
+                pack_bf16(lo * mult, hi * mult);
+          else
+            *reinterpret_cast<float2*>(mine + at + col) = make_float2(lo, hi);
+        }
+    }
+  }
+}
+
+// dQ of one 64-row q tile of one head, bf16.  Q, dO and the rows' lse and
+// delta stay resident; the kv tiles the masks leave stream through a
+// ring.  Per tile: S = Q K^T and dP = dO V^T (two wgmma groups), dS = P
+// (dP - delta) dcap in f32 registers, dQ += dS K with dS as the register
+// A operand.  A block takes run `split` of the kv tiles and with nsplit
+// > 1 writes its f32 partial to `part` ([nsplit][B][Sq][H][D]).
+template <int D>
+__global__ void __launch_bounds__(kQThreads, BwdSmem<D>::kQMinBlocks)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, float* __restrict__ part,
+                  int Sq, int Skv, int H, int KVH, int causal, int window,
+                  float logit_cap, float scale, int nsplit) {
+  using L = BwdSmem<D>;
+  constexpr int kPanels = L::kPanels, kStages = L::kQStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + L::Q_BAR;          // full, empty, q
+  const uint32_t q_bar = bars + 8u * (2 * kStages);
+
+  const int i0 = blockIdx.x * kBQ, h = blockIdx.y;
+  const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
+  const int kvh = h / (H / KVH);
+  // keys that a row of this tile sees: a window, k > i0 - window;
+  // causal, k <= i0 + 63
+  const int k_lo = window > 0 ? max(0, i0 - window + 1) : 0;
+  const int k_hi = causal ? min(Skv, i0 + kBQ) : Skv;
+  const int kt0 = k_lo / kBK * kBK;
+  const int n_kt = k_hi > kt0 ? (k_hi - kt0 + kBK - 1) / kBK : 0;
+  int it_lo, it_hi;
+  split_range(n_kt, nsplit, split, it_lo, it_hi);
+  const int n_items = it_hi - it_lo;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 8u * st, 1);
+      mbar_init(bars + 8u * (kStages + st), kWG);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kWG / 32) {
+    // ---------------- producer warp ----------------
+    if (lane == 0 && n_items > 0) {
+      mbar_expect_tx(q_bar, 2 * L::kTile);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(base + L::Q_Q + p * kPanelBytes, &tm_q, q_bar,
+                 h * D + 64 * p, i0, b);
+        tma_load(base + L::Q_DO + p * kPanelBytes, &tm_do, q_bar,
+                 h * D + 64 * p, i0, b);
+      }
+      for (int j = 0; j < n_items; ++j) {
+        const int st = j % kStages;
+        const int k0 = kt0 + (it_lo + j) * kBK;
+        const uint32_t filled = bars + 8u * st;
+        mbar_wait(bars + 8u * (kStages + st), ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(filled, 2 * L::kTile);
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(base + L::Q_K + st * L::kTile + p * kPanelBytes, &tm_k,
+                   filled, kvh * D + 64 * p, k0, b);
+          tma_load(base + L::Q_V + st * L::kTile + p * kPanelBytes, &tm_v,
+                   filled, kvh * D + 64 * p, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroup ----------------
+    const int g = lane / 4, c = lane % 4;
+    const int ra = warp * 16 + g;   // q rows ra and ra + 8
+    const bool capped = logit_cap > 0.f;
+    const BwdLogit lg{scale * kLog2e, logit_cap,
+                      capped ? scale / logit_cap : 0.f};
+    const BwdMask mk{Sq, Skv, causal, window};
+    const long long at = (static_cast<long long>(b) * H + h) * Sq + i0;
+    const bool in_a = i0 + ra < Sq, in_b = i0 + ra + 8 < Sq;
+    const float lse_a = in_a ? lse[at + ra] * kLog2e : 0.f;
+    const float lse_b = in_b ? lse[at + ra + 8] * kLog2e : 0.f;
+    const float del_a = in_a ? delta[at + ra] : 0.f;
+    const float del_b = in_b ? delta[at + ra + 8] : 0.f;
+
+    float acc[kPanels][32];
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+    float s[32], dp[32];
+    uint32_t fa[4][4];
+
+    if (n_items > 0) mbar_wait(q_bar, 0);
+    for (int j = 0; j < n_items; ++j) {
+      const int st = j % kStages;
+      const int k0 = kt0 + (it_lo + j) * kBK;
+      const uint32_t sK = base + L::Q_K + st * L::kTile;
+      mbar_wait(bars + 8u * st, (j / kStages) & 1);
+      issue_qk<D>(s, base + L::Q_Q, sK);
+      issue_qk<D>(dp, base + L::Q_DO, base + L::Q_V + st * L::kTile);
+      wg_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        reg_fence(s[e]);
+        reg_fence(dp[e]);
+      }
+      // dS = P dcap (dP - delta) in s
+      const bool cut = bwd_tile_cut(i0, k0, Sq, Skv, causal, window);
+      const int qa = i0 + ra;
+      if (cut && capped)
+        bwd_grads_q<true, true>(s, dp, lg, mk, lse_a, lse_b, del_a, del_b,
+                                qa, k0, c);
+      else if (cut)
+        bwd_grads_q<true, false>(s, dp, lg, mk, lse_a, lse_b, del_a, del_b,
+                                 qa, k0, c);
+      else if (capped)
+        bwd_grads_q<false, true>(s, dp, lg, mk, lse_a, lse_b, del_a, del_b,
+                                 qa, k0, c);
+      else
+        bwd_grads_q<false, false>(s, dp, lg, mk, lse_a, lse_b, del_a, del_b,
+                                  qa, k0, c);
+      pack_p(fa, s);
+      issue_pv<D>(acc, fa, sK);   // dQ += dS K
+      settle<D>(acc);
+      mbar_arrive(bars + 8u * (kStages + st));
+    }
+
+    // ---- epilogue: dQ * scale, or the f32 partial
+    const long long plane = static_cast<long long>(gridDim.z / nsplit) * Sq *
+                            H * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qr = i0 + ra + 8 * half;
+      if (qr >= Sq) continue;
+      const long long row = ((static_cast<long long>(b) * Sq + qr) * H + h) *
+                            D;
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = 64 * p + 8 * i + 2 * c;
+          const float lo = acc[p][4 * i + 2 * half];
+          const float hi = acc[p][4 * i + 2 * half + 1];
+          if (nsplit == 1)
+            *reinterpret_cast<uint32_t*>(dq + row + col) =
+                pack_bf16(lo * scale, hi * scale);
+          else
+            *reinterpret_cast<float2*>(part + split * plane + row + col) =
+                make_float2(lo, hi);
+        }
+    }
+  }
+}
+
 // How a backward call is cut: splits of the dK/dV and dQ reductions
 // that bring each pass to about two blocks a SM (at most kMaxSplit), and
-// the f32 scratch their partials take.
+// the f32 scratch their partials take.  bq x bk are the pass's tiles:
+// BwdTile's on the f32 path, 64 x 64 on the bf16 path.
 constexpr int kMaxSplit = 8;
 
 struct BwdPlan {
@@ -1248,12 +1831,11 @@ struct BwdPlan {
   long long scratch;   // floats
 };
 
-template <int D>
-BwdPlan bwd_plan(int B, int Sq, int Skv, int H, int KVH, int sms) {
-  using L = BwdTile<D>;
+BwdPlan bwd_plan(int bq, int bk, int B, int Sq, int Skv, int H, int KVH,
+                 int D, int sms) {
   const long long want = 2LL * sms;
-  const long long kv_tiles = (Skv + L::BK - 1) / L::BK;
-  const long long q_tiles = (Sq + L::BQ - 1) / L::BQ;
+  const long long kv_tiles = (Skv + bk - 1) / bk;
+  const long long q_tiles = (Sq + bq - 1) / bq;
   auto split = [&](long long blocks, long long items) {
     long long n = (want + blocks - 1) / blocks;
     n = n < kMaxSplit ? n : kMaxSplit;
@@ -1286,6 +1868,33 @@ int opt_in(Kern kern, int bytes, std::atomic<bool>* ready) {
   return 0;
 }
 
+// delta = rowsum(dO * O) for every (b, i, h) row, the first launch of a
+// backward call.
+template <typename T, int D>
+void launch_delta(const void* o, const void* dout, float* delta, int B,
+                  int Sq, int H, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  constexpr int kRowsPerBlock = kBwdThreads / 32;
+  flash_bwd_delta<T, D><<<static_cast<unsigned>((rows + kRowsPerBlock - 1) /
+                                                kRowsPerBlock),
+                          kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, Sq,
+      H);
+}
+
+// The in-order sum of `nsplit` runs' partials into `outs` outputs of n
+// elements (dK then dV, or dQ alone).
+template <typename T>
+void launch_sum(const float* part, void* out0, void* out1, long long n,
+                int outs, int nsplit, float scale0, float scale1,
+                cudaStream_t stream) {
+  flash_bwd_sum<T><<<dim3(static_cast<unsigned>((n + kBwdThreads - 1) /
+                                                kBwdThreads), outs),
+                     kBwdThreads, 0, stream>>>(
+      part, static_cast<T*>(out0), static_cast<T*>(out1), n, nsplit, scale0,
+      scale1);
+}
+
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* delta, void* dq,
@@ -1300,7 +1909,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   int err = opt_in(kern_kv, kv_bytes, ready_kv);
   if (err == 0) err = opt_in(kern_q, q_bytes, ready_q);
   if (err != 0) return err;
-  const BwdPlan plan = bwd_plan<D>(B, Sq, Skv, H, KVH, sms);
+  const BwdPlan plan = bwd_plan(L::BQ, L::BK, B, Sq, Skv, H, KVH, D, sms);
   float* part = static_cast<float*>(scratch);
   if (plan.scratch > 0 && part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1310,69 +1919,116 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const T* tdo = static_cast<const T*>(dout);
   const float* flse = static_cast<const float*>(lse);
   float* fdelta = static_cast<float*>(delta);
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  constexpr int kRowsPerBlock = kBwdThreads / 32;
-  flash_bwd_delta<T, D><<<static_cast<unsigned>((rows + kRowsPerBlock - 1) /
-                                                kRowsPerBlock),
-                          kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(o), tdo, fdelta, rows, Sq, H);
+  launch_delta<T, D>(o, dout, fdelta, B, Sq, H, stream);
   kern_kv<<<dim3((Skv + L::BK - 1) / L::BK, KVH, B * plan.split_kv),
             kBwdThreads, kv_bytes, stream>>>(
       tq, tk, tv, tdo, flse, fdelta, static_cast<T*>(dk),
       static_cast<T*>(dv), part, Sq, Skv, H, KVH, causal, window, logit_cap,
       scale, plan.split_kv);
-  if (plan.split_kv > 1) {
-    const long long n = static_cast<long long>(B) * Skv * KVH * D;
-    flash_bwd_sum<T><<<dim3(static_cast<unsigned>((n + kBwdThreads - 1) /
-                                                  kBwdThreads), 2),
-                       kBwdThreads, 0, stream>>>(
-        part, static_cast<T*>(dk), static_cast<T*>(dv), n, plan.split_kv,
-        scale, 1.f);
-  }
+  if (plan.split_kv > 1)
+    launch_sum<T>(part, dk, dv, static_cast<long long>(B) * Skv * KVH * D, 2,
+                  plan.split_kv, scale, 1.f, stream);
   kern_q<<<dim3((Sq + L::BQ - 1) / L::BQ, H, B * plan.split_q), kBwdThreads,
            q_bytes, stream>>>(tq, tk, tv, tdo, flse, fdelta,
                               static_cast<T*>(dq), part, Sq, Skv, H, KVH,
                               causal, window, logit_cap, scale,
                               plan.split_q);
-  if (plan.split_q > 1) {
-    const long long n = static_cast<long long>(B) * Sq * H * D;
-    flash_bwd_sum<T><<<dim3(static_cast<unsigned>((n + kBwdThreads - 1) /
-                                                  kBwdThreads), 1),
-                       kBwdThreads, 0, stream>>>(
-        part, static_cast<T*>(dq), static_cast<T*>(dq), n, plan.split_q,
-        scale, scale);
-  }
+  if (plan.split_q > 1)
+    launch_sum<T>(part, dq, dq, static_cast<long long>(B) * Sq * H * D, 1,
+                  plan.split_q, scale, scale, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 backward: the delta rows, the dK/dV pass (and its sum), the
+// dQ pass (and its sum), with q, k, v and dO read through four tensor
+// maps of 64 x 64 boxes.
+template <int D>
+int launch_bwd_sm90(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const void* lse,
+                    void* delta, void* dq, void* dk, void* dv, void* scratch,
+                    int B, int Sq, int Skv, int H, int KVH, int causal,
+                    int window, float logit_cap, float scale, int sms,
+                    cudaStream_t stream) {
+  using L = BwdSmem<D>;
+  using bf16 = __nv_bfloat16;
+  static std::atomic<bool> ready_kv[kMaxDevices], ready_q[kMaxDevices];
+  auto kern_kv = flash_bwd_dkdv_sm90<D>;
+  auto kern_q = flash_bwd_dq_sm90<D>;
+  int err = opt_in(kern_kv, L::KV_ALLOC, ready_kv);
+  if (err == 0) err = opt_in(kern_q, L::Q_ALLOC, ready_q);
+  if (err != 0) return err;
+  const BwdPlan plan = bwd_plan(kBQ, kBK, B, Sq, Skv, H, KVH, D, sms);
+  float* part = static_cast<float*>(scratch);
+  if (plan.scratch > 0 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[4];   // q, k, v, dO
+  EncodeTiled fn = encoder();
+  if (fn == nullptr || !encode_rows(fn, &maps[0], q, B, Sq, H * D) ||
+      !encode_rows(fn, &maps[1], k, B, Skv, KVH * D) ||
+      !encode_rows(fn, &maps[2], v, B, Skv, KVH * D) ||
+      !encode_rows(fn, &maps[3], dout, B, Sq, H * D))
+    return kErrTensorMap;
+  const float* flse = static_cast<const float*>(lse);
+  float* fdelta = static_cast<float*>(delta);
+  launch_delta<bf16, D>(o, dout, fdelta, B, Sq, H, stream);
+  kern_kv<<<dim3((Skv + kBK - 1) / kBK, KVH, B * plan.split_kv),
+            L::kKvThreads, L::KV_ALLOC, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], flse, fdelta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), part, Sq, Skv, H, KVH, causal, window,
+      logit_cap, scale, plan.split_kv);
+  if (plan.split_kv > 1)
+    launch_sum<bf16>(part, dk, dv, static_cast<long long>(B) * Skv * KVH * D,
+                     2, plan.split_kv, scale, 1.f, stream);
+  kern_q<<<dim3((Sq + kBQ - 1) / kBQ, H, B * plan.split_q), kQThreads,
+           L::Q_ALLOC, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], flse, fdelta, static_cast<bf16*>(dq),
+      part, Sq, Skv, H, KVH, causal, window, logit_cap, scale, plan.split_q);
+  if (plan.split_q > 1)
+    launch_sum<bf16>(part, dq, dq, static_cast<long long>(B) * Sq * H * D, 1,
+                     plan.split_q, scale, scale, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The f32 scratch (floats) flash_attention_bwd_launch needs for this
-// shape on a card of `sms` SMs: the partials of the runs it cuts the
-// dK/dV and dQ reductions into (0 when it cuts none); -1 for a D it does
-// not take.
-extern "C" long long flash_attention_bwd_scratch(int B, int Sq, int Skv,
-                                                 int H, int KVH, int D,
-                                                 int sms) {
+// dtype and shape on a card of `sms` SMs: the partials of the runs it
+// cuts the dK/dV and dQ reductions into (0 when it cuts none); -1 for a
+// dtype or D it does not take.
+extern "C" long long flash_attention_bwd_scratch(int dtype, int B, int Sq,
+                                                 int Skv, int H, int KVH,
+                                                 int D, int sms) {
+  if (dtype == 1)
+    return D == 64 || D == 128 || D == 256
+        ? bwd_plan(kBQ, kBK, B, Sq, Skv, H, KVH, D, sms).scratch : -1;
+  if (dtype != 0) return -1;
+#define FLASH_SCRATCH_CASE(DD)                                               \
+  case DD:                                                                   \
+    return bwd_plan(BwdTile<DD>::BQ, BwdTile<DD>::BK, B, Sq, Skv, H, KVH, D, \
+                    sms).scratch;
   switch (D) {
-    case 16: return bwd_plan<16>(B, Sq, Skv, H, KVH, sms).scratch;
-    case 32: return bwd_plan<32>(B, Sq, Skv, H, KVH, sms).scratch;
-    case 64: return bwd_plan<64>(B, Sq, Skv, H, KVH, sms).scratch;
-    case 128: return bwd_plan<128>(B, Sq, Skv, H, KVH, sms).scratch;
-    case 256: return bwd_plan<256>(B, Sq, Skv, H, KVH, sms).scratch;
-    default: return -1;
+    FLASH_SCRATCH_CASE(16)
+    FLASH_SCRATCH_CASE(32)
+    FLASH_SCRATCH_CASE(64)
+    FLASH_SCRATCH_CASE(128)
+    FLASH_SCRATCH_CASE(256)
+    default:
+      return -1;
   }
+#undef FLASH_SCRATCH_CASE
 }
 
 // The gradients (dQ, dK, dV) of the forward with lse: q, o, dout, dq
 // (B, Sq, H, D), k, v, dk, dv (B, Skv, KVH, D) in one dtype (0 = float32,
-// 1 = bfloat16; any D in {16, 32, 64, 128, 256}), lse (B, H, Sq) float32
-// as the forward wrote it, `delta` (B, H, Sq) float32 scratch and
-// `scratch` the f32 scratch flash_attention_bwd_scratch names for the
-// same shape and `sms` (null when it names none).  The masks are the
-// forward's: causal, window, tanh soft cap; every kv position below Skv
-// is valid.  Three to five launches (delta, dK/dV, their sum, dQ, its
-// sum), no atomics: the same inputs on the same card give the same bits.
+// D in {16, 32, 64, 128, 256} on CUDA cores; 1 = bfloat16, D in {64,
+// 128, 256} on the tensor cores), lse (B, H, Sq) float32 as the forward
+// wrote it, `delta` (B, H, Sq) float32 scratch and `scratch` the f32
+// scratch flash_attention_bwd_scratch names for the same dtype, shape
+// and `sms` (null when it names none).  The masks are the forward's:
+// causal, window, tanh soft cap; every kv position below Skv is valid.
+// Three to five launches (delta, dK/dV, their sum, dQ, its sum), no
+// atomics: the same inputs on the same card give the same bits.  Returns
+// 0, a cudaError_t, or kErrTensorMap (bf16).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -1383,29 +2039,26 @@ extern "C" int flash_attention_bwd_launch(
       static_cast<long long>(B) * kMaxSplit > 65535 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_BWD_CASE(TT, DD)                                              \
+#define FLASH_BWD_CASE(FN, DD)                                              \
   case DD:                                                                  \
-    return launch_bwd<TT, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv,     \
-                              scratch, B, Sq, Skv, H, KVH, causal, window,  \
-                              logit_cap, scale, sms, s);
+    return FN(q, k, v, o, dout, lse, delta, dq, dk, dv, scratch, B, Sq,     \
+              Skv, H, KVH, causal, window, logit_cap, scale, sms, s);
   if (dtype == 0) {
     switch (D) {
-      FLASH_BWD_CASE(float, 16)
-      FLASH_BWD_CASE(float, 32)
-      FLASH_BWD_CASE(float, 64)
-      FLASH_BWD_CASE(float, 128)
-      FLASH_BWD_CASE(float, 256)
+      FLASH_BWD_CASE((launch_bwd<float, 16>), 16)
+      FLASH_BWD_CASE((launch_bwd<float, 32>), 32)
+      FLASH_BWD_CASE((launch_bwd<float, 64>), 64)
+      FLASH_BWD_CASE((launch_bwd<float, 128>), 128)
+      FLASH_BWD_CASE((launch_bwd<float, 256>), 256)
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   if (dtype == 1) {
     switch (D) {
-      FLASH_BWD_CASE(__nv_bfloat16, 16)
-      FLASH_BWD_CASE(__nv_bfloat16, 32)
-      FLASH_BWD_CASE(__nv_bfloat16, 64)
-      FLASH_BWD_CASE(__nv_bfloat16, 128)
-      FLASH_BWD_CASE(__nv_bfloat16, 256)
+      FLASH_BWD_CASE(launch_bwd_sm90<64>, 64)
+      FLASH_BWD_CASE(launch_bwd_sm90<128>, 128)
+      FLASH_BWD_CASE(launch_bwd_sm90<256>, 256)
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

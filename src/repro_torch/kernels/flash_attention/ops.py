@@ -23,9 +23,19 @@ and the scale stays 1/sqrt(D).
 
 :func:`flash_attention_bwd`, the gradient (dq, dk, dv) of the forward
 with lse: plain version ``ref.flash_attention_bwd_plain``, operator
-``repro_torch::flash_attention_bwd``.  Its kernel runs on CUDA cores and
-takes every D of :data:`HEAD_DIMS` in both dtypes as it is, with no
-padding.  ``BWD_LAUNCHES`` counts its launches.
+``repro_torch::flash_attention_bwd``.  ``BWD_LAUNCHES`` counts its
+launches, one a call (three to five CUDA kernels: the delta rows, a
+dK/dV pass, a dQ pass and, where the grid is too small for the card, an
+in-order sum of each pass's partials).  Its bf16 kernels run all five
+products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K) as wgmma on 64 x 64 tiles
+that TMA brings through a ring in shared memory: the dK/dV pass keeps a
+kv tile's K and V resident and streams the group's q tiles, one
+warpgroup accumulating dV and one dK; the dQ pass keeps a q tile
+resident and streams the kv tiles.  They take D in {64, 128, 256};
+bf16 with D of 16 or 32 is zero-padded to 64 here, as for the forward,
+and the gradients are cut back to D.  The f32 kernels stay on CUDA cores
+and take every D of :data:`HEAD_DIMS` as it is.  No atomics: two calls
+give the same bits.
 """
 
 from __future__ import annotations
@@ -131,6 +141,17 @@ def _bind():
     return _FN
 
 
+def _panel_pad(*ts):
+    """bf16 tensors of D 16 or 32 zero-padded to the bf16 kernels' 64-column
+    panel, which leaves every dot product and row sum as it was; other
+    tensors as they are."""
+    d = ts[0].shape[-1]
+    if ts[0].dtype != torch.bfloat16 or d >= _BF16_MIN_D:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, _BF16_MIN_D - d))
+                 for t in ts)
+
+
 def _kernel(q, k, v, *, causal, window, logit_cap, valid_len,
             return_lse=False):
     global LAUNCHES, LSE_LAUNCHES
@@ -139,9 +160,7 @@ def _kernel(q, k, v, *, causal, window, logit_cap, valid_len,
         _check_rows(q, k, causal, window, valid_len)
     d = q.shape[3]
     scale = 1.0 / math.sqrt(d)
-    if q.dtype == torch.bfloat16 and d < _BF16_MIN_D:
-        q, k, v = (torch.nn.functional.pad(t, (0, _BF16_MIN_D - d))
-                   for t in (q, k, v))
+    q, k, v = _panel_pad(q, k, v)
     b, sq, h, dk = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -267,14 +286,14 @@ def _bind_bwd():
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_scratch(b: int, sq: int, skv: int, h: int, kvh: int, d: int,
-                 sms: int) -> int:
-    """f32 scratch the backward kernel takes at this shape on a card of
-    ``sms`` SMs: the partial sums of the runs it cuts dK/dV and dQ into
-    to fill the card."""
+def _bwd_scratch(dtype: int, b: int, sq: int, skv: int, h: int, kvh: int,
+                 d: int, sms: int) -> int:
+    """f32 scratch the backward kernel takes for this dtype and shape on a
+    card of ``sms`` SMs: the partial sums of the runs it cuts dK/dV and dQ
+    into to fill the card."""
     fn = build.function("flash_attention", "flash_attention_bwd_scratch",
-                        [ctypes.c_int] * 7, restype=ctypes.c_longlong)
-    return fn(b, sq, skv, h, kvh, d, sms)
+                        [ctypes.c_int] * 8, restype=ctypes.c_longlong)
+    return fn(dtype, b, sq, skv, h, kvh, d, sms)
 
 
 def _bwd_kernel(q, k, v, o, lse, do, *, causal, window, logit_cap):
@@ -282,11 +301,14 @@ def _bwd_kernel(q, k, v, o, lse, do, *, causal, window, logit_cap):
     o, do = o.contiguous(), do.contiguous()
     _check_bwd(q, k, v, o, lse, do)
     fn = _BWD_FN or _bind_bwd()
-    b, sq, h, d = q.shape
+    d = q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, o, do = _panel_pad(q, k, v, o, do)
+    b, sq, h, dpad = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     dev = q.get_device()
     sms = build.sm_count(dev)
-    n_scratch = _bwd_scratch(b, sq, skv, h, kvh, d, sms)
+    n_scratch = _bwd_scratch(_DTYPES[q.dtype], b, sq, skv, h, kvh, dpad, sms)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     scratch = delta.new_empty((n_scratch,)) if n_scratch else None
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -294,11 +316,16 @@ def _bwd_kernel(q, k, v, o, lse, do, *, causal, window, logit_cap):
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(),
              None if scratch is None else scratch.data_ptr(),
-             _DTYPES[q.dtype], b, sq, skv, h, kvh, d, int(bool(causal)),
-             int(window or 0), float(logit_cap), 1.0 / math.sqrt(d), sms,
+             _DTYPES[q.dtype], b, sq, skv, h, kvh, dpad, int(bool(causal)),
+             int(window or 0), float(logit_cap), scale, sms,
              build.raw_stream(dev))
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError("flash_attention_bwd_launch: "
+                           "cuTensorMapEncodeTiled refused a tensor map")
     build.check(err, "flash_attention_bwd_launch")
     BWD_LAUNCHES += 1
+    if dpad != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -13,9 +13,12 @@ without ``plain``.  Inputs are made with numpy from a seed.
 Tolerance: f32 gradients within 2e-5 * max(1, |ref|) (both sides in
 float32, summed in other orders).  The ``cuda``-marked tests hold the
 kernel against the plain version on the card: f32 within 2e-5 * max(1,
-|plain|); bf16 (the kernel reads bf16 and computes in f32) each
-gradient at cosine > 0.999 and max error within 2e-2 * max |plain|; and
-two calls give identical bits."""
+|plain|); bf16 (the kernel's products run on the tensor cores with P
+and dS rounded to bf16, as the forward rounds P) each gradient at cosine
+> 0.999 and max error within 2e-2 * max |plain|; and two calls give
+identical bits.  ``_panel_pad``, which widens bf16 D of 16 and 32 to the
+bf16 kernels' 64 columns, is held on the CPU: zeros appended, dot
+products exact."""
 
 import jax
 import jax.numpy as jnp
@@ -194,6 +197,23 @@ def test_function_takes_the_wrapper_only_without_plain(plain, monkeypatch):
         assert np.array_equal(bits(g), bits(w)), name
 
 
+@pytest.mark.parametrize("dtype,d,width", [(torch.bfloat16, 16, 64),
+                                           (torch.bfloat16, 32, 64),
+                                           (torch.bfloat16, 64, 64),
+                                           (torch.float32, 16, 16)])
+def test_panel_pad_widens_only_narrow_bf16(dtype, d, width):
+    rng = np.random.default_rng(d)
+    q, k = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dtype) for shape in ((1, 5, 2, d), (1, 7, 1, d)))
+    pq, pk = ops._panel_pad(q, k)
+    assert pq.shape[-1] == pk.shape[-1] == width
+    assert torch.equal(pq[..., :d], q) and torch.equal(pk[..., :d], k)
+    assert not pq[..., d:].any() and not pk[..., d:].any()
+    dots = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    assert torch.equal(torch.einsum("bqhd,bkhd->bhqk", pq.float(),
+                                    pk.float()), dots)
+
+
 def test_check_names_a_wrong_lse():
     case = CASES[0]
     q, k, v, do = (torch.from_numpy(t) for t in _inputs(case))
@@ -214,7 +234,15 @@ CARD_CASES = [(2, 256, 256, 4, 1, 256, True, 512, 0.0),
               (1, 300, 300, 12, 12, 64, False, 0, 0.0),
               (1, 100, 300, 12, 12, 64, False, 0, 0.0),
               (2, 64, 64, 4, 1, 16, True, 8, 0.0),
-              (1, 96, 96, 4, 2, 32, True, 0, 0.0)]
+              (1, 96, 96, 4, 2, 32, True, 0, 0.0),
+              # the bf16 tensor-core design's edges: D 256 with a binding
+              # window at a group of 4; D 128 with the soft cap at a group
+              # of 6; ragged Sq != Skv with a group of 2; a grid of two
+              # dK/dV blocks, which bwd_plan cuts into runs
+              (1, 384, 384, 8, 2, 256, True, 100, 0.0),
+              (2, 320, 320, 12, 2, 128, True, 0, 30.0),
+              (2, 70, 333, 6, 3, 64, False, 0, 0.0),
+              (1, 128, 128, 2, 1, 128, True, 0, 0.0)]
 
 
 def _card_inputs(case, dtype, seed):

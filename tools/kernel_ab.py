@@ -20,12 +20,17 @@ to ``--out``, at the main path's shapes:
   host us per call at decode;
 * the backward kernels at the train shapes: ``ssm_scan_bwd`` at a rank's
   hymba-1.5b 2 x 256 (mamba's dt and A, f32) and ``flash_attention_bwd``
-  at gemma3-1b's B=2 S=256 window 512 and hymba-1.5b's 25 over 5 heads,
-  D 64, window 1024 (bf16): event ms, device ms, host us per call (100
-  calls) and each CUDA kernel's device us per call.  A root whose
-  wrappers have no backward kernel reports them as absent.
+  (bf16) at gemma3-1b's B=2, 4 and 1 S=256 window 512 (the explicit-DP,
+  GSPMD and launcher steps), hymba-1.5b's 25 over 5
+  heads, D 64, window 1024, whisper-small's encoder (1 x 1,500, 12
+  heads, D 64, not causal) and cross attention (256 x 1,500), and
+  grok-1's 48 over 8 heads, D 128, soft cap 30 at B=1 S=256: event ms,
+  device ms, host us per call (100 calls) and each CUDA kernel's device
+  us per call.  A root whose wrappers have no backward kernel reports
+  them as absent.
 
-Every number names the card and its power limit.  It needs a card.
+``--backward-only`` times the backward kernels alone.  Every number
+names the card and its power limit.  It needs a card.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def worker(root: str) -> dict:
+def worker(root: str, backward_only: bool = False) -> dict:
     """The measurements of one checkout, in this process."""
     # chip_smoke's timing helpers; it puts this checkout's src on the
     # path, so the measured root's src goes in front of it afterwards
@@ -55,10 +60,12 @@ def worker(root: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    out = {"root": root, "bounce": {}, "ssm_scan": {}, "backward": {}}
+    if backward_only:
+        out["backward"] = _backward(gen, dev)
+        return out
     iters = tech.iters_for_ns(400.0, device=dev)
-    out = {"root": root, "ns_per_iter": tech.calibrate(device=dev),
-           "syscall_iters": iters, "bounce": {}, "ssm_scan": {},
-           "backward": {}}
+    out.update(ns_per_iter=tech.calibrate(device=dev), syscall_iters=iters)
     for label, shape, dtype in (
             ("table_1.21GB", (262_144, 1152), torch.float32),
             ("act_1x512x1152_bf16", (1, 512, 1152), torch.bfloat16),
@@ -136,21 +143,34 @@ def _backward(gen, dev) -> dict:
                                       "kernel_us": _by_kernel(call)}
     else:
         rows["ssm_scan_bwd_2x256"] = "absent"
-    for label, (h, kvh, d, window) in (("flash_bwd_gemma3_w512",
-                                        (4, 1, 256, 512)),
-                                       ("flash_bwd_hymba_w1024",
-                                        (25, 5, 64, 1024))):
+    # label: (B, Sq, Skv, H, KVH, D, causal, window, logit_cap)
+    for label, (b, sq, skv, h, kvh, d, causal, window, cap) in (
+            ("flash_bwd_gemma3_w512", (2, 256, 256, 4, 1, 256, True, 512,
+                                       0.0)),
+            ("flash_bwd_gemma3_b4_w512", (4, 256, 256, 4, 1, 256, True, 512,
+                                          0.0)),
+            ("flash_bwd_gemma3_b1_w512", (1, 256, 256, 4, 1, 256, True, 512,
+                                          0.0)),
+            ("flash_bwd_hymba_w1024", (2, 256, 256, 25, 5, 64, True, 1024,
+                                       0.0)),
+            ("flash_bwd_whisper_encoder", (1, 1500, 1500, 12, 12, 64, False,
+                                           0, 0.0)),
+            ("flash_bwd_whisper_cross", (1, 256, 1500, 12, 12, 64, False, 0,
+                                         0.0)),
+            ("flash_bwd_grok_cap30", (1, 256, 256, 48, 8, 128, True, 0,
+                                      30.0))):
         if not hasattr(fa, "flash_attention_bwd"):
             rows[label] = "absent"
             continue
-        b, s = 2, 256
-        q, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+        q, do = (torch.randn(b, sq, h, d, generator=gen, device=dev)
                  .to(torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn(b, s, kvh, d, generator=gen, device=dev)
+        k, v = (torch.randn(b, skv, kvh, d, generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
-        o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                    logit_cap=cap, return_lse=True)
         call = lambda: fa.flash_attention_bwd(  # noqa: E731
-            q, k, v, o, lse, do, causal=True, window=window)
+            q, k, v, o, lse, do, causal=causal, window=window,
+            logit_cap=cap)
         rows[label] = {"ms": _cuda_ms(call, n=20),
                        "device_ms": _device_ms(call),
                        "host_us": _host_us(call, n=100),
@@ -162,10 +182,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--out", default="")
+    ap.add_argument("--backward-only", action="store_true",
+                    help="time the backward kernels alone")
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, args.backward_only)),
+              flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -179,7 +202,9 @@ def main(argv=None) -> int:
     runs = []
     for root in args.roots:
         r = subprocess.run([sys.executable, __file__, "--worker",
-                            str(pathlib.Path(root).resolve())],
+                            str(pathlib.Path(root).resolve())]
+                           + (["--backward-only"] if args.backward_only
+                              else []),
                            capture_output=True, text=True, timeout=1200)
         if r.returncode != 0:
             print(r.stderr[-3000:], file=sys.stderr)
@@ -187,7 +212,8 @@ def main(argv=None) -> int:
         res = json.loads(r.stdout.strip().splitlines()[-1])
         runs.append(res)
         b, s = res["bounce"], res["ssm_scan"]
-        print(f"{root}: slope {res['ns_per_iter']:.4f} ns/iter", flush=True)
+        print(f"{root}:" + (f" slope {res['ns_per_iter']:.4f} ns/iter"
+                            if "ns_per_iter" in res else ""), flush=True)
         for label, row in b.items():
             print(f"  bounce {label}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in row.items() if v is not None),

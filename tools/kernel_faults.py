@@ -106,6 +106,11 @@ FAULTS = {
         "      if (q0 + ra < Sq) lrow[ra] = m_a + log2f(fmaxf(l_a, 1e-30f));\n"
         "      if (q0 + rb < Sq) lrow[rb] = m_b + log2f(fmaxf(l_b, 1e-30f));\n",
         "phase_train_kernels"),
+    # the bf16 backward's dK group leaves delta out of dS = P (dP - delta)
+    "flash_bwd_no_delta": (
+        _FLASH,
+        "s[4 * i + u] -= (u & 1) ? d2.y : d2.x;",
+        "s[4 * i + u] -= 0.f;", "phase_train_kernels"),
     # the QoS stall reads its trip count once on the host (a stream sync)
     "stall_trip_count_on_host": (
         _STALL, "    iters = iters.to(torch.int32).contiguous()\n",
