@@ -50,7 +50,8 @@ Phases, one line each; any failure raises and the script exits nonzero:
    the plain time loop run in float64 within 2e-5 x max(1, |ref|); the
    kernel backward against ``ssm_scan_bwd_plain`` at the same bound and
    bit for bit over two calls; its ms, device ms and host us a call
-   against its bound and the plain backward's;
+   against its bound, that bound with the kernel's own float64
+   exponential a state step added, and the plain backward's;
 3. the serving path at gemma3-1b's full width (26 layers, random weights
    from a seed, bf16 compute) through a ``cord`` dataplane with
    ``emulate_costs``: 8 requests on the continuous engine, the kernels'
@@ -1040,6 +1041,23 @@ def _ssm_bwd_bound(shape) -> tuple[int, int, float, str]:
         "operations" if t_ops > t_bytes else "bytes"
 
 
+# float64 operations of one exponential as the backward kernel computes
+# it (``exp_bwd`` in ssm_scan.cu: 6 fma, a subtract and a multiply)
+EXP_BWD_FLOPS = 14
+
+
+def _ssm_bwd_exp_bound(shape) -> float:
+    """The bound of one f32 scan backward in ms with its exponential
+    priced: the 20 operations a state element and step of
+    :func:`_ssm_bwd_bound` plus one ``exp(dt a)`` a state element and
+    step at the kernel's own cost (``EXP_BWD_FLOPS``), at the float64
+    rate; the byte bound where it is larger."""
+    nbytes, flops, _, _ = _ssm_bwd_bound(shape)
+    bsz, s, di, n = shape
+    ops = flops + EXP_BWD_FLOPS * bsz * s * di * n
+    return max(ops / F64_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
 def phase_ssm() -> dict:
     import torch
     from repro_torch.kernels.ssm_scan import ops as ssm
@@ -1130,7 +1148,8 @@ def _ssm_train_case(gen) -> dict:
     ``ssm_scan_ref`` on the card within SSM_F32_TOL x max(1, |ref|); the
     kernel backward against its plain version ``ssm_scan_bwd_plain`` at
     the same bound and bit for bit over two calls; the backward's time
-    (CUDA events, profiler device time, host us a call) against its bound
+    (CUDA events, profiler device time, host us a call) against its bound,
+    that bound with its exponential priced (:func:`_ssm_bwd_exp_bound`)
     and its plain version's.  The loop runs on float64 copies of the
     inputs: in float32 its own gradient of dt is off the exact one by more
     than 2e-5 at this shape, where the state lives hundreds of steps."""
@@ -1193,6 +1212,7 @@ def _ssm_train_case(gen) -> dict:
     plain_bwd_host_us = _host_us(plain_call, n=10)
     nbytes, flops, bound, bound_by = _ssm_bound(SSM_TRAIN_SHAPE, 4)
     bwd_bytes, bwd_flops, bwd_bound, bwd_by = _ssm_bwd_bound(SSM_TRAIN_SHAPE)
+    bwd_exp_bound = _ssm_bwd_exp_bound(SSM_TRAIN_SHAPE)
     row = {"shape": list(SSM_TRAIN_SHAPE), "grad_err": errs,
            "max_abs_err": max(errs.values()),
            "bwd_kernel_err": max(plain_errs.values()),
@@ -1202,7 +1222,7 @@ def _ssm_train_case(gen) -> dict:
            "bwd_host_us": bwd_host_us, "plain_bwd_ms": plain_bwd_ms,
            "plain_bwd_host_us": plain_bwd_host_us, "bwd_bound_ms": bwd_bound,
            "bwd_bound_by": bwd_by, "bwd_bytes": bwd_bytes,
-           "bwd_flops": bwd_flops}
+           "bwd_flops": bwd_flops, "bwd_exp_bound_ms": bwd_exp_bound}
     err_txt = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
     dev_txt = "n/a" if bwd_dev_ms is None else f"{bwd_dev_ms:.4f} ms"
     _line(f"  SSMScan {SSM_TRAIN_SHAPE} f32 (mamba's dt and A): kernel "
@@ -1211,7 +1231,8 @@ def _ssm_train_case(gen) -> dict:
           f"its plain version {row['bwd_kernel_err']:.3g}, bits equal "
           f"twice; forward {fwd_ms:.4f} ms (plain {plain_ms:.3f} ms), "
           f"backward {bwd_ms:.4f} ms a call, device {dev_txt}, host "
-          f"{bwd_host_us:.1f} us (bound {bwd_bound:.4f} ms, {bwd_by}; plain "
+          f"{bwd_host_us:.1f} us (bound {bwd_bound:.4f} ms, {bwd_by}; with "
+          f"the kernel's exp a state step {bwd_exp_bound:.4f} ms; plain "
           f"backward {plain_bwd_ms:.3f} ms, host {plain_bwd_host_us:.1f} "
           f"us){_on_card()}")
     return row

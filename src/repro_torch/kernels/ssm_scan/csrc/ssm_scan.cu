@@ -60,24 +60,41 @@
 // d dt and d C by more than 2e-5 where their terms cancel, so both
 // recurrences, the factors exp(dt A) and every sum run in float64, as
 // the plain version does; reads and writes stay in the inputs' dtypes.
-// What bounds it: about 20 float64 operations a state element and step
-// (2 x 256 x 3200 x 16 at hymba: 0.52 GFLOP, 15 us at the 34 TFLOP/s of
-// float64 outside the tensor cores) against 34.5 MB of inputs,
-// cotangents and gradients (10 us at 3.35 TB/s).
-// Design, four launches in a fixed order and no atomics, so a call's
-// bits do not depend on scheduling:
-// - chunks of 16 steps; pass 1 (`ssm_bwd_chunk`), one thread per (row,
-//   chunk, channel, state), keeps each chunk's end state from 0, its
-//   decay, and the cotangent it sends back when none arrives at its end;
-// - `ssm_bwd_carry` runs both carries over the chunks (forward from h0,
-//   backward from ghf), in place, and writes d h0;
-// - pass 2 (`ssm_bwd_grad`) rescans a chunk's 16 states from its start
-//   into registers and walks back from its carried cotangent; the sums
-//   over N (d dt, d x) and over a block's channels (d B, d C) are taken
-//   in shared memory in a fixed order.  No tensor holds a state for
-//   every step: the chunk aggregates are 3 / 16 of one;
-// - `ssm_bwd_reduce` sums d A over rows and chunks and d B, d C over the
-//   channel blocks, in order.
+// The bound: about 20 float64 operations a state element and step plus
+// at least one exp(dt a) (2 x 256 x 3200 x 16 at hymba: 0.52 GFLOP, 15 us
+// at the 34 TFLOP/s of float64 outside the tensor cores; 26 us with this
+// file's exp at 14 operations) against 34.5 MB of inputs, cotangents and
+// gradients (10 us at 3.35 TB/s).
+// What bounds it on this card is latency, not a pipe: the shape has only
+// B * di * N = 102,400 chains, each serial in time, so 800 warps at four
+// states a thread, one or two an SM sub-partition; each warp's own
+// instruction-level parallelism sets the time.  The four-launch kernel
+// before this one (0.76 ms) lost it to a branch around every inlined
+// exp, which kept the compiler from overlapping them, to 8 float
+// conversions, 5 global loads and 64-bit index arithmetic a state step,
+// and to chunk aggregates and carries written to and read from device
+// memory (tools/kernel_ab.py cuts; PERF.md).
+// Design, two launches in a fixed order and no atomics, so a call's bits
+// do not depend on scheduling:
+// - `ssm_bwd_grad`: a thread owns 4 states of one channel (N >= 4) and
+//   walks their chains through the whole sequence in 8-step tiles: a
+//   forward sweep that keeps the state at each tile start in scratch
+//   (1 / 8 of a state in doubles), then, from the last tile to the first,
+//   a rescan of the tile's factors and states into registers and the walk
+//   of the cotangent.  No chunk aggregate or carry exists, and nothing of
+//   a chain leaves registers but its tile starts.
+// - Each tile's inputs are staged in shared memory as float64 once, for
+//   the block's channels, double-buffered: each value is converted once a
+//   block, not once a state.
+// - The factor is this file's table exponential (`exp_bwd`, 8 float64
+//   instructions, within 4.1e-11 of exp): float64 throughout, as the
+//   plain version; a float32 expf would miss the gate (PERF.md).  A tile
+//   computes all its factors before its chains, with no branch inside.
+// - Sums over N (d dt, d x) by a butterfly over the channel's 4 lanes;
+//   over a warp's channels (d b, d c) by a reduce-scatter of shuffles,
+//   then over its warps in shared memory; d a over steps in registers.
+// - `ssm_bwd_reduce` adds the blocks' d b, d c and the rows' d a in a
+//   fixed order, eight threads an element.
 //
 // C interface: ssm_scan_launch and ssm_scan_bwd_launch return 0 or a
 // cudaError_t.
@@ -421,313 +438,476 @@ int dispatch_n(int N, const Args& g) {
 // Backward: the gradients of (y, h_final), in float64
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 256;   // one thread per (channel, state)
-constexpr int kBwdChunk = 16;      // time steps a chunk (held in registers)
-constexpr int kBwdGroups = 4;      // channel groups the gradient pass walks
+constexpr int kBwdThreads = 128;
+constexpr int kBwdTile = 8;        // steps a tile, rescanned into registers
+constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ double to_d(float v) {
-  return static_cast<double>(v);
-}
-__device__ __forceinline__ double to_d(__nv_bfloat16 v) {
-  return static_cast<double>(__bfloat162float(v));
-}
+// A block's share of the work at state size N: a thread owns kS states of
+// one channel, kG threads a channel, kC channels a block (one batch row).
+constexpr int bwd_states(int N) { return N < 4 ? N : 4; }
 
-// A load the compiler may not merge with an earlier one of the same
-// address: the gradient pass reads a step's inputs again on its way back
-// (from L1) instead of holding 16 steps of them in registers.
-__device__ __forceinline__ double ld_again(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return static_cast<double>(v);
-}
-__device__ __forceinline__ double ld_again(const __nv_bfloat16* p) {
-  unsigned short v;
-  asm volatile("ld.global.nc.b16 %0, [%1];" : "=h"(v) : "l"(p));
-  return static_cast<double>(__bfloat162float(__ushort_as_bfloat16(v)));
-}
-
-// Pass 1, one thread per (batch row, chunk, channel, state): the chunk's
-// end state from h = 0 (E), its decay D = prod exp(dt_t a), and the
-// cotangent it sends back through its first step when none arrives at
-// its end, Eg = sum_t (prod_{s <= t} exp(dt_s a)) * gy_t c_t.
-// agg: [3][B][n_chunks][di * N] doubles (E, D, Eg).
-template <typename T, int N>
-__global__ void __launch_bounds__(kBwdThreads)
-ssm_bwd_chunk(const T* __restrict__ dt, const T* __restrict__ x,
-              const float* __restrict__ a, const float* __restrict__ bm,
-              const float* __restrict__ cm, const T* __restrict__ gy,
-              double* __restrict__ agg, int S, int di, int n_chunks) {
-  const long long din = static_cast<long long>(di) * N;
-  const long long j = static_cast<long long>(blockIdx.x) * kBwdThreads +
-                      threadIdx.x;
-  if (j >= din) return;
-  const int d = static_cast<int>(j / N), n = static_cast<int>(j % N);
-  const int k = blockIdx.y;
-  const long long bi = blockIdx.z;
-  const int t0 = k * kBwdChunk;
-  const int len = min(kBwdChunk, S - t0);
-  const double an = a[j];
-  double h = 0.0, dec = 1.0, eg = 0.0;
-#pragma unroll 4
-  for (int i = 0; i < len; ++i) {
-    const long long row = bi * S + t0 + i;
-    const double dtv = to_d(dt[row * di + d]);
-    const double f = exp(dtv * an);
-    h = f * h + (dtv * to_d(x[row * di + d])) * static_cast<double>(bm[row * N + n]);
-    dec *= f;
-    if (gy != nullptr)
-      eg += dec * (to_d(gy[row * di + d]) * static_cast<double>(cm[row * N + n]));
-  }
-  const long long plane = static_cast<long long>(gridDim.z) * n_chunks * din;
-  double* out = agg + (bi * n_chunks + k) * din + j;
-  out[0] = h;
-  out[plane] = dec;
-  out[2 * plane] = eg;
-}
-
-// The two carries, one thread per (batch row, channel, state) chain, in
-// place: forward from h0, E_k becomes chunk k's start state; backward
-// from ghf, Eg_k becomes the cotangent arriving at chunk k's last step.
-// What is left after chunk 0 is the cotangent of h0.  Eight chunks'
-// loads are issued before their results are stored.
-constexpr int kCarryBatchBwd = 8;
-
-__global__ void __launch_bounds__(kBwdThreads)
-ssm_bwd_carry(double* __restrict__ agg, const float* __restrict__ h0,
-              const float* __restrict__ ghf, float* __restrict__ dh0,
-              long long din, long long total, int nk) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
-  if (idx >= total) return;
-  const long long bi = idx / din, j = idx % din;
-  const long long plane = total * nk;
-  double* e = agg + bi * nk * din + j;
-  const double* dec = e + plane;
-  double* eg = e + 2 * plane;
-  double h = h0[idx];
-  for (int k0 = 0; k0 < nk; k0 += kCarryBatchBwd) {
-    double ev[kCarryBatchBwd], dv[kCarryBatchBwd];
-#pragma unroll
-    for (int u = 0; u < kCarryBatchBwd; ++u) {
-      const long long k = k0 + u < nk ? k0 + u : k0;
-      ev[u] = e[k * din];
-      dv[u] = dec[k * din];
-    }
-#pragma unroll
-    for (int u = 0; u < kCarryBatchBwd; ++u) {
-      if (k0 + u < nk) {
-        e[(k0 + u) * din] = h;
-        h = dv[u] * h + ev[u];
-      }
-    }
-  }
-  double g = ghf != nullptr ? static_cast<double>(ghf[idx]) : 0.0;
-  for (int k1 = nk - 1; k1 >= 0; k1 -= kCarryBatchBwd) {
-    double ev[kCarryBatchBwd], dv[kCarryBatchBwd];
-#pragma unroll
-    for (int u = 0; u < kCarryBatchBwd; ++u) {
-      const long long k = k1 - u >= 0 ? k1 - u : k1;
-      ev[u] = eg[k * din];
-      dv[u] = dec[k * din];
-    }
-#pragma unroll
-    for (int u = 0; u < kCarryBatchBwd; ++u) {
-      if (k1 - u >= 0) {
-        eg[(k1 - u) * din] = g;
-        g = dv[u] * g + ev[u];
-      }
-    }
-  }
-  dh0[idx] = static_cast<float>(g);
-}
-
-// Pass 2: the gradients.  A block takes one chunk of one batch row and
-// walks kBwdGroups groups of 256 / N channels; a thread owns one
-// (channel, state).  It rescans the chunk's 16 states from the carried
-// start state into registers, then walks back from the carried
-// cotangent: g_t = exp(dt_{t+1} a) g_{t+1} + gy_t c_t.  The sums over N
-// (d dt, d x) are taken across the channel's N lanes with shuffles (a
-// fixed butterfly), and the channel's first lane stages d dt and d x in
-// shared memory for one coalesced write of the group.  The terms of d b
-// and d c go to shared memory, where the group's channels are summed in
-// order; d b and d c are summed over the groups in registers and written
-// as the block's partial; each thread's d a over the chunk overwrites D
-// in agg (no longer read).  part: [2][n_cb][B][S][N] doubles.  In shared
-// memory a channel's N terms of a step sit in a row of N + 1 doubles
-// (N > 1), so that the sums read 16 different banks across a half warp.
-// About 72 KB of shared memory at N = 16.
 template <int N>
-struct BwdRed {
-  static constexpr int kCh = kBwdThreads / N;               // channels a group
-  static constexpr int kPairs = (kBwdChunk * N + kBwdThreads - 1) /
-                                kBwdThreads;                // (t, n) a thread
-  static constexpr int kRow = N == 1 ? 1 : N + 1;          // a channel's terms
-  static constexpr int kStep = kCh * kRow;                  // a step's terms
-  static constexpr int kBytes = 2 * kBwdChunk * kStep * 8 +
-                                2 * kBwdChunk * kCh * 4;
+struct BwdPlan {
+  static constexpr int kS = bwd_states(N);
+  static constexpr int kG = N / kS;
+  static constexpr int kC = kBwdThreads / kG;
+  // a tile's loads a thread: channel values, then b and c
+  static constexpr int kLoads = (kBwdTile * kC + kBwdThreads - 1) /
+                                kBwdThreads;
+  static constexpr int kLoadsN = (kBwdTile * N + kBwdThreads - 1) /
+                                 kBwdThreads;
 };
 
+// Shared memory of the gradient kernel: two buffers of a tile's inputs
+// in float64 (the block's channels; b and c), and, by tile parity, each
+// warp's sums over its channels of the d b and d c terms and a tile's
+// d dt and d x for one coalesced write.
+template <int N>
+struct BwdSmem {
+  using P = BwdPlan<N>;
+  double dt[2][kBwdTile][P::kC], x[2][kBwdTile][P::kC];
+  double dtx[2][kBwdTile][P::kC], gy[2][kBwdTile][P::kC];
+  double b[2][kBwdTile][N], c[2][kBwdTile][N];
+  double red[2][2][kBwdTile][kBwdWarps][N];     // [parity][d b, d c]
+  float odt[2][kBwdTile][P::kC], odx[2][kBwdTile][P::kC];
+  double table[16];
+  double amax[kBwdWarps];                 // each warp's largest |a|
+};
+
+// 2^(i / 16), i = 0..15 (ref.EXP_TABLE)
+__constant__ double kExpTable[16] = {
+    0x1.0000000000000p+0, 0x1.0b5586cf9890fp+0, 0x1.172b83c7d517bp+0,
+    0x1.2387a6e756238p+0, 0x1.306fe0a31b715p+0, 0x1.3dea64c123422p+0,
+    0x1.4bfdad5362a27p+0, 0x1.5ab07dd485429p+0, 0x1.6a09e667f3bcdp+0,
+    0x1.7a11473eb0187p+0, 0x1.8ace5422aa0dbp+0, 0x1.9c49182a3f090p+0,
+    0x1.ae89f995ad3adp+0, 0x1.c199bdd85529cp+0, 0x1.d5818dcfba487p+0,
+    0x1.ea4afa2a490dap+0};
+
+// 16 / ln2, -ln2 / 16 and the polynomial's 1/24 and 1/6: read from the
+// constant bank as operands (as literals nvcc rebuilt them at every call)
+__constant__ double kExpC[4] = {0x1.71547652b82fep+4, -0x1.62e42fefa39efp-5,
+                                1.0 / 24, 1.0 / 6};
+
+// exp(x) in float64 (`ref.exp_f64`): x = j ln2 / 16 + r, |r| <= ln2 / 32,
+// exp(x) = 2^(j >> 4) 2^((j & 15) / 16) p(r), p exp's Taylor polynomial
+// of degree 4 (relative error below 4.1e-11): 8 float64 instructions and
+// a table read, against libdevice's 16 (tools/kernel_sass.py).  The table
+// sits in shared memory, where its 16 doubles fill the 32 banks once.  It
+// holds for |x| < 700; a tile whose |dt a| may reach that (or NaN) takes
+// libdevice's exp instead (kFar), so the common path has no branch that
+// would keep the compiler from interleaving a tile's exponentials.
+template <bool kFar>
+__device__ __forceinline__ double exp_bwd(double x, const double* table) {
+  if constexpr (kFar) {
+    return exp(x);
+  } else {
+    const double shift = 0x1.8p52;       // j lands in the low word
+    const double t = fma(x, kExpC[0], shift);
+    const int j = __double2loint(t);
+    const double r = fma(t - shift, kExpC[1], x);
+    double p = fma(r, kExpC[2], kExpC[3]);
+    p = fma(p, r, 0.5);
+    p = fma(p, r, 1.0);
+    p = fma(p, r, 1.0);
+    const double y = table[j & 15] * p;
+    return __hiloint2double(__double2hiint(y) + ((j >> 4) << 20),
+                            __double2loint(y));
+  }
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+// The sum over a warp's channels of one term per state: the lanes that
+// differ in bits M, M/2, .., G hold the same states of other channels.
+// While a lane holds more than one sum it keeps half and sends half (a
+// reduce-scatter), then the rest is a butterfly.  The order is fixed, so
+// the bits are.  At the end each lane holds the sum of one of its states,
+// state `off`, and the lanes whose butterfly bits are 0 write it.
+template <int M, int G, int C, int S>
+__device__ __forceinline__ void channel_sum(double (&v)[S], int lane,
+                                            int& off, int& dup) {
+  if constexpr (M >= G) {
+    if constexpr (C > 1) {
+      constexpr int H = C / 2;
+      const bool up = lane & M;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const double send = up ? v[j] : v[j + H];
+        const double keep = up ? v[j + H] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+      }
+      if (up) off += H;
+      channel_sum<M / 2, G, H, S>(v, lane, off, dup);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], M);
+      dup |= M;
+      channel_sum<M / 2, G, 1, S>(v, lane, off, dup);
+    }
+  }
+}
+
+// A warp's sums over its channels of the terms v (kS states a lane), at
+// step i, into red[i][warp][n].
+template <int N>
+__device__ __forceinline__ void warp_channel_sums(
+    double (&v)[BwdPlan<N>::kS], double (*red)[kBwdWarps][N], int i,
+    int lane, int q) {
+  using P = BwdPlan<N>;
+  int off = 0, dup = 0;
+  channel_sum<16, P::kG, P::kS, P::kS>(v, lane, off, dup);
+  if ((lane & dup) == 0) red[i][threadIdx.x >> 5][q * P::kS + off] = v[0];
+}
+
+// One tile's inputs in registers, loaded from global memory (zero past S
+// and di) while the tile before it is computed, then stored to a shared
+// buffer in float64.
+template <typename T, int N>
+struct BwdTileRegs {
+  using P = BwdPlan<N>;
+  float dt[P::kLoads], x[P::kLoads], gy[P::kLoads];
+  float b[P::kLoadsN], c[P::kLoadsN];
+
+  __device__ __forceinline__ void load(const T* dtp, const T* xp,
+                                       const T* gyp, const float* bm,
+                                       const float* cm, int bi, int t0, int S,
+                                       int di, int d0) {
+#pragma unroll
+    for (int j = 0; j < P::kLoads; ++j) {
+      const int e = threadIdx.x + j * kBwdThreads;
+      const int i = e / P::kC, d = d0 + e % P::kC, t = t0 + i;
+      const bool ok = e < kBwdTile * P::kC && t < S && d < di;
+      const size_t at = (static_cast<size_t>(bi) * S + t) * di + d;
+      dt[j] = ok ? to_f(dtp[at]) : 0.f;
+      x[j] = ok ? to_f(xp[at]) : 0.f;
+      gy[j] = ok && gyp != nullptr ? to_f(gyp[at]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < P::kLoadsN; ++j) {
+      const int e = threadIdx.x + j * kBwdThreads;
+      const int t = t0 + e / N;
+      const bool ok = e < kBwdTile * N && t < S;
+      const size_t at = (static_cast<size_t>(bi) * S + t) * N + e % N;
+      b[j] = ok ? bm[at] : 0.f;
+      c[j] = ok ? cm[at] : 0.f;
+    }
+  }
+
+  // whether a loaded |dt| may take |dt a| to 700 (or is NaN)
+  __device__ __forceinline__ bool far(double dt_far) const {
+    bool f = false;
+#pragma unroll
+    for (int j = 0; j < P::kLoads; ++j) f |= !(fabs(dt[j]) < dt_far);
+    return f;
+  }
+
+  __device__ __forceinline__ void store(BwdSmem<N>& sm, int buf) const {
+#pragma unroll
+    for (int j = 0; j < P::kLoads; ++j) {
+      const int e = threadIdx.x + j * kBwdThreads;
+      const int i = e / P::kC, cl = e % P::kC;
+      const double dtv = dt[j], xv = x[j];
+      if (e < kBwdTile * P::kC) {
+        sm.dt[buf][i][cl] = dtv;
+        sm.x[buf][i][cl] = xv;
+        sm.dtx[buf][i][cl] = dtv * xv;    // exact: two floats' product
+        sm.gy[buf][i][cl] = gy[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P::kLoadsN; ++j) {
+      const int e = threadIdx.x + j * kBwdThreads;
+      if (e < kBwdTile * N) {
+        sm.b[buf][e / N][e % N] = b[j];
+        sm.c[buf][e / N][e % N] = c[j];
+      }
+    }
+  }
+};
+
+// A forward tile: the thread's kS states through the tile's steps.
+template <bool kFar, int N>
+__device__ __forceinline__ void forward_tile(
+    double (&h)[BwdPlan<N>::kS], const BwdSmem<N>& sm, int buf, int cl,
+    int q, const double (&an)[BwdPlan<N>::kS]) {
+  constexpr int kS = BwdPlan<N>::kS;
+#pragma unroll
+  for (int i = 0; i < kBwdTile; ++i) {
+    const double dtv = sm.dt[buf][i][cl], dtxv = sm.dtx[buf][i][cl];
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+      h[s] = fma(dtxv, sm.b[buf][i][q * kS + s],
+                 exp_bwd<kFar>(dtv * an[s], sm.table) * h[s]);
+  }
+}
+
+// A backward tile's factors f_t = exp(dt_t a), all computed before its
+// walk: the branch on the far range then holds no shuffle of the walk (a
+// shuffle in a branch the compiler cannot prove uniform costs a sync).
+template <bool kFar, int N>
+__device__ __forceinline__ void tile_factors(
+    double (&fr)[kBwdTile][BwdPlan<N>::kS], const BwdSmem<N>& sm, int buf,
+    int cl, const double (&an)[BwdPlan<N>::kS]) {
+#pragma unroll
+  for (int i = 0; i < kBwdTile; ++i) {
+    const double dtv = sm.dt[buf][i][cl];
+#pragma unroll
+    for (int s = 0; s < BwdPlan<N>::kS; ++s)
+      fr[i][s] = exp_bwd<kFar>(dtv * an[s], sm.table);
+  }
+}
+
+// The gradient kernel.  A block takes kC channels of one batch row; a
+// thread walks its kS (channel, state) chains through all S steps, a
+// tile of kBwdTile steps at a time, in two sweeps.
+// - Forward, tiles 0 .. T-2: the state, kept at the start of tiles
+//   1 .. T-2 in `ckpt` ([B][T-2][di * N]); the start of tile T-1 stays in
+//   registers.
+// - Backward, tiles T-1 .. 0: the tile's factors f_t = exp(dt_t a) and
+//   products f_t h_{t-1} are rescanned from its start state into
+//   registers (the terms h_t gy_t of d c on the way), then the cotangent
+//   walks back, g_t = g + gy_t c_t, gf = g_t f_t h_{t-1}, g <- f_t g_t,
+//   summing d dt, d x over the channel's states (its kG lanes, a
+//   butterfly), d a over the steps in registers, and the d b terms
+//   g_t dt_t x_t and the d c terms over the block's channels (each warp
+//   by `channel_sum`, the warps in order in shared memory).  After tile
+//   0, g is d h0.
+// The block writes d dt, d x, d h0, its d a ([B][di * N] doubles in `dap`)
+// and its d b, d c partials (`part`: [2][n_cb][B][S][N] doubles); no
+// tensor holds a state for every step.
 template <typename T, int N>
 __global__ void __launch_bounds__(kBwdThreads)
-ssm_bwd_grad(const T* __restrict__ dt, const T* __restrict__ x,
+ssm_bwd_grad(const T* __restrict__ dtp, const T* __restrict__ xp,
              const float* __restrict__ a, const float* __restrict__ bm,
-             const float* __restrict__ cm, const T* __restrict__ gy,
-             double* __restrict__ agg, double* __restrict__ part,
-             T* __restrict__ ddt, T* __restrict__ dx, int S, int di,
-             int n_chunks) {
-  using R = BwdRed<N>;
-  // [2][kBwdChunk][kCh][N + 1] doubles, then [2][kBwdChunk][kCh] floats
-  extern __shared__ __align__(16) double red[];
-  double* r_c = red;
-  double* r_b = red + kBwdChunk * R::kStep;
-  float* o_dt = reinterpret_cast<float*>(red + 2 * kBwdChunk * R::kStep);
-  float* o_dx = o_dt + kBwdChunk * R::kCh;
-  const int tid = threadIdx.x;
-  const int n = tid % N, cl = tid / N;
-  const int k = blockIdx.y;
-  const long long bi = blockIdx.z;
-  const int t0 = k * kBwdChunk;
-  const int len = min(kBwdChunk, S - t0);
-  const long long din = static_cast<long long>(di) * N;
-  const long long plane = static_cast<long long>(gridDim.z) * n_chunks * din;
-  const long long chunk_off = (bi * n_chunks + k) * din;
-  double acc_c[R::kPairs], acc_b[R::kPairs];
-#pragma unroll
-  for (int q = 0; q < R::kPairs; ++q) acc_c[q] = acc_b[q] = 0.0;
+             const float* __restrict__ cm, const float* __restrict__ h0,
+             const T* __restrict__ gyp, const float* __restrict__ ghf,
+             T* __restrict__ ddt, T* __restrict__ dx,
+             float* __restrict__ dh0, double* __restrict__ ckpt,
+             double* __restrict__ dap, double* __restrict__ part, int S,
+             int di) {
+  using P = BwdPlan<N>;
+  constexpr int kS = P::kS, kC = P::kC, L = kBwdTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<N>& sm = *reinterpret_cast<BwdSmem<N>*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cl = tid / P::kG, q = tid % P::kG;
+  const int cb = blockIdx.x, bi = blockIdx.y, B = gridDim.y;
+  const int d0 = cb * kC, d = d0 + cl;
+  const bool live = d < di;
+  const int nt = (S + L - 1) / L;     // tiles
+  const size_t din = static_cast<size_t>(di) * N;
+  const size_t row = static_cast<size_t>(bi) * din + d * N + q * kS;
+  if (tid < 16) sm.table[tid] = kExpTable[tid];
 
-  for (int grp = 0; grp < kBwdGroups; ++grp) {
-    const int base = (blockIdx.x * kBwdGroups + grp) * R::kCh;
-    if (base >= di) break;                       // uniform over the block
-    const int d = base + cl;
-    const bool live = d < di;
-    const long long j = static_cast<long long>(d) * N + n;
-    const double an = live ? static_cast<double>(a[j]) : 0.0;
-    const double h_start = live ? agg[chunk_off + j] : 0.0;
-    double g = live ? agg[2 * plane + chunk_off + j] : 0.0;
+  double an[kS], h[kS], hn[kS], g[kS], da[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    an[s] = live ? a[static_cast<size_t>(d) * N + q * kS + s] : 0.0;
+    h[s] = live ? h0[row + s] : 0.0;
+    g[s] = live && ghf != nullptr ? ghf[row + s] : 0.0;
+    da[s] = 0.0;
+  }
 
-    double hs[kBwdChunk], fs[kBwdChunk];
-    double h = h_start;
+  // A tile whose |dt| reaches 700 / (the block's largest |a|), or a block
+  // with a NaN or infinite a, takes libdevice's exp (`exp_bwd<true>`).
+  double am = 0.0;
+  bool bad = false;
 #pragma unroll
-    for (int i = 0; i < kBwdChunk; ++i) {
-      const bool in = live && i < len;
-      const long long row = bi * S + t0 + i;
-      const double dtv = in ? to_d(dt[row * di + d]) : 0.0;
-      const double xv = in ? to_d(x[row * di + d]) : 0.0;
-      const double bv = i < len ? static_cast<double>(bm[row * N + n]) : 0.0;
-      const double f = exp(dtv * an);
-      h = f * h + (dtv * xv) * bv;
-      hs[i] = h;
-      fs[i] = f;
+  for (int s = 0; s < kS; ++s) {
+    bad |= !(fabs(an[s]) <= 0x1.fffffffffffffp+1023);
+    am = fmax(am, fabs(an[s]));
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    am = fmax(am, __shfl_xor_sync(0xffffffffu, am, m));
+  if (lane == 0) sm.amax[warp] = am;
+
+  BwdTileRegs<T, N> regs;
+  regs.load(dtp, xp, gyp, bm, cm, bi, 0, S, di, d0);
+  regs.store(sm, 0);
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kBwdWarps; ++w) am = fmax(am, sm.amax[w]);
+  const double dt_far = 700.0 / am;
+  bool far = __syncthreads_or(bad || regs.far(dt_far));
+
+  int buf = 0;
+  // tile steps: forward 0 .. T-2, then backward T-1 .. 0
+  for (int step = 0; step < 2 * nt - 1; ++step) {
+    const bool fwd = step < nt - 1, more = step + 1 < 2 * nt - 1;
+    const int k = fwd ? step : 2 * nt - 2 - step;
+    const int t0 = k * L;
+    if (more) {
+      const int kn = step + 1 < nt - 1 ? step + 1 : 2 * nt - 3 - step;
+      regs.load(dtp, xp, gyp, bm, cm, bi, kn * L, S, di, d0);
     }
-    double da = 0.0;
+    if (fwd) {
+      if (far)
+        forward_tile<true, N>(h, sm, buf, cl, q, an);
+      else
+        forward_tile<false, N>(h, sm, buf, cl, q, an);
+      if (k + 1 < nt - 1 && live) {
+        double* out = ckpt + (static_cast<size_t>(bi) * (nt - 2) + k) * din +
+                      d * N + q * kS;
 #pragma unroll
-    for (int i = kBwdChunk - 1; i >= 0; --i) {
-      const bool in = live && i < len;
-      const long long row = bi * S + t0 + i;
-      const double dtv = in ? ld_again(dt + row * di + d) : 0.0;
-      const double xv = in ? ld_again(x + row * di + d) : 0.0;
-      const double gyv = in && gy != nullptr ? to_d(gy[row * di + d]) : 0.0;
-      const double bv = i < len ? ld_again(bm + row * N + n) : 0.0;
-      const double cv = i < len ? static_cast<double>(cm[row * N + n]) : 0.0;
-      g = g + gyv * cv;                                   // g_t
-      const double hp = i > 0 ? hs[i - 1] : h_start;     // h_{t-1}
-      const double gf = g * hp * fs[i];                  // d / d(dt a)
-      double s_dt = gf * an, s_u = g * bv;
+        for (int s = 0; s < kS; ++s) out[s] = h[s];
+      }
+    } else {
+      const int par = k & 1;
+      // the tile's start state (tile T-1: the forward's last, in h); the
+      // next tile's is loaded now: a kept state or h0
+      if (k < nt - 1) {
 #pragma unroll
-      for (int o = N / 2; o > 0; o >>= 1) {
-        s_dt += __shfl_xor_sync(0xffffffffu, s_dt, o);
-        s_u += __shfl_xor_sync(0xffffffffu, s_u, o);
+        for (int s = 0; s < kS; ++s) h[s] = hn[s];
       }
-      if (n == 0) {
-        o_dt[i * R::kCh + cl] = static_cast<float>(s_dt + xv * s_u);
-        o_dx[i * R::kCh + cl] = static_cast<float>(dtv * s_u);
-      }
-      const int at = i * R::kStep + cl * R::kRow + n;
-      r_c[at] = hs[i] * gyv;
-      r_b[at] = g * (dtv * xv);
-      da += gf * dtv;
-      g = fs[i] * g;                                      // to h_{t-1}
-    }
-    if (live) agg[plane + chunk_off + j] = da;
-    __syncthreads();
-    // d dt = sum_n gf a + x sum_n g b and d x = dt sum_n g b of the
-    // group, written a step at a time across its channels
-    for (int p = tid; p < R::kCh * kBwdChunk; p += kBwdThreads) {
-      const int c2 = p % R::kCh, i = p / R::kCh;
-      const int d2 = base + c2;
-      if (d2 < di && i < len) {
-        const long long at = (bi * S + t0 + i) * di + d2;
-        store_f(ddt + at, o_dt[i * R::kCh + c2]);
-        store_f(dx + at, o_dx[i * R::kCh + c2]);
-      }
-    }
-    // d c and d b: one (step, state) a thread, the group's channels
-    // summed in order, the groups in order
+      if (k > 0) {
 #pragma unroll
-    for (int q = 0; q < R::kPairs; ++q) {
-      const int p = tid + q * kBwdThreads;
-      if (p < kBwdChunk * N) {
-        const int i = p / N, m = p % N;
-        double s_c = 0.0, s_b = 0.0;
-        for (int c2 = 0; c2 < R::kCh; ++c2) {
-          s_c += r_c[i * R::kStep + c2 * R::kRow + m];
-          s_b += r_b[i * R::kStep + c2 * R::kRow + m];
+        for (int s = 0; s < kS; ++s)
+          hn[s] = !live ? 0.0
+                  : k == 1 ? static_cast<double>(h0[row + s])
+                           : ckpt[(static_cast<size_t>(bi) * (nt - 2) + k - 2) *
+                                      din + d * N + q * kS + s];
+      }
+      double fr[L][kS], fh[L][kS];
+      if (far)
+        tile_factors<true, N>(fr, sm, buf, cl, an);
+      else
+        tile_factors<false, N>(fr, sm, buf, cl, an);
+#pragma unroll
+      for (int i = 0; i < L; ++i) {               // the rescan
+        const double dtxv = sm.dtx[buf][i][cl], gyv = sm.gy[buf][i][cl];
+        double v[kS];
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          fh[i][s] = fr[i][s] * h[s];
+          h[s] = fma(dtxv, sm.b[buf][i][q * kS + s], fh[i][s]);
+          v[s] = h[s] * gyv;
         }
-        acc_c[q] += s_c;
-        acc_b[q] += s_b;
+        warp_channel_sums<N>(v, sm.red[par][1], i, lane, q);
       }
-    }
-    __syncthreads();   // the terms are rewritten by the next group
-  }
-  const long long bsn = static_cast<long long>(gridDim.z) * S * N;
 #pragma unroll
-  for (int q = 0; q < R::kPairs; ++q) {
-    const int p = tid + q * kBwdThreads;
-    if (p < kBwdChunk * N) {
-      const int i = p / N, m = p % N;
-      if (i < len) {
-        const long long at = blockIdx.x * bsn + (bi * S + t0 + i) * N + m;
-        part[at] = acc_c[q];
-        part[gridDim.x * bsn + at] = acc_b[q];
+      for (int i = L - 1; i >= 0; --i) {          // the walk back
+        const double dtv = sm.dt[buf][i][cl], xv = sm.x[buf][i][cl];
+        const double dtxv = sm.dtx[buf][i][cl], gyv = sm.gy[buf][i][cl];
+        double s_dt = 0.0, s_u = 0.0, v[kS];
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          g[s] = fma(gyv, sm.c[buf][i][q * kS + s], g[s]);
+          const double gf = g[s] * fh[i][s];
+          s_dt = fma(gf, an[s], s_dt);
+          s_u = fma(g[s], sm.b[buf][i][q * kS + s], s_u);
+          da[s] = fma(gf, dtv, da[s]);
+          v[s] = g[s] * dtxv;
+          g[s] *= fr[i][s];
+        }
+        warp_channel_sums<N>(v, sm.red[par][0], i, lane, q);
+#pragma unroll
+        for (int m = P::kG / 2; m > 0; m >>= 1) {
+          s_dt += __shfl_xor_sync(0xffffffffu, s_dt, m);
+          s_u += __shfl_xor_sync(0xffffffffu, s_u, m);
+        }
+        if (q == 0) {
+          sm.odt[par][i][cl] = static_cast<float>(fma(xv, s_u, s_dt));
+          sm.odx[par][i][cl] = static_cast<float>(dtv * s_u);
+        }
       }
     }
-  }
-}
-
-// The cross-block sums in a fixed order: d a over batch rows and chunks,
-// d c and d b over the channel blocks.
-__global__ void __launch_bounds__(kBwdThreads)
-ssm_bwd_reduce(const double* __restrict__ agg,
-               const double* __restrict__ part, float* __restrict__ da,
-               float* __restrict__ dc, float* __restrict__ db,
-               long long din, long long bsn, int rows_chunks, int n_cb) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
-  if (idx < din) {
-    const double* p = agg + static_cast<long long>(rows_chunks) * din + idx;
-    double s = 0.0;
-    for (int r = 0; r < rows_chunks; ++r) s += p[r * din];
-    da[idx] = static_cast<float>(s);
-  } else if (idx < din + bsn) {
-    const long long m = idx - din;
-    double s_c = 0.0, s_b = 0.0;
-    for (int cb = 0; cb < n_cb; ++cb) {
-      s_c += part[cb * bsn + m];
-      s_b += part[(n_cb + cb) * bsn + m];
+    if (more) regs.store(sm, buf ^ 1);
+    far = __syncthreads_or(bad || (more && regs.far(dt_far)));
+    if (!fwd) {
+      // the tile's outputs, read by other threads than wrote them; the
+      // next tile writes the other parity
+      const int par = k & 1;
+      for (int e = tid; e < L * kC; e += kBwdThreads) {
+        const int i = e / kC, c2 = e % kC;
+        if (t0 + i < S && d0 + c2 < di) {
+          const size_t at = (static_cast<size_t>(bi) * S + t0 + i) * di +
+                            d0 + c2;
+          store_f(ddt + at, sm.odt[par][i][c2]);
+          store_f(dx + at, sm.odx[par][i][c2]);
+        }
+      }
+      const size_t bsn = static_cast<size_t>(B) * S * N;
+      for (int e = tid; e < 2 * L * N; e += kBwdThreads) {
+        const int kind = e / (L * N), i = e / N % L, n = e % N;
+        if (t0 + i < S) {
+          double sum = 0.0;
+#pragma unroll
+          for (int w = 0; w < kBwdWarps; ++w)
+            sum += sm.red[par][kind][i][w][n];
+          part[(kind * gridDim.x + cb) * bsn +
+               (static_cast<size_t>(bi) * S + t0 + i) * N + n] = sum;
+        }
+      }
     }
-    dc[m] = static_cast<float>(s_c);
-    db[m] = static_cast<float>(s_b);
+    buf ^= 1;
+  }
+  if (live) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      dh0[row + s] = static_cast<float>(g[s]);
+      dap[row + s] = da[s];
+    }
   }
 }
 
-// the channel blocks of the gradient pass
+// The cross-block sums in a fixed order.  Blocks 0 .. ceil(din / 256) - 1
+// sum d a over the batch rows, a thread an element.  The rest sum d b and
+// d c over the channel blocks: 32 consecutive elements a block, 8 threads
+// an element, each over its eighth of the channel blocks in order, then
+// the eighths in order in shared memory.
+constexpr int kReduceParts = 8;
+
+__global__ void __launch_bounds__(256)
+ssm_bwd_reduce(const double* __restrict__ dap,
+               const double* __restrict__ part, float* __restrict__ da,
+               float* __restrict__ db, float* __restrict__ dc,
+               long long din, long long bsn, int B, int n_cb) {
+  __shared__ double sums[2][kReduceParts][32];
+  const long long da_blocks = (din + 255) / 256;
+  if (blockIdx.x < da_blocks) {
+    const long long idx = static_cast<long long>(blockIdx.x) * 256 +
+                          threadIdx.x;
+    if (idx < din) {
+      double s = 0.0;
+      for (int r = 0; r < B; ++r) s += dap[r * din + idx];
+      da[idx] = static_cast<float>(s);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, pt = threadIdx.x >> 5;
+  const long long m = (blockIdx.x - da_blocks) * 32 + lane;
+  const int per = (n_cb + kReduceParts - 1) / kReduceParts;
+  const int k0 = pt * per, k1 = min(n_cb, k0 + per);
+  double s_b = 0.0, s_c = 0.0;
+  if (m < bsn) {
+    for (int k = k0; k < k1; ++k) {
+      s_b += part[k * bsn + m];
+      s_c += part[(n_cb + k) * bsn + m];
+    }
+  }
+  sums[0][pt][lane] = s_b;
+  sums[1][pt][lane] = s_c;
+  __syncthreads();
+  if (pt == 0 && m < bsn) {
+    double t_b = 0.0, t_c = 0.0;
+#pragma unroll
+    for (int p = 0; p < kReduceParts; ++p) {
+      t_b += sums[0][p][lane];
+      t_c += sums[1][p][lane];
+    }
+    db[m] = static_cast<float>(t_b);
+    dc[m] = static_cast<float>(t_c);
+  }
+}
+
+// the channel blocks of the gradient kernel (BwdPlan<N>::kC channels each)
 int bwd_channel_blocks(int di, int N) {
-  const int per = (kBwdThreads / N) * kBwdGroups;
+  const int per = kBwdThreads * bwd_states(N) / N;
   return (di + per - 1) / per;
 }
 
-long long bwd_chunks(int S) { return (S + kBwdChunk - 1) / kBwdChunk; }
+long long bwd_tiles(int S) { return (S + kBwdTile - 1) / kBwdTile; }
 
 struct BwdArgs {
   const void *dt, *x, *a, *b, *c, *h0, *gy, *ghf;
@@ -739,8 +919,8 @@ struct BwdArgs {
 
 template <typename T, int N>
 int launch_bwd(const BwdArgs& g) {
-  using R = BwdRed<N>;
   auto grad = ssm_bwd_grad<T, N>;
+  constexpr int kBytes = sizeof(BwdSmem<N>);
   static std::atomic<bool> ready[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -749,42 +929,29 @@ int launch_bwd(const BwdArgs& g) {
     return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev].load(std::memory_order_relaxed)) {
     err = cudaFuncSetAttribute(
-        grad, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
+        grad, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev].store(true, std::memory_order_relaxed);
   }
-  const T* dt = static_cast<const T*>(g.dt);
-  const T* x = static_cast<const T*>(g.x);
-  const T* gy = static_cast<const T*>(g.gy);
-  const float* a = static_cast<const float*>(g.a);
-  const float* b = static_cast<const float*>(g.b);
-  const float* c = static_cast<const float*>(g.c);
-  const int nk = static_cast<int>(bwd_chunks(g.S));
+  const long long nt = bwd_tiles(g.S);
   const long long din = static_cast<long long>(g.di) * N;
-  const long long total = din * g.B;
   const long long bsn = static_cast<long long>(g.B) * g.S * N;
   const int n_cb = bwd_channel_blocks(g.di, N);
-  double* agg = g.work;
-  double* part = g.work + 3 * total * nk;
-  ssm_bwd_chunk<T, N><<<dim3(static_cast<unsigned>(
-                                 (din + kBwdThreads - 1) / kBwdThreads),
-                             nk, g.B),
-                        kBwdThreads, 0, g.stream>>>(dt, x, a, b, c, gy, agg,
-                                                    g.S, g.di, nk);
-  ssm_bwd_carry<<<static_cast<unsigned>((total + kBwdThreads - 1) /
-                                        kBwdThreads),
-                  kBwdThreads, 0, g.stream>>>(
-      agg, static_cast<const float*>(g.h0),
-      static_cast<const float*>(g.ghf), static_cast<float*>(g.dh0), din,
-      total, nk);
-  grad<<<dim3(n_cb, nk, g.B), kBwdThreads, R::kBytes, g.stream>>>(
-      dt, x, a, b, c, gy, agg, part, static_cast<T*>(g.ddt),
-      static_cast<T*>(g.dx), g.S, g.di, nk);
-  ssm_bwd_reduce<<<static_cast<unsigned>((din + bsn + kBwdThreads - 1) /
-                                         kBwdThreads),
-                   kBwdThreads, 0, g.stream>>>(
-      agg, part, static_cast<float*>(g.da), static_cast<float*>(g.dc),
-      static_cast<float*>(g.db), din, bsn, g.B * nk, n_cb);
+  double* ckpt = g.work;
+  double* dap = ckpt + (nt > 2 ? nt - 2 : 0) * g.B * din;
+  double* part = dap + g.B * din;
+  grad<<<dim3(n_cb, g.B), kBwdThreads, kBytes, g.stream>>>(
+      static_cast<const T*>(g.dt), static_cast<const T*>(g.x),
+      static_cast<const float*>(g.a), static_cast<const float*>(g.b),
+      static_cast<const float*>(g.c), static_cast<const float*>(g.h0),
+      static_cast<const T*>(g.gy), static_cast<const float*>(g.ghf),
+      static_cast<T*>(g.ddt), static_cast<T*>(g.dx),
+      static_cast<float*>(g.dh0), ckpt, dap, part, g.S, g.di);
+  ssm_bwd_reduce<<<static_cast<unsigned>((din + 255) / 256 +
+                                         (bsn + 31) / 32),
+                   256, 0, g.stream>>>(
+      dap, part, static_cast<float*>(g.da), static_cast<float*>(g.db),
+      static_cast<float*>(g.dc), din, bsn, g.B, n_cb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -803,12 +970,14 @@ int dispatch_bwd(int N, const BwdArgs& g) {
 
 }  // namespace
 
-// Doubles of scratch ssm_scan_bwd_launch needs: the chunk aggregates
-// (3 * B * ceil(S / 16) * di * N) and the d b / d c partials of the
-// channel blocks (2 * n_cb * B * S * N).
+// Doubles of scratch ssm_scan_bwd_launch needs: the states kept at tile
+// starts (B * (ceil(S / 8) - 2) * di * N), d a per batch row (B * di * N)
+// and the d b / d c partials of the channel blocks (2 * n_cb * B * S * N).
 extern "C" long long ssm_scan_bwd_scratch(int B, int S, int di, int N) {
   if (B < 1 || S < 1 || di < 1 || N < 1 || N > 32) return -1;
-  return 3LL * B * bwd_chunks(S) * di * N +
+  const long long nt = bwd_tiles(S);
+  const long long din = static_cast<long long>(di) * N;
+  return ((nt > 2 ? nt - 2 : 0) + 1) * B * din +
          2LL * bwd_channel_blocks(di, N) * B * S * N;
 }
 
@@ -816,8 +985,8 @@ extern "C" long long ssm_scan_bwd_scratch(int B, int S, int di, int N) {
 // cotangents gy (B, S, di) in dt's dtype and ghf (B, di, N) float32;
 // either may be null (zero).  Writes ddt, dx (dt's dtype) and da, db,
 // dc, dh0 (float32); `work` holds ssm_scan_bwd_scratch(...) doubles.
-// dtype: 0 = float32, 1 = bfloat16.  Four launches, no atomics: the
-// same inputs give the same bits.
+// dtype: 0 = float32, 1 = bfloat16.  Two launches, no atomics: the same
+// inputs give the same bits.
 extern "C" int ssm_scan_bwd_launch(const void* dt, const void* x,
                                    const void* a, const void* b,
                                    const void* c, const void* h0,
@@ -826,8 +995,7 @@ extern "C" int ssm_scan_bwd_launch(const void* dt, const void* x,
                                    void* dc, void* dh0, void* work,
                                    int dtype, int B, int S, int di, int N,
                                    void* stream) {
-  if (B < 1 || S < 1 || di < 1 || work == nullptr ||
-      bwd_chunks(S) > 65535 || B > 65535)
+  if (B < 1 || S < 1 || di < 1 || work == nullptr || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs g{dt, x, a, b, c, h0, gy, ghf, ddt, dx, da, db, dc, dh0,
             static_cast<double*>(work), B, S, di,

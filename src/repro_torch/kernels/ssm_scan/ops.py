@@ -17,7 +17,10 @@ dispatch mode sees (``analysis/cost.py`` prices it).
   ``ref.ssm_scan_bwd_plain`` (float64, as the kernel computes),
   operator ``repro_torch::ssm_scan_bwd``.  ``repro`` has no backward
   kernel: XLA differentiates its chunked scan.  ``BWD_LAUNCHES`` counts
-  calls that launched the backward kernel (four CUDA launches a call).
+  calls that launched the backward kernel (two CUDA launches a call: the
+  gradient kernel, which walks each chain in 8-step tiles, and the sum of
+  its per-block d a, d b and d c in a fixed order);
+  ``ref.ssm_scan_bwd_tiled_ref`` mirrors its algorithm for the tests.
 
 :class:`SSMScan` is the scan with a gradient: the kernel forward and the
 kernel backward on a CUDA tensor, the plain versions on the CPU or with

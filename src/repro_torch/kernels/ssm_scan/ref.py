@@ -11,9 +11,14 @@
   ``ops.SSMScan``.  ``repro`` has no backward kernel: it differentiates
   its chunked scan (``associative_scan`` per chunk inside ``lax.scan``)
   through XLA, and this is a plain-torch port of that gradient.
+* :func:`ssm_scan_bwd_tiled_ref` — the Hopper backward kernel's
+  algorithm and its float64 exponential :func:`exp_f64` in plain torch
+  (the tests hold it against the plain gradient and ``jax.grad``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -178,5 +183,90 @@ def ssm_scan_bwd_plain(dt, x, a, b, c, h0, gy, ghf):
     return tuple(t.to(want) for t, want in zip(grads, dtypes))
 
 
+# the backward kernel's time tile: a chain's state is kept at every tile
+# start, and a tile's factors and states are rescanned into registers
+BWD_TILE = 8
+_LN2 = math.log(2.0)
+# 2^(i/16), i = 0..15: the float64 exponential's table
+EXP_TABLE = [2.0 ** (i / 16) for i in range(16)]
+EXP_DEGREE = 4     # the degree of its polynomial
+
+
+def exp_f64(x, degree: int = EXP_DEGREE):
+    """The backward kernel's float64 exponential: ``x = j ln2 / 16 + r``
+    with j the nearest integer and ``|r| <= ln2 / 32``, ``exp(x) =
+    2^(j >> 4) * 2^((j & 15) / 16) * p(r)`` with ``p`` exp's Taylor
+    polynomial of ``degree`` (the kernel's 4: a relative error below
+    4.1e-11).  Where ``|x|`` is not below 700 (and for NaN) it is
+    ``torch.exp``, as the kernel falls back to libdevice's ``exp``
+    there."""
+    j = torch.round(x * (16.0 / _LN2))
+    r = x - j * (_LN2 / 16.0)
+    p = torch.full_like(r, 1.0 / math.factorial(degree))
+    for k in range(degree - 1, -1, -1):
+        p = p * r + 1.0 / math.factorial(k)
+    ok = x.abs() < 700.0
+    ji = torch.where(ok, j, torch.zeros_like(j)).to(torch.int64)
+    table = torch.tensor(EXP_TABLE, dtype=torch.float64, device=x.device)
+    y = torch.ldexp(table[ji & 15] * p, (ji >> 4).to(torch.float64))
+    return torch.where(ok, y, torch.exp(x))
+
+
+def ssm_scan_bwd_tiled_ref(dt, x, a, b, c, h0, gy, ghf):
+    """The backward kernel's algorithm in plain torch, for the tests: the
+    same gradients as :func:`ssm_scan_bwd_plain`, each in its input's
+    dtype.  Each (row, channel, state) chain is walked in time by one
+    thread, ``BWD_TILE`` steps at a time.  A forward sweep keeps the state
+    at every tile start; then, from the last tile to the first, a tile's
+    factors ``f_t = exp(dt_t a)`` (the kernel's :func:`exp_f64`) and
+    products ``f_t h_{t-1}`` are rescanned from its start state (the
+    terms of d c on the way), and the cotangent ``g`` walks back through
+    it from the one the tile after it sent.  d a is summed per batch row,
+    then over rows.  Everything runs in float64."""
+    dtypes = [t.dtype for t in (dt, x, a, b, c, h0)]
+    f64 = torch.float64
+    dt, x, a, b, c, h0 = (t.to(f64) for t in (dt, x, a, b, c, h0))
+    bsz, s, di = dt.shape
+    gy = torch.zeros_like(dt) if gy is None else gy.to(f64)
+    g = torch.zeros_like(h0) if ghf is None else ghf.to(f64)
+    dtx = dt * x
+    tile = BWD_TILE
+    n_tiles = -(-s // tile)
+
+    def step(h, t):
+        f = exp_f64(dt[:, t, :, None] * a)
+        fh = f * h
+        return f, fh, fh + dtx[:, t, :, None] * b[:, t, None, :]
+
+    starts, h = [h0], h0
+    for t in range((n_tiles - 1) * tile):       # the forward sweep
+        h = step(h, t)[2]
+        if (t + 1) % tile == 0:
+            starts.append(h)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros((bsz,) + a.shape, dtype=f64)
+    for k in reversed(range(n_tiles)):
+        lo, hi = k * tile, min(s, (k + 1) * tile)
+        h, kept = starts[k], []
+        for t in range(lo, hi):                 # the rescan
+            f, fh, h = step(h, t)
+            kept.append((f, fh))
+            dc[:, t] = torch.einsum("bdn,bd->bn", h, gy[:, t])
+        for t in reversed(range(lo, hi)):       # the walk back
+            f, fh = kept[t - lo]
+            g = g + gy[:, t, :, None] * c[:, t, None, :]
+            gf = g * fh
+            s_dt = (gf * a).sum(-1)
+            s_u = (g * b[:, t, None, :]).sum(-1)
+            ddt[:, t] = s_dt + x[:, t] * s_u
+            dx[:, t] = dt[:, t] * s_u
+            da += gf * dt[:, t, :, None]
+            db[:, t] = torch.einsum("bdn,bd->bn", g, dtx[:, t])
+            g = f * g
+    grads = (ddt, dx, da.sum(0), db, dc, g)
+    return tuple(t.to(want) for t, want in zip(grads, dtypes))
+
+
 __all__ = ["ssm_scan_ref", "ssm_scan_chunked_ref", "ssm_scan_bwd_plain",
-           "BWD_CHUNK"]
+           "ssm_scan_bwd_tiled_ref", "exp_f64", "BWD_CHUNK", "BWD_TILE"]

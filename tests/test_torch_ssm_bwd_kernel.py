@@ -188,12 +188,21 @@ def test_check_names_a_wrong_cotangent():
                        .contiguous().transpose(1, 2), None)
 
 
-# (shape, dtype, which cotangents, mamba's own dt and A)
+# (shape, dtype, which cotangents, mamba's own dt and A); the kernel's
+# edges: one step, one step past a whole number of its 8-step tiles, four
+# batch rows, ragged channel blocks, every state size
 CARD_CASES = [((2, 37, 200, 16), torch.float32, "both", False),
               ((1, 300, 256, 16), torch.float32, "both", True),
               ((2, 64, 96, 1), torch.float32, "gy", False),
               ((1, 40, 64, 32), torch.float32, "ghf", False),
-              ((2, 33, 128, 4), torch.bfloat16, "both", False)]
+              ((2, 33, 128, 4), torch.bfloat16, "both", False),
+              ((1, 1, 96, 16), torch.float32, "both", False),
+              ((2, 257, 200, 16), torch.float32, "both", True),
+              ((4, 40, 160, 16), torch.float32, "both", True),
+              ((2, 45, 300, 1), torch.bfloat16, "both", False),
+              ((1, 41, 50, 32), torch.bfloat16, "both", False),
+              ((2, 25, 72, 2), torch.float32, "ghf", False),
+              ((1, 30, 100, 8), torch.bfloat16, "gy", True)]
 
 
 def _card_inputs(shape, dtype, long_memory, seed):
@@ -246,4 +255,21 @@ def test_function_launches_both_kernels_on_card():
     assert (ops.LAUNCHES - n0, ops.BWD_LAUNCHES - b0) == (1, 1)
     want = sref.ssm_scan_bwd_plain(*t, gy, ghf)
     for name, g, w in zip(NAMES, got, want):
+        _assert_close(g.cpu().numpy(), w.cpu().numpy(), name)
+
+
+@pytest.mark.cuda
+def test_kernel_far_range_on_card():
+    """Tiles where |dt a| reaches 700 take libdevice's exp: dt of 750 and
+    2,000 at a few steps and channels (the factor underflows to 0 there),
+    held against the plain version at the same bound, bits equal twice."""
+    t, gy, ghf = _card_inputs((2, 41, 100, 16), torch.float32, False, seed=5)
+    t[0][:, 17, :5] = 750.0
+    t[0][1, 30, 3] = 2000.0
+    got = ops.ssm_scan_bwd(*t, gy, ghf)
+    again = ops.ssm_scan_bwd(*t, gy, ghf)
+    want = sref.ssm_scan_bwd_plain(*t, gy, ghf)
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(NAMES, got, again, want):
+        assert np.array_equal(bits(g), bits(g2)), name
         _assert_close(g.cpu().numpy(), w.cpu().numpy(), name)

@@ -2,13 +2,23 @@
 """Time the port's kernels of several checkouts on one card.
 
     python3 tools/kernel_ab.py ROOT [ROOT ...] [--out results.json]
+        [--edits cuts.json] [--backward-only]
 
 Each ROOT is a checkout of this repository (its ``src/`` holds
 ``repro_torch``).  The roots run one after another, each in a fresh
 process that builds its own kernels into ``ROOT/build/kernels``, so two
 commits are compared on the same card in one call; give them in turns
-(parent, change, change, parent).  For each root it prints, and writes
-to ``--out``, at the main path's shapes:
+(parent, change, change, parent).  ``ROOT@LABEL`` times a scratch copy
+of ROOT's ``src/`` with one edit of ``--edits`` applied (a JSON object:
+label -> {"source": path under ``src/repro_torch``, "old": text found
+there exactly once, "new": its replacement}), so that cut-down copies of
+a kernel are timed beside the kernel itself in one call; for example
+``{"no_exp": {"source": "kernels/ssm_scan/csrc/ssm_scan.cu", "old":
+"fr[i][s] = exp_bwd<kFar>(dtv * an[s], sm.table);", "new": "fr[i][s] =
+1.0 + dtv * an[s];"}}`` times ``ROOT@no_exp``, the backward's gradient
+kernel with its rescan's factors cut to 1 + dt a.  A root that fails
+is reported and the rest run.  For each root it prints, and writes to
+``--out``, at the main path's shapes:
 
 * bounce (``mediated_cost`` with cord's 400 ns syscall delay, copies 0)
   and ``torch.clone`` on the 1.21 GB gemma3-1b f32 table, a bf16
@@ -19,7 +29,8 @@ to ``--out``, at the main path's shapes:
   S = 300 and 2048 and the 4-slot decode tick: event ms, device ms, and
   host us per call at decode;
 * the backward kernels at the train shapes: ``ssm_scan_bwd`` at a rank's
-  hymba-1.5b 2 x 256 (mamba's dt and A, f32) and ``flash_attention_bwd``
+  hymba-1.5b 2 x 256 (mamba's dt and A; f32 and bf16 dt/x) and at the
+  GSPMD step's 4 x 256 (f32), and ``flash_attention_bwd``
   (bf16) at gemma3-1b's B=2, 4 and 1 S=256 window 512 (the explicit-DP,
   GSPMD and launcher steps), hymba-1.5b's 25 over 5
   heads, D 64, window 1024, whisper-small's encoder (1 x 1,500, 12
@@ -38,8 +49,10 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -127,22 +140,28 @@ def _backward(gen, dev) -> dict:
     from repro_torch.kernels.ssm_scan import ops as ssm
 
     rows = {}
-    if hasattr(ssm, "ssm_scan_bwd"):
-        bsz, s, di, n = 2, 256, 3200, 16
+    # label: (B, S, di, N, dt/x dtype); a rank's explicit-DP shape, the
+    # GSPMD step's, and the first in bf16
+    for label, (bsz, s, di, n, dtype) in (
+            ("ssm_scan_bwd_2x256", (2, 256, 3200, 16, torch.float32)),
+            ("ssm_scan_bwd_4x256", (4, 256, 3200, 16, torch.float32)),
+            ("ssm_scan_bwd_2x256_bf16", (2, 256, 3200, 16, torch.bfloat16))):
+        if not hasattr(ssm, "ssm_scan_bwd"):
+            rows[label] = "absent"
+            continue
         u = torch.rand(bsz, s, di, generator=gen, device=dev)
         rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa
-        args = (torch.exp(math.log(1e-3) + u * math.log(100.0)),
-                rnd(bsz, s, di), -torch.arange(1, n + 1, dtype=torch.float32,
-                                               device=dev).expand(di, n)
-                .contiguous(), rnd(bsz, s, n), rnd(bsz, s, n),
-                rnd(bsz, di, n), rnd(bsz, s, di), rnd(bsz, di, n))
+        args = (torch.exp(math.log(1e-3) + u * math.log(100.0)).to(dtype),
+                rnd(bsz, s, di).to(dtype),
+                -torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+                .expand(di, n).contiguous(), rnd(bsz, s, n), rnd(bsz, s, n),
+                rnd(bsz, di, n), rnd(bsz, s, di).to(dtype), rnd(bsz, di, n))
         call = lambda: ssm.ssm_scan_bwd(*args)  # noqa: E731
-        rows["ssm_scan_bwd_2x256"] = {"ms": _cuda_ms(call, n=20),
-                                      "device_ms": _device_ms(call),
-                                      "host_us": _host_us(call, n=100),
-                                      "kernel_us": _by_kernel(call)}
-    else:
-        rows["ssm_scan_bwd_2x256"] = "absent"
+        rows[label] = {"ms": _cuda_ms(call, n=20),
+                       "device_ms": _device_ms(call),
+                       "host_us": _host_us(call, n=100),
+                       "kernel_us": _by_kernel(call)}
+        del args
     # label: (B, Sq, Skv, H, KVH, D, causal, window, logit_cap)
     for label, (b, sq, skv, h, kvh, d, causal, window, cap) in (
             ("flash_bwd_gemma3_w512", (2, 256, 256, 4, 1, 256, True, 512,
@@ -178,12 +197,33 @@ def _backward(gen, dev) -> dict:
     return rows
 
 
+def _edited(root: str, edits: dict, tmp: pathlib.Path) -> pathlib.Path:
+    """A scratch copy of ``root``'s ``src/`` (for ``root@label``) with the
+    edit ``label`` applied; raises unless its text is there exactly once."""
+    base, label = root.rsplit("@", 1)
+    if label not in edits:
+        raise SystemExit(f"no edit {label!r} in --edits; known: "
+                         f"{sorted(edits)}")
+    edit = edits[label]
+    shutil.copytree(pathlib.Path(base).resolve() / "src", tmp / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = tmp / "src" / "repro_torch" / edit["source"]
+    text = path.read_text()
+    if text.count(edit["old"]) != 1:
+        raise SystemExit(f"{label}: the text to replace is not in "
+                         f"{edit['source']} exactly once")
+    path.write_text(text.replace(edit["old"], edit["new"]))
+    return tmp
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--out", default="")
     ap.add_argument("--backward-only", action="store_true",
                     help="time the backward kernels alone")
+    ap.add_argument("--edits", default="",
+                    help="JSON file of the edits that ROOT@LABEL applies")
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -199,17 +239,24 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    runs = []
+    edits = json.loads(pathlib.Path(args.edits).read_text()) \
+        if args.edits else {}
+    flags = ["--backward-only"] if args.backward_only else []
+    runs, failed = [], False
     for root in args.roots:
-        r = subprocess.run([sys.executable, __file__, "--worker",
-                            str(pathlib.Path(root).resolve())]
-                           + (["--backward-only"] if args.backward_only
-                              else []),
-                           capture_output=True, text=True, timeout=1200)
-        if r.returncode != 0:
-            print(r.stderr[-3000:], file=sys.stderr)
-            return 1
+        with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+            path = _edited(root, edits, pathlib.Path(tmp)) \
+                if "@" in root else pathlib.Path(root).resolve()
+            r = subprocess.run([sys.executable, __file__, "--worker",
+                                str(path)] + flags,
+                               capture_output=True, text=True, timeout=1200)
+        if r.returncode != 0:        # reported, and the next root runs
+            print(f"{root}: failed\n{r.stderr[-3000:]}", flush=True)
+            runs.append({"root": root, "error": r.stderr[-3000:]})
+            failed = True
+            continue
         res = json.loads(r.stdout.strip().splitlines()[-1])
+        res["root"] = root
         runs.append(res)
         b, s = res["bounce"], res["ssm_scan"]
         print(f"{root}:" + (f" slope {res['ns_per_iter']:.4f} ns/iter"
@@ -230,7 +277,7 @@ def main(argv=None) -> int:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -71,6 +71,17 @@ FAULTS = {
     "ssm_decay_one_step_short": (
         _SSM, "dec[n] *= f;", "if (t0 + i < len - 1) dec[n] *= f;",
         "phase_ssm"),
+    # the scan backward rescans tiles 1 .. T-2 from 0, not their kept state
+    "ssm_bwd_kept_state_dropped": (
+        _SSM, "                           : ckpt[(static_cast<size_t>(bi) * "
+        "(nt - 2) + k - 2) *",
+        "                           : 0.0 * ckpt[(static_cast<size_t>(bi) * "
+        "(nt - 2) + k - 2) *", "phase_ssm"),
+    # the scan backward's d a leaves out the last batch row
+    "ssm_bwd_da_drops_a_row": (
+        _SSM, "for (int r = 0; r < B; ++r) s += dap[r * din + idx];",
+        "for (int r = 0; r < B - 1; ++r) s += dap[r * din + idx];",
+        "phase_ssm"),
     # each block skips its last turn of the grid-stride walk over tiles
     "bounce_grid_stride_skip": (
         _BOUNCE, "(p.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x",
