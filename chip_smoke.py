@@ -330,6 +330,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+# float32 accuracy on the tensor cores: three TF32 products (495 TFLOP/s
+# dense) for each f32 product, the f32 flash kernels' scheme
+F32_TF32X3_FLOPS = 495e12 / 3
 F64_FLOPS = 34e12               # H100 SXM float64 outside the tensor cores
 # bf16 flash kernel vs plain: one bf16 ulp of an output below 2 (2^-7)
 # plus the rounding of P to bf16
@@ -673,7 +676,7 @@ def phase_flash() -> dict:
     cases += [gemma + (512, 100, None, 0.0), gemma + (1, 0, None, 0.0),
               gemma + (512, 0, 0, 0.0), gemma + (512, 0, 130, 0.0)]
     # the other head dims the wrapper takes in bf16 (16 and 32 padded to
-    # 64), and the f32 CUDA-core path
+    # 64), and the f32 path (three TF32 products for each f32 one)
     # phase 9's prefills: grok-1 (D 128, a GQA group of 6, soft cap 30) at
     # a 256-token bucket and the 1,100-token prompt, llava-next (a group
     # of 7) over its 2,880-patch prefix and 256 text tokens
@@ -718,7 +721,7 @@ def phase_flash() -> dict:
         vl = s if valid is None else valid
         flops = 4 * d * H * B * attention_pairs(s, s, True, window, vl)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_TF32X3_FLOPS
         t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
         ms = _cuda_ms(call, n=20)
@@ -786,7 +789,8 @@ def _flash_bwd_case(gen, q, k, v, o, lse, *, causal: bool, window: int,
     FLASH_BWD_F32_TOL x max(1, |plain|), bf16 at cosine > FLASH_BWD_BF16_COS
     and within FLASH_BWD_BF16_REL x max |plain|; two calls bit for bit; its
     time (CUDA events, profiler device time, host us a call) against its
-    bound (``analysis/cost.flash_bwd_cost`` at the dtype's peak), its plain
+    bound (``analysis/cost.flash_bwd_cost`` at bf16's peak, or in f32 at
+    F32_TF32X3_FLOPS, f32 accuracy on the tensor cores), its plain
     version and ATen's backward where that computes the same gradients
     (no soft cap): its flash attention backward in bf16 where the window
     does not bind, its efficient attention backward in f32, a binding
@@ -882,7 +886,7 @@ def _flash_bwd_case(gen, q, k, v, o, lse, *, causal: bool, window: int,
     flops, nbytes = flash_bwd_cost(tuple(q.shape), skv, kvh,
                                    q.element_size(), causal=causal,
                                    window=window)
-    peak = BF16_FLOPS if bf16 else F32_FLOPS
+    peak = BF16_FLOPS if bf16 else F32_TF32X3_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     row = {"batch": b, "sq": sq, "skv": skv, "h": h, "kvh": kvh, "d": d,
            "dtype": str(q.dtype).replace("torch.", ""), "causal": causal,
@@ -4709,10 +4713,10 @@ def _flash_path_case(gen, b: int, s: int, heads, dtype, window: int,
     D), dtype, window), with or without its lse, against its plain
     version: bf16 output within FLASH_BF16_TOL, f32 within 2e-5, the lse
     within LSE_TOL x max(1, |lse|); its time against its bound
-    (``analysis/cost.flash_cost`` at the dtype's peak), its plain version
-    and one library call (SDPA with the mask; with an lse, ATen's flash
-    attention in bf16 with no window, else its efficient attention, with
-    the window as a bias)."""
+    (``analysis/cost.flash_cost`` at bf16's peak, or in f32 at
+    F32_TF32X3_FLOPS), its plain version and one library call (SDPA with
+    the mask; with an lse, ATen's flash attention in bf16 with no window,
+    else its efficient attention, with the window as a bias)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.analysis.cost import flash_cost
@@ -4768,7 +4772,7 @@ def _flash_path_case(gen, b: int, s: int, heads, dtype, window: int,
                                       bias is None), n=20)
     flops, nbytes = flash_cost((b, s, h, d), s, kvh, q.element_size(),
                                window=window, lse=lse)
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_TF32X3_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     row = {"batch": b, "s": s, "h": h, "kvh": kvh, "d": d,
            "dtype": str(dtype), "window": window, "lse": lse,

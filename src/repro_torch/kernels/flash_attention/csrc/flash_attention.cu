@@ -76,8 +76,12 @@
 //   be meaningless.  With a null pointer nothing more is done.
 // Every mbarrier wait traps after 2 s instead of hanging the card.
 //
-// f32 inputs (the smoke configs) take the CUDA-core kernel further down,
-// any D in {16, 32, 64, 128, 256}.
+// f32 inputs (the smoke configs), any D in {16, 32, 64, 128, 256}, take
+// the f32 kernel further down: the same masks, skips, online softmax and
+// lse, with both products on the tensor cores as mma.sync at about f32
+// accuracy, three TF32 products for each f32 one.  What bounds it at
+// train_lm's rank shape (B=2 S=256, 8 over 4 heads, D=64: 0.13 GFLOP,
+// 3.1 MB) is latency again: a 64-row block walks at most 4 kv tiles.
 //
 // The backward (`flash_attention_bwd_launch`, behind
 // `ops.flash_attention_bwd` and `FlashAttention.backward`).  It replaces
@@ -146,11 +150,13 @@
 //   contiguous runs, one block each, whose f32 partials a sum kernel adds
 //   in order (`bwd_plan` picks the runs from the shape and the SM
 //   count).  So two calls give the same bits.
-// The f32 path (the smoke configs, any D of 16-256) stays on CUDA cores,
-// as the forward's f32 path does (TF32 would not hold its 2e-5 gate):
-// 256 threads a block as a 16 x 16 grid, each with a micro-tile of every
-// product in registers, tiles of 64 x 64 (32 x 32 at D = 256) in shared
-// memory with odd row strides, the same two passes and plan.
+// The f32 path (the smoke configs, any D of 16-256): the same two passes
+// and plan, tiles of 64 x 64 (32 x 32 at D = 256), a warp a 16-row band
+// of the resident tile, and all five products on the tensor cores as
+// mma.sync with three TF32 products for each f32 one (one TF32 product
+// would miss the 2e-5 gates by two orders of magnitude).  The streamed
+// tiles are double-buffered with cp.async; P^T and dS^T enter their
+// products straight from the accumulators.
 //
 // C interface: flash_attention_launch and flash_attention_bwd_launch
 // return 0, a cudaError_t, or (the forward) kErrTensorMap below.
@@ -332,17 +338,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // The online-softmax step on one tile's scores.  Thread layout of the
-// m64n64 accumulator: s[4i + {0,1}] is row ra, columns 8i + 2c + {0,1};
-// s[4i + {2,3}] is row ra + 8.  On return s holds p (f32), m/l are
-// updated, and corr_a/corr_b rescale this thread's rows of O.
-template <bool kMask>
+// m64n64 accumulator (and of mma.sync's m16n8 tiles side by side):
+// s[4i + {0,1}] is row ra, columns 8i + 2c + {0,1}; s[4i + {2,3}] is row
+// ra + 8.  On return s holds p (f32), m/l are updated, and corr_a/corr_b
+// rescale this thread's rows of O.
+template <bool kMask, int N>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[32], float& m_a, float& m_b, float& l_a, float& l_b,
+    float (&s)[N], float& m_a, float& m_b, float& l_a, float& l_b,
     float& corr_a, float& corr_b, float scale_log2, float cap,
     float cap_scale, int qa, int k0, int c, int kv_end, int causal,
     int window) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < N; ++e) {
     s[e] = cap > 0.f ? cap * kLog2e * tanhf(s[e] * cap_scale)
                      : s[e] * scale_log2;
   }
@@ -350,7 +357,7 @@ __device__ __forceinline__ void softmax_tile(
   if constexpr (kMask) {
     ok = 0u;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < N; ++e) {
       const int kpos = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
       const int qpos = qa + ((e & 2) ? 8 : 0);
       bool valid = kpos < kv_end;
@@ -362,7 +369,7 @@ __device__ __forceinline__ void softmax_tile(
   }
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < N; ++e) {
     if (e & 2) mx_b = fmaxf(mx_b, s[e]);
     else mx_a = fmaxf(mx_a, s[e]);
   }
@@ -378,7 +385,7 @@ __device__ __forceinline__ void softmax_tile(
   m_b = new_b;
   float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < N; ++e) {
     float p = exp2f(s[e] - ((e & 2) ? new_b : new_a));
     if constexpr (kMask) p = ((ok >> e) & 1u) ? p : 0.f;
     s[e] = p;
@@ -715,186 +722,379 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// f32 path: CUDA cores, Q/K/V/S/P/O tiles in shared memory
+// f32 path: three TF32 tensor-core products for each f32 product
 // ---------------------------------------------------------------------------
+//
+// Every product of the f32 forward and backward runs on the tensor cores
+// as mma.sync m16n8k8 with TF32 operands.  Each f32 operand x is split
+// into hi = tf32(x) and lo = tf32(x - hi) (to nearest, ties away from
+// zero, as cvt.rna rounds), and a k-step of 8 sums lo.hi, hi.lo and
+// hi.hi, the small terms first, into fresh registers, which the CUDA
+// cores then add to the f32 accumulator.  A product of two TF32 values is
+// exact in f32; the dropped lo.lo and lo's own rounding cost about 2^-22
+// of a term.  The k-steps are added outside the tensor core because its
+// sums may truncate: the CPU mirror (tools/flash_f32_precision.py),
+// which assumes they do, holds every f32 gate this way and misses them at
+// train_lm's shape with the three products chained through one
+// accumulator.  The operands come from shared memory with plain 32-bit
+// loads, rows D + 4 floats apart, so every fragment load of a warp hits
+// 32 banks.
 
-constexpr int kF32Threads = 128;   // 4 warps
-constexpr int kF32Warps = kF32Threads / 32;
-
-__host__ __device__ constexpr int round128(int bytes) {
-  return (bytes + 127) / 128 * 128;
-}
-
-template <int D>
-struct F32Layout {
-  static constexpr int BQ = 32, BK = 32;
-  static constexpr int LDT = D + 4;    // Q/K/V rows
-  static constexpr int LDS = BK + 4;   // scores
-  static constexpr int LDP = BK + 4;   // P rows
-  static constexpr int LDO = D + 4;    // output
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + round128(BQ * LDT * 4);
-  static constexpr int V_OFF = K_OFF + round128(BK * LDT * 4);
-  static constexpr int S_OFF = V_OFF + round128(BK * LDT * 4);
-  static constexpr int P_OFF = S_OFF + round128(BQ * LDS * 4);
-  static constexpr int O_OFF = P_OFF + round128(BQ * LDP * 4);
-  static constexpr int M_OFF = O_OFF + round128(BQ * LDO * 4);
-  static constexpr int L_OFF = M_OFF + round128(BQ * 4);
-  static constexpr int BYTES = L_OFF + round128(BQ * 4);
+// Fragments of mma.sync m16n8k8 .tf32, each as its hi and lo parts.
+// Thread (g, t) = (lane / 4, lane % 4) holds A (16 x 8) rows g and g + 8
+// at columns t and t + 4, B (8 x 8) rows t and t + 4 at column g, and the
+// f32 accumulator (16 x 8) rows g and g + 8 at columns 2t and 2t + 1.
+struct TfA {
+  uint32_t hi[4], lo[4];
+};
+struct TfB {
+  uint32_t hi[2], lo[2];
 };
 
-// Copy `rows` rows of D floats (row r at src + r * src_stride) into
-// shared memory with row stride LDT, zero-filling rows >= valid_rows.
-template <int D, int LDT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long src_stride, int rows,
-                                          int valid_rows) {
-  constexpr int kVec = D / 4;   // uint4 per row
-  for (int i = threadIdx.x; i < rows * kVec; i += kF32Threads) {
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero): half an ulp added to the magnitude, the 13 low bits
+// cleared.  Two integer operations where cvt.rna, which also checks for
+// Inf and NaN (attention's operands are finite), takes four.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi + lo, two TF32 values: hi = tf32(x), lo = tf32(x - hi) (x - hi
+// is exact in f32).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ TfA tf_a(float a0, float a1, float a2,
+                                    float a3) {
+  TfA f;
+  tf32_split(a0, f.hi[0], f.lo[0]);
+  tf32_split(a1, f.hi[1], f.lo[1]);
+  tf32_split(a2, f.hi[2], f.lo[2]);
+  tf32_split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ TfB tf_b(float b0, float b1) {
+  TfB f;
+  tf32_split(b0, f.hi[0], f.lo[0]);
+  tf32_split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// d (16 x 8 f32) += a . b, one TF32 product on the tensor cores
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b at about f32 accuracy: lo.hi, hi.lo and hi.hi into fresh
+// registers, then added to d on the CUDA cores.
+__device__ __forceinline__ void mma3(float* d, const TfA& a, const TfB& b) {
+  float x[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(x, a.lo, b.hi);
+  mma_tf32(x, a.hi, b.lo);
+  mma_tf32(x, a.hi, b.hi);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) d[u] += x[u];
+}
+
+// The A fragment at rows r0.. and columns k0.. of a row-major tile.
+__device__ __forceinline__ TfA frag_a(const float* s, int ld, int r0, int k0,
+                                      int g, int t) {
+  const float* p = s + (r0 + g) * ld + k0 + t;
+  return tf_a(p[0], p[8 * ld], p[4], p[8 * ld + 4]);
+}
+
+// The B fragment B(k, n) = T[n0 + n][k0 + k]: a tile whose rows are B's
+// columns (K in Q.K^T).
+__device__ __forceinline__ TfB frag_bt(const float* s, int ld, int n0, int k0,
+                                       int g, int t) {
+  const float* p = s + (n0 + g) * ld + k0 + t;
+  return tf_b(p[0], p[4]);
+}
+
+// A 16 x 8 accumulator tile as the A fragment over its 8 columns.  The
+// accumulator holds columns 2t and 2t + 1 where the fragment wants t and
+// t + 4, and a product sums over k in any order, so k = t and t + 4 stand
+// for columns 2t and 2t + 1: the accumulator becomes the fragment with no
+// shuffle.  frag_bp reads B's rows in the same order.
+__device__ __forceinline__ TfA frag_acc(const float* c) {
+  return tf_a(c[0], c[2], c[1], c[3]);
+}
+
+// The B fragment B(k, n) = T[k0 + k][n0 + n] with its k permuted as
+// frag_acc's: fragment rows t and t + 4 are tile rows 2t and 2t + 1.
+__device__ __forceinline__ TfB frag_bp(const float* s, int ld, int k0, int n0,
+                                       int g, int t) {
+  const float* p = s + (k0 + 2 * t) * ld + n0 + g;
+  return tf_b(p[0], p[ld]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>   // until at most N committed groups are in flight
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) of head hd of a (B, S, NH, D) f32 tensor into dst,
+// rows D + 4 floats apart, with cp.async by NT threads; rows at or past S
+// are zero-filled (nothing is read for them).
+template <int D, int R, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int b, int r0, int S, int NH,
+                                           int hd) {
+  constexpr int kVec = D / 4;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < R * kVec; i += NT) {
     const int r = i / kVec, c = i % kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows) {
-      val = reinterpret_cast<const uint4*>(src + r * src_stride)[c];
-    }
-    reinterpret_cast<uint4*>(dst + r * LDT)[c] = val;
+    const bool in = r0 + r < S;
+    const float* at =
+        in ? src + ((static_cast<long long>(b) * S + r0 + r) * NH + hd) * D +
+                 4 * c
+           : src;
+    cp_async16(dst + r * (D + 4) + 4 * c, at, in);
   }
 }
 
+// The lse and delta of rows [r0, r0 + R) of head h, (B, H, Sq) each, into
+// dst[0, R) and dst[R, 2R) with cp.async by NT threads; rows past Sq
+// read 0.
+template <int R, int NT>
+__device__ __forceinline__ void stage_lse(float* dst, const float* lse,
+                                          const float* delta, int b, int h,
+                                          int H, int r0, int Sq) {
+  for (int i = threadIdx.x; i < 2 * R; i += NT) {
+    const int r = i % R;
+    const bool in = r0 + r < Sq;
+    const float* src = i < R ? lse : delta;
+    cp_async4(dst + i,
+              in ? src + (static_cast<long long>(b) * H + h) * Sq + r0 + r
+                 : src,
+              in);
+  }
+}
+
+constexpr int kF32Warps = 8;
+constexpr int kF32Threads = 32 * kF32Warps;
+
+// The f32 forward's tiles and shared memory (floats): Q of the block's
+// BQ rows, then two stages of K and V tiles of BK rows.  Two warps share
+// each 16-row band of Q, one for each half of a tile's keys; at the end
+// the halves' softmax state and O meet in XCH floats over the K/V stages.
+template <int D>
+struct F32Fwd {
+  static constexpr int BQ = 64;
+  static constexpr int BK = D >= 128 ? 32 : 64;
+  static constexpr int LD = D + 4;
+  static constexpr int K_OFF = BQ * LD;
+  static constexpr int V_OFF = K_OFF + 2 * BK * LD;
+  static constexpr int BYTES = (V_OFF + 2 * BK * LD) * 4;
+  static constexpr int XCH = (4 + D / 2) * kF32Threads / 2;
+  static_assert(XCH <= 4 * BK * LD, "the halves' exchange fits");
+};
+
+// One block per (64-row q tile, head, batch), heaviest causal tile first.
+// Its eight warps take the tile's four 16-row bands twice: warp w and
+// w + 4 own the same rows, w the first half of every K/V tile's keys and
+// w + 4 the second, each with its own online softmax; the two merge at
+// the end.  So a block runs eight chains of dependent products, not four,
+// and each chain is half as long.  K/V tiles are double-buffered with
+// cp.async, so tile j + 1's copy runs under tile j's products.  S = Q K^T
+// and O += P V are three-TF32-product mma.sync; S, O and the softmax
+// state stay in registers (the bf16 path's online softmax, softmax_tile,
+// on the same accumulator layout), P goes from S's accumulator into P V's
+// A fragment with no shuffle, and a warp skips a half tile that none of
+// its rows sees.  Whole tiles are skipped past valid_len, above the
+// causal diagonal and left of the window, as on the bf16 path; ragged
+// tiles are masked, rows past Skv read as 0.
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse,
-                     int Sq, int Skv, int H, int KVH, int causal, int window,
-                     int valid_len, float logit_cap, float scale) {
-  using L = F32Layout<D>;
-  constexpr int BQ = L::BQ, BK = L::BK;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem + L::Q_OFF);
-  float* sK = reinterpret_cast<float*>(smem + L::K_OFF);
-  float* sV = reinterpret_cast<float*>(smem + L::V_OFF);
-  float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* sP = reinterpret_cast<float*>(smem + L::P_OFF);
-  float* sO = reinterpret_cast<float*>(smem + L::O_OFF);
-  float* sM = reinterpret_cast<float*>(smem + L::M_OFF);
-  float* sL = reinterpret_cast<float*>(smem + L::L_OFF);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q_start = blockIdx.x * BQ;
+                     float* __restrict__ lse, int Sq, int Skv, int H, int KVH,
+                     int causal, int window, int valid_len, float logit_cap,
+                     float scale) {
+  using L = F32Fwd<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD;
+  constexpr int KH = BK / 2;   // keys of a tile a warp takes
+  constexpr int NS = KH / 8;   // n-tiles of its S, k-steps of its P V
+  constexpr int NO = D / 8;    // k-steps of Q K^T, n-tiles of O
+  extern __shared__ __align__(16) float fsm[];
+  const float* sQ = fsm;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int band = warp % 4, half = warp / 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const long long q_stride = static_cast<long long>(H) * D;
-  const long long kv_stride = static_cast<long long>(KVH) * D;
+  const int q_last = min(q0 + BQ - 1, Sq - 1);
+  const int kv_end = min(valid_len, Skv);    // keys at or past it: masked
+  int kt_end = (max(kv_end, 0) + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, q_last / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int n_tiles = max(kt_end - kt_begin, 0);
 
-  load_rows<D, L::LDT>(sQ, q + (static_cast<long long>(b) * Sq + q_start) * q_stride +
-                               static_cast<long long>(h) * D,
-                       q_stride, BQ, Sq - q_start);
-  for (int i = tid; i < BQ * L::LDO; i += kF32Threads) sO[i] = 0.f;
-  for (int i = tid; i < BQ; i += kF32Threads) {
-    sM[i] = kNegInf;
-    sL[i] = 0.f;
+  auto stage_kv = [&](int j) {
+    const int k0 = (kt_begin + j) * BK;
+    stage_rows<D, BK, kF32Threads>(fsm + L::K_OFF + (j & 1) * BK * LD, k, b,
+                                   k0, Skv, KVH, kvh);
+    stage_rows<D, BK, kF32Threads>(fsm + L::V_OFF + (j & 1) * BK * LD, v, b,
+                                   k0, Skv, KVH, kvh);
+  };
+  stage_rows<D, BQ, kF32Threads>(fsm, q, b, q0, Sq, H, h);
+  if (n_tiles > 0) stage_kv(0);
+  cp_commit();
+
+  const int qw = q0 + 16 * band;   // the warp's rows qw .. qw + 15
+  const int ra = qw + g;           // this thread's rows ra and ra + 8
+  const float scale_log2 = scale * kLog2e;
+  const float cap_scale = logit_cap > 0.f ? scale / logit_cap : 0.f;
+  float acc[NO * 4];
+#pragma unroll
+  for (int e = 0; e < NO * 4; ++e) acc[e] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) stage_kv(j + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const int k0 = (kt_begin + j) * BK + half * KH;   // keys k0 .. k0+KH-1
+    const float* sK = fsm + L::K_OFF + ((j & 1) * BK + half * KH) * LD;
+    const float* sV = fsm + L::V_OFF + ((j & 1) * BK + half * KH) * LD;
+    // a row of this warp sees a key of its half tile
+    bool live = qw < Sq && k0 < kv_end;
+    if (causal) live = live && k0 <= qw + 15;
+    if (window > 0) live = live && qw - (k0 + KH - 1) < window;
+    if (live) {
+      float s[NS * 4];
+#pragma unroll
+      for (int e = 0; e < NS * 4; ++e) s[e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NO; ++kk) {
+        const TfA qf = frag_a(sQ, LD, 16 * band, 8 * kk, g, t);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const TfB kf = frag_bt(sK, LD, 8 * n, 8 * kk, g, t);
+          mma3(s + 4 * n, qf, kf);   // S = Q K^T
+        }
+      }
+      // a mask only where the half tile cuts valid_len / Skv, the causal
+      // diagonal or the window edge for this warp's rows
+      const bool need_mask = k0 + KH > kv_end ||
+                             (causal && k0 + KH - 1 > qw) ||
+                             (window > 0 && qw + 15 - k0 >= window);
+      float ca, cb;
+      if (need_mask)
+        softmax_tile<true>(s, m_a, m_b, l_a, l_b, ca, cb, scale_log2,
+                           logit_cap, cap_scale, ra, k0, t, kv_end, causal,
+                           window);
+      else
+        softmax_tile<false>(s, m_a, m_b, l_a, l_b, ca, cb, scale_log2,
+                            logit_cap, cap_scale, ra, k0, t, kv_end, causal,
+                            window);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {   // O where m moved
+        acc[4 * n] *= ca;
+        acc[4 * n + 1] *= ca;
+        acc[4 * n + 2] *= cb;
+        acc[4 * n + 3] *= cb;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const TfA pf = frag_acc(s + 4 * kk);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const TfB vf = frag_bp(sV, LD, 8 * kk, 8 * n, g, t);
+          mma3(acc + 4 * n, pf, vf);   // O += P V
+        }
+      }
+    }
+    __syncthreads();   // the stage is refilled at tile j + 2
   }
+  cp_wait<0>();
 
-  const int n_kt = (Skv + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k_start = kt * BK;
-    bool run = k_start < valid_len;
-    if (causal) run = run && (k_start <= q_start + BQ - 1);
-    if (window > 0) run = run && (k_start + BK - 1 > q_start - window);
-    if (!run) continue;   // uniform over the block
-
-    __syncthreads();      // the previous tile is no longer read
-    const float* kb = k + (static_cast<long long>(b) * Skv + k_start) * kv_stride +
-                      static_cast<long long>(kvh) * D;
-    const float* vb = v + (static_cast<long long>(b) * Skv + k_start) * kv_stride +
-                      static_cast<long long>(kvh) * D;
-    load_rows<D, L::LDT>(sK, kb, kv_stride, BK, Skv - k_start);
-    load_rows<D, L::LDT>(sV, vb, kv_stride, BK, Skv - k_start);
-    __syncthreads();
-
-    // ---- S = Q K^T (raw dot products) ----
-    for (int i = tid; i < BQ * BK; i += kF32Threads) {
-      const int r = i / BK, c = i % BK;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        acc = fmaf(sQ[r * L::LDT + d], sK[c * L::LDT + d], acc);
-      }
-      sS[r * L::LDS + c] = acc;
-    }
-    __syncthreads();
-
-    // ---- online softmax, one warp per row ----
-    for (int r = warp; r < BQ; r += kF32Warps) {
-      const int qpos = q_start + r;
-      constexpr int kPer = BK / 32;
-      float s[kPer];
-      bool ok[kPer];
-      float mx = kNegInf;
+  // ---- the halves merge: warp w + 4 hands m, l and O to warp w through
+  // the K/V stages, which no warp reads any more (element i of a thread at
+  // xch[i * 128], so a warp's stores hit 32 banks)
+  float* xch = fsm + L::K_OFF + band * 32 + lane;
+  constexpr int kX = kF32Threads / 2;
+  if (half == 1) {
+    xch[0] = m_a;
+    xch[kX] = m_b;
+    xch[2 * kX] = l_a;
+    xch[3 * kX] = l_b;
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int c = lane + 32 * j;
-        const int kpos = k_start + c;
-        float x = sS[r * L::LDS + c] * scale;
-        if (logit_cap > 0.f) x = logit_cap * tanhf(x / logit_cap);
-        bool valid = kpos < valid_len && kpos < Skv;
-        if (causal) valid = valid && kpos <= qpos;
-        if (window > 0) valid = valid && (qpos - kpos < window);
-        ok[j] = valid;
-        s[j] = valid ? x : kNegInf;
-        mx = fmaxf(mx, s[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
-        sum += p;
-        sP[r * L::LDP + lane + 32 * j] = p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m_prev - m_new);
-      for (int d = lane; d < D; d += 32) sO[r * L::LDO + d] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        sL[r] = sL[r] * corr + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- O += P V ----
-    for (int i = tid; i < BQ * D; i += kF32Threads) {
-      const int r = i / D, d = i % D;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < BK; ++c) {
-        acc = fmaf(sP[r * L::LDP + c], sV[c * L::LDT + d], acc);
-      }
-      sO[r * L::LDO + d] += acc;
-    }
+    for (int e = 0; e < NO * 4; ++e) xch[(4 + e) * kX] = acc[e];
   }
   __syncthreads();
-
-  // ---- normalise and write (B, Sq, H, D) ----
-  for (int i = tid; i < BQ * D; i += kF32Threads) {
-    const int r = i / D, d = i % D;
-    if (q_start + r >= Sq) continue;
-    const float denom = fmaxf(sL[r], 1e-30f);
-    o[(static_cast<long long>(b) * Sq + q_start + r) * q_stride +
-      static_cast<long long>(h) * D + d] = sO[r * L::LDO + d] / denom;
+  if (half == 1) return;
+  {
+    const float m2a = xch[0], m2b = xch[kX];
+    const float na = fmaxf(m_a, m2a), nb = fmaxf(m_b, m2b);
+    const float c1a = exp2f(m_a - na), c2a = exp2f(m2a - na);
+    const float c1b = exp2f(m_b - nb), c2b = exp2f(m2b - nb);
+    l_a = l_a * c1a + xch[2 * kX] * c2a;
+    l_b = l_b * c1b + xch[3 * kX] * c2b;
+    m_a = na;
+    m_b = nb;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[4 * n] = acc[4 * n] * c1a + xch[(4 + 4 * n) * kX] * c2a;
+      acc[4 * n + 1] = acc[4 * n + 1] * c1a + xch[(5 + 4 * n) * kX] * c2a;
+      acc[4 * n + 2] = acc[4 * n + 2] * c1b + xch[(6 + 4 * n) * kX] * c2b;
+      acc[4 * n + 3] = acc[4 * n + 3] * c1b + xch[(7 + 4 * n) * kX] * c2b;
+    }
   }
-  // the natural-log lse of each row (m and l are in base e here)
-  if (lse != nullptr) {
-    for (int r = tid; r < BQ && q_start + r < Sq; r += kF32Threads)
-      lse[(static_cast<long long>(b) * H + h) * Sq + q_start + r] =
-          sM[r] + logf(fmaxf(sL[r], 1e-30f));
+
+  // ---- epilogue: normalise, write (B, Sq, H, D) and the natural-log lse
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  const int rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = h * D + 8 * n + 2 * t;
+    if (ra < Sq)
+      *reinterpret_cast<float2*>(
+          o + (static_cast<long long>(b) * Sq + ra) * H * D + col) =
+          make_float2(acc[4 * n] * inv_a, acc[4 * n + 1] * inv_a);
+    if (rb < Sq)
+      *reinterpret_cast<float2*>(
+          o + (static_cast<long long>(b) * Sq + rb) * H * D + col) =
+          make_float2(acc[4 * n + 2] * inv_b, acc[4 * n + 3] * inv_b);
+  }
+  if (lse != nullptr && t == 0) {   // m and l are in base 2
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq;
+    if (ra < Sq) lrow[ra] = (m_a + log2f(fmaxf(l_a, 1e-30f))) * kLn2;
+    if (rb < Sq) lrow[rb] = (m_b + log2f(fmaxf(l_b, 1e-30f))) * kLn2;
   }
 }
 
@@ -904,7 +1104,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                int Sq, int Skv, int H, int KVH, int causal, int window,
                int valid_len, float logit_cap, float scale,
                cudaStream_t stream) {
-  using L = F32Layout<D>;
+  using L = F32Fwd<D>;
   auto kern = flash_fwd_f32_kernel<D>;
   // the shared-memory opt-in, once per device and instantiation
   static std::atomic<bool> ready[kMaxDevices];
@@ -930,10 +1130,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // ---------------------------------------------------------------------------
 // Backward: the delta rows and the partials' sum (both dtypes); dQ, dK,
-// dV on CUDA cores (f32)
+// dV of the f32 path on the tensor cores (three TF32 products each)
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 256;   // a 16 x 16 grid of threads
+constexpr int kBwdThreads = 256;
 
 __device__ __forceinline__ float ld_f(const float* p) { return *p; }
 __device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
@@ -942,74 +1142,6 @@ __device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
 __device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// Tiles of the backward: BQ query rows by BK key rows; 32 x 32 at D=256
-// (the dK and dV accumulators of a 32-row kv tile take 64 registers a
-// thread), 64 x 64 below.  [rows][D] tiles have a row stride of D + 1
-// and [BQ][BK] tiles of BK + 1, so the column reads of the products hit
-// 16 different banks.
-template <int D>
-struct BwdTile {
-  static constexpr int BQ = D >= 256 ? 32 : 64;
-  static constexpr int BK = D >= 256 ? 32 : 64;
-  static constexpr int LDD = D + 1;
-  static constexpr int LDP = BK + 1;
-  // dK/dV pass: K, V, Q, dO, P, dS, lse, delta
-  static constexpr int DKDV_FLOATS =
-      2 * BK * LDD + 2 * BQ * LDD + 2 * BQ * LDP + 2 * BQ;
-  // dQ pass: Q, dO, K, V, dS, lse, delta
-  static constexpr int DQ_FLOATS =
-      2 * BQ * LDD + 2 * BK * LDD + BQ * LDP + 2 * BQ;
-};
-
-// acc[i][j] += sum_{kk < K} A(ty + 16 i, kk) * B(tx + 16 j, kk), with
-// A(m, kk) = A[m * AM + kk * AK] and B(n, kk) = B[n * BN + kk * BKS] in
-// shared memory; kk runs in order, so the sums are deterministic.
-template <int MI, int NJ, int K, int AM, int AK, int BN, int BKS>
-__device__ __forceinline__ void tile_mma(float (&acc)[MI][NJ],
-                                         const float* A, const float* B,
-                                         int ty, int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float av[MI], bv[NJ];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) av[i] = A[(ty + 16 * i) * AM + kk * AK];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) bv[j] = B[(tx + 16 * j) * BN + kk * BKS];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Rows [r0, r0 + R) of head `hd` of a (B, S, NH, D) tensor into
-// dst[R][D + 1] as f32; rows past S read as 0.
-template <typename T, int D, int R>
-__device__ __forceinline__ void bwd_load(float* dst, const T* src, int b,
-                                         int r0, int S, int NH, int hd) {
-  for (int i = threadIdx.x; i < R * D; i += kBwdThreads) {
-    const int r = i / D, c = i % D;
-    float v = 0.f;
-    if (r0 + r < S)
-      v = ld_f(src + ((static_cast<long long>(b) * S + r0 + r) * NH + hd) *
-                         D + c);
-    dst[r * (D + 1) + c] = v;
-  }
-}
-
-// lse and delta of rows [r0, r0 + R) of head h, (B, H, Sq) each
-template <int R>
-__device__ __forceinline__ void bwd_load_rows(float* s_lse, float* s_delta,
-                                              const float* lse,
-                                              const float* delta, int b,
-                                              int h, int H, int r0, int Sq) {
-  for (int r = threadIdx.x; r < R; r += kBwdThreads) {
-    const long long at = (static_cast<long long>(b) * H + h) * Sq + r0 + r;
-    s_lse[r] = r0 + r < Sq ? lse[at] : 0.f;
-    s_delta[r] = r0 + r < Sq ? delta[at] : 0.f;
-  }
 }
 
 // Whether the masks leave the pair (qpos, kpos) of a backward call.
@@ -1021,37 +1153,23 @@ __device__ __forceinline__ bool bwd_pair_ok(int qpos, int kpos, int Sq,
   return ok;
 }
 
-// P and dS of one (q tile, kv tile) from the raw scores s = q.k and
-// dp = dO.v of a thread's micro-tile: p = exp(cap(s * scale) - lse) on
-// the pairs the masks leave, 0 elsewhere; dS = p (dp - delta), times
-// the soft cap's derivative 1 - tanh^2(s * scale / cap).
-template <int MI, int NJ>
-__device__ __forceinline__ void bwd_probs(float (&s)[MI][NJ],
-                                          float (&dp)[MI][NJ],
-                                          const float* s_lse,
-                                          const float* s_delta, int i0,
-                                          int k0, int Sq, int Skv,
-                                          int causal, int window,
-                                          float logit_cap, float scale,
-                                          int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int qr = ty + 16 * i, qpos = i0 + qr;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const bool ok = bwd_pair_ok(qpos, k0 + tx + 16 * j, Sq, Skv, causal,
-                                  window);
-      float x = s[i][j] * scale, dcap = 1.f;
-      if (logit_cap > 0.f) {
-        const float t = tanhf(x / logit_cap);
-        x = logit_cap * t;
-        dcap = 1.f - t * t;
-      }
-      const float p = ok ? expf(x - s_lse[qr]) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - s_delta[qr]) * dcap;
-    }
+// P and dS of one (query, key) pair from its raw score s = q.k and dp =
+// dO.v: p = exp(cap(s * scale) - lse) where the masks leave the pair (ok),
+// else 0, into s; dS = p (dp - delta) times the soft cap's derivative
+// 1 - tanh^2(s * scale / cap), into dp.  cap_scale = scale / cap.
+__device__ __forceinline__ void bwd_score(float& s, float& dp, bool ok,
+                                          float lse, float delta,
+                                          float logit_cap, float cap_scale,
+                                          float scale) {
+  float x = s * scale, dcap = 1.f;
+  if (logit_cap > 0.f) {
+    const float th = tanhf(s * cap_scale);
+    x = logit_cap * th;
+    dcap = 1.f - th * th;
   }
+  const float p = ok ? expf(x - lse) : 0.f;
+  s = p;
+  dp = p * (dp - delta) * dcap;
 }
 
 // delta = rowsum(dO * O), (B, H, Sq) f32: one warp a (b, i, h) row.
@@ -1084,44 +1202,79 @@ __device__ __forceinline__ void split_range(int items, int nsplit, int split,
   hi = static_cast<int>(static_cast<long long>(items) * (split + 1) / nsplit);
 }
 
-// dK and dV of one kv tile of one kv head.  Its reduction list is the G
-// query heads of the group times the q tiles its masks leave (heads
-// outer); a block takes run `split` of it (blockIdx.z = b * nsplit +
-// split), so the group's sum stays in the block's registers when
-// nsplit = 1.  With nsplit > 1 each block writes its f32 partial sums to
-// `part` ([nsplit][B][Skv][KVH][D] for dK, then as much for dV) and
-// `flash_bwd_sum` adds the runs in order.
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv,
-               float* __restrict__ part, int Sq, int Skv, int H, int KVH,
-               int causal, int window, float logit_cap, float scale,
-               int nsplit) {
-  using L = BwdTile<D>;
-  constexpr int BQ = L::BQ, BK = L::BK, LDD = L::LDD, LDP = L::LDP;
-  extern __shared__ __align__(16) float bsm[];
-  float* sK = bsm;
-  float* sV = sK + BK * LDD;
-  float* sQ = sV + BK * LDD;
-  float* sdO = sQ + BQ * LDD;
-  float* sP = sdO + BQ * LDD;
-  float* sdS = sP + BQ * LDP;
-  float* sL = sdS + BQ * LDP;
-  float* sD = sL + BQ;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int k0 = blockIdx.x * BK, kvh = blockIdx.y;
+// Tiles of the f32 backward: BQ query rows by BK key rows (32 x 32 at
+// D = 256, 64 x 64 below), rows D + 4 floats apart.  Each 16-row band of
+// the resident tile has two warps, one for each half of a streamed tile's
+// rows; their partial sums meet at the end over the stages.  A block
+// accumulates DC of the D columns of dK and dV (or dQ): its tile is
+// blockIdx.x / NC, its columns blockIdx.x % NC.  A warp's accumulators
+// and scores then take at most 160 registers a thread (D = 256).
+template <int D>
+struct F32Bwd {
+  static constexpr int BQ = D >= 256 ? 32 : 64;
+  static constexpr int BK = BQ;
+  static constexpr int DC = D == 128 ? 64 : D == 256 ? 128 : D;
+  static constexpr int NC = D / DC;
+  static constexpr int LD = D + 4;
+  static constexpr int BANDS = BQ / 16;
+  static constexpr int THREADS = 64 * BANDS;
+  // two blocks an SM where shared memory allows (D <= 64)
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  // dK/dV pass: K and V, then two stages of (Q, dO, lse, delta)
+  static constexpr int KV_STAGE = 2 * BQ * LD + 2 * BQ;
+  static constexpr int KV_BYTES = (2 * BK * LD + 2 * KV_STAGE) * 4;
+  // dQ pass: Q, dO, lse and delta, then two stages of (K, V)
+  static constexpr int Q_STAGE = 2 * BK * LD;
+  static constexpr int Q_BYTES = (2 * BQ * LD + 2 * BQ + 2 * Q_STAGE) * 4;
+  static_assert(DC * THREADS / 2 <= 2 * KV_STAGE &&
+                    DC * THREADS / 4 <= 2 * Q_STAGE,
+                "the halves' exchange fits over the stages");
+};
+
+// dK and dV (columns [c0, c0 + DC)) of one kv tile of one kv head, f32.
+// K and V stay in shared memory; cp.async double-buffers (Q, dO, lse,
+// delta) over the tile's reduction list: the G query heads of the group
+// times the q tiles its masks leave (heads outer).  A block takes run
+// `split` of it (blockIdx.z = b * nsplit + split), so the group's sum
+// stays in the block when nsplit = 1.  Warps w and w + BANDS own the same
+// 16 keys, w the first half of each q tile's queries and w + BANDS the
+// second: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in registers, then
+// dV += P^T dO and dK += dS^T Q with P^T and dS^T as A fragments straight
+// from the accumulators (the transposes are index changes in the fragment
+// loads), all three-TF32-product mma.sync; the second half's sums are
+// added to the first's at the end, in that order.  With nsplit > 1 each
+// block writes its f32 partial sums to `part` ([nsplit][B][Skv][KVH][D]
+// for dK, then as much for dV) and `flash_bwd_sum` adds the runs in
+// order.
+template <int D>
+__global__ void __launch_bounds__(F32Bwd<D>::THREADS, F32Bwd<D>::MIN_BLOCKS)
+flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, float* __restrict__ part, int Sq,
+                   int Skv, int H, int KVH, int causal, int window,
+                   float logit_cap, float scale, int nsplit) {
+  using L = F32Bwd<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, DC = L::DC;
+  constexpr int NT = L::THREADS, BANDS = L::BANDS;
+  constexpr int QH = BQ / 2;    // queries of a q tile a warp takes
+  constexpr int KS = D / 8;     // k-steps of S^T and dP^T
+  constexpr int NQ = QH / 8;    // their n-tiles, the k-steps of dV and dK
+  constexpr int CT = DC / 8;    // n-tiles of dV and dK
+  extern __shared__ __align__(16) float fsm[];
+  const float* sK = fsm;
+  const float* sV = fsm + BK * LD;
+  float* stages = fsm + 2 * BK * LD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int band = warp % BANDS, half = warp / BANDS;
+  const int k0 = blockIdx.x / L::NC * BK, c0 = blockIdx.x % L::NC * DC;
+  const int kvh = blockIdx.y;
   const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
   const int G = H / KVH;
-  bwd_load<T, D, BK>(sK, k, b, k0, Skv, KVH, kvh);
-  bwd_load<T, D, BK>(sV, v, b, k0, Skv, KVH, kvh);
-  float acc_k[BK / 16][D / 16], acc_v[BK / 16][D / 16];
-#pragma unroll
-  for (int i = 0; i < BK / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  const float cap_scale = logit_cap > 0.f ? scale / logit_cap : 0.f;
   // query rows that see a key of this tile: causal, q >= k0; a window,
   // q - (k0 + BK - 1) < window
   const int q_lo = causal ? k0 : 0;
@@ -1132,92 +1285,170 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int n_qt = q_hi > qt0 ? (q_hi - qt0 + BQ - 1) / BQ : 0;
   int it_lo, it_hi;
   split_range(G * n_qt, nsplit, split, it_lo, it_hi);
+  auto load = [&](int it, int st) {   // Q, dO, lse, delta of item it
+    const int h = kvh * G + it / n_qt, i0 = qt0 + (it % n_qt) * BQ;
+    float* sq = stages + st * L::KV_STAGE;
+    stage_rows<D, BQ, NT>(sq, q, b, i0, Sq, H, h);
+    stage_rows<D, BQ, NT>(sq + BQ * LD, dout, b, i0, Sq, H, h);
+    stage_lse<BQ, NT>(sq + 2 * BQ * LD, lse, delta, b, h, H, i0, Sq);
+  };
+  stage_rows<D, BK, NT>(fsm, k, b, k0, Skv, KVH, kvh);
+  stage_rows<D, BK, NT>(fsm + BK * LD, v, b, k0, Skv, KVH, kvh);
+  if (it_lo < it_hi) load(it_lo, 0);
+  cp_commit();
+
+  const int kw = k0 + 16 * band;   // the warp's keys kw .. kw + 15
+  float acc_k[CT * 4], acc_v[CT * 4];
+#pragma unroll
+  for (int e = 0; e < CT * 4; ++e) acc_k[e] = acc_v[e] = 0.f;
   for (int it = it_lo; it < it_hi; ++it) {
-    const int h = kvh * G + it / n_qt;
-    const int i0 = qt0 + (it % n_qt) * BQ;
-    __syncthreads();   // the previous tile is no longer read
-    bwd_load<T, D, BQ>(sQ, q, b, i0, Sq, H, h);
-    bwd_load<T, D, BQ>(sdO, dout, b, i0, Sq, H, h);
-    bwd_load_rows<BQ>(sL, sD, lse, delta, b, h, H, i0, Sq);
+    const int st = (it - it_lo) & 1;
+    if (it + 1 < it_hi) load(it + 1, st ^ 1);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    float s[BQ / 16][BK / 16], dp[BQ / 16][BK / 16];
+    // this warp's queries iw .. iw + QH - 1 of the item's q tile
+    const int iw = qt0 + (it % n_qt) * BQ + half * QH;
+    const float* sq = stages + st * L::KV_STAGE + half * QH * LD;
+    const float* sdo = sq + BQ * LD;
+    const float* sl = stages + st * L::KV_STAGE + 2 * BQ * LD + half * QH;
+    bool live = kw < Skv && iw < Sq;   // a key of the warp sees a query
+    if (causal) live = live && kw <= iw + QH - 1;
+    if (window > 0) live = live && iw - (kw + 15) < window;
+    if (live) {
+      float s[NQ * 4], dp[NQ * 4];
 #pragma unroll
-    for (int i = 0; i < BQ / 16; ++i)
+      for (int e = 0; e < NQ * 4; ++e) s[e] = dp[e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(s, sQ, sK, ty, tx);
-    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(dp, sdO, sV, ty, tx);
-    bwd_probs(s, dp, sL, sD, i0, k0, Sq, Skv, causal, window, logit_cap,
-              scale, ty, tx);
+      for (int kk = 0; kk < KS; ++kk) {
+        const TfA kf = frag_a(sK, LD, 16 * band, 8 * kk, g, t);
 #pragma unroll
-    for (int i = 0; i < BQ / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        sP[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-        sdS[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
+        for (int n = 0; n < NQ; ++n)
+          mma3(s + 4 * n, kf, frag_bt(sq, LD, 8 * n, 8 * kk, g, t));
       }
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q: rows are keys, the sum runs over
-    // the tile's queries
-    tile_mma<BK / 16, D / 16, BQ, 1, LDP, 1, LDD>(acc_v, sP, sdO, ty, tx);
-    tile_mma<BK / 16, D / 16, BQ, 1, LDP, 1, LDD>(acc_k, sdS, sQ, ty, tx);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const TfA vf = frag_a(sV, LD, 16 * band, 8 * kk, g, t);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+          mma3(dp + 4 * n, vf, frag_bt(sdo, LD, 8 * n, 8 * kk, g, t));
+      }
+      // P^T and dS^T: rows the keys kw + g and kw + g + 8, columns the
+      // queries iw + 8n + 2t and iw + 8n + 2t + 1
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int col = 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(sl + BQ + col);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = bwd_pair_ok(iw + col + (u & 1),
+                                      kw + g + ((u & 2) ? 8 : 0), Sq, Skv,
+                                      causal, window);
+          bwd_score(s[4 * n + u], dp[4 * n + u], ok, (u & 1) ? l2.y : l2.x,
+                    (u & 1) ? d2.y : d2.x, logit_cap, cap_scale, scale);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: the sum runs over the warp's
+      // queries
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        const TfA pf = frag_acc(s + 4 * kk);
+        const TfA df = frag_acc(dp + 4 * kk);
+#pragma unroll
+        for (int n = 0; n < CT; ++n) {
+          mma3(acc_v + 4 * n, pf, frag_bp(sdo, LD, 8 * kk, c0 + 8 * n, g, t));
+          mma3(acc_k + 4 * n, df, frag_bp(sq, LD, 8 * kk, c0 + 8 * n, g, t));
+        }
+      }
+    }
+    __syncthreads();   // the stage is refilled at item it + 2
+  }
+  cp_wait<0>();
+  // the second half's sums to the first (element i of a thread at
+  // xch[i * NT / 2]), then added in that order
+  float* xch = stages + band * 32 + lane;
+  constexpr int kX = NT / 2;
+  if (half == 1) {
+#pragma unroll
+    for (int e = 0; e < CT * 4; ++e) {
+      xch[e * kX] = acc_k[e];
+      xch[(CT * 4 + e) * kX] = acc_v[e];
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int e = 0; e < CT * 4; ++e) {
+    acc_k[e] += xch[e * kX];
+    acc_v[e] += xch[(CT * 4 + e) * kX];
   }
   const long long plane = static_cast<long long>(gridDim.z / nsplit) * Skv *
                           KVH * D;
 #pragma unroll
-  for (int i = 0; i < BK / 16; ++i) {
-    const int kr = k0 + ty + 16 * i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kr = kw + g + 8 * hr;
     if (kr >= Skv) continue;
     const long long at =
-        ((static_cast<long long>(b) * Skv + kr) * KVH + kvh) * D;
+        ((static_cast<long long>(b) * Skv + kr) * KVH + kvh) * D + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const long long e = at + tx + 16 * j;
+    for (int n = 0; n < CT; ++n) {
+      const float* ak = acc_k + 4 * n + 2 * hr;
+      const float* av = acc_v + 4 * n + 2 * hr;
+      const long long e = at + 8 * n;
       if (nsplit == 1) {
-        st_f(dk + e, acc_k[i][j] * scale);
-        st_f(dv + e, acc_v[i][j]);
+        *reinterpret_cast<float2*>(dk + e) =
+            make_float2(ak[0] * scale, ak[1] * scale);
+        *reinterpret_cast<float2*>(dv + e) = make_float2(av[0], av[1]);
       } else {
-        part[split * plane + e] = acc_k[i][j];
-        part[(nsplit + split) * plane + e] = acc_v[i][j];
+        *reinterpret_cast<float2*>(part + split * plane + e) =
+            make_float2(ak[0], ak[1]);
+        *reinterpret_cast<float2*>(part + (nsplit + split) * plane + e) =
+            make_float2(av[0], av[1]);
       }
     }
   }
 }
 
-// dQ of one q tile of one head.  Its reduction list is the kv tiles the
-// masks leave, in order; a block takes run `split` of it (blockIdx.z =
-// b * nsplit + split), and with nsplit > 1 writes its f32 partial to
+// dQ (columns [c0, c0 + DC)) of one q tile of one head, f32.  Q, dO and
+// the rows' lse and delta stay in shared memory; cp.async double-buffers
+// K and V over the kv tiles the masks leave, in order.  Warps w and
+// w + BANDS own the same 16 queries, w the first half of each kv tile's
+// keys and w + BANDS the second: S = Q K^T and dP = dO V^T, dS in
+// registers, dQ += dS K with dS as the A fragment, all
+// three-TF32-product mma.sync; the second half's sum is added to the
+// first's at the end.  A block takes run `split` of the list (blockIdx.z
+// = b * nsplit + split), and with nsplit > 1 writes its f32 partial to
 // `part` ([nsplit][B][Sq][H][D]) for `flash_bwd_sum`.
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, float* __restrict__ part, int Sq, int Skv,
-             int H, int KVH, int causal, int window, float logit_cap,
-             float scale, int nsplit) {
-  using L = BwdTile<D>;
-  constexpr int BQ = L::BQ, BK = L::BK, LDD = L::LDD, LDP = L::LDP;
-  extern __shared__ __align__(16) float bsm[];
-  float* sQ = bsm;
-  float* sdO = sQ + BQ * LDD;
-  float* sK = sdO + BQ * LDD;
-  float* sV = sK + BK * LDD;
-  float* sdS = sV + BK * LDD;
-  float* sL = sdS + BQ * LDP;
-  float* sD = sL + BQ;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int i0 = blockIdx.x * BQ, h = blockIdx.y;
+template <int D>
+__global__ void __launch_bounds__(F32Bwd<D>::THREADS, F32Bwd<D>::MIN_BLOCKS)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 float* __restrict__ part, int Sq, int Skv, int H, int KVH,
+                 int causal, int window, float logit_cap, float scale,
+                 int nsplit) {
+  using L = F32Bwd<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, DC = L::DC;
+  constexpr int NT = L::THREADS, BANDS = L::BANDS;
+  constexpr int KH = BK / 2;    // keys of a kv tile a warp takes
+  constexpr int KS = D / 8;     // k-steps of S and dP
+  constexpr int NK = KH / 8;    // their n-tiles, the k-steps of dQ
+  constexpr int CT = DC / 8;    // n-tiles of dQ
+  extern __shared__ __align__(16) float fsm[];
+  const float* sQ = fsm;
+  const float* sdO = fsm + BQ * LD;
+  const float* sL = fsm + 2 * BQ * LD;   // lse, then delta
+  float* stages = fsm + 2 * BQ * LD + 2 * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int band = warp % BANDS, half = warp / BANDS;
+  const int i0 = blockIdx.x / L::NC * BQ, c0 = blockIdx.x % L::NC * DC;
+  const int h = blockIdx.y;
   const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
   const int kvh = h / (H / KVH);
-  bwd_load<T, D, BQ>(sQ, q, b, i0, Sq, H, h);
-  bwd_load<T, D, BQ>(sdO, dout, b, i0, Sq, H, h);
-  bwd_load_rows<BQ>(sL, sD, lse, delta, b, h, H, i0, Sq);
-  float acc[BQ / 16][D / 16];
-#pragma unroll
-  for (int i = 0; i < BQ / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+  const float cap_scale = logit_cap > 0.f ? scale / logit_cap : 0.f;
   // keys that a row of this tile sees: a window, k > i0 - window;
   // causal, k <= i0 + BQ - 1
   const int k_lo = window > 0 ? max(0, i0 - window + 1) : 0;
@@ -1226,43 +1457,111 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int n_kt = k_hi > kt0 ? (k_hi - kt0 + BK - 1) / BK : 0;
   int it_lo, it_hi;
   split_range(n_kt, nsplit, split, it_lo, it_hi);
-  for (int it = it_lo; it < it_hi; ++it) {
+  auto load = [&](int it, int st) {   // K and V of tile it
     const int k0 = kt0 + it * BK;
-    __syncthreads();   // the previous tile is no longer read
-    bwd_load<T, D, BK>(sK, k, b, k0, Skv, KVH, kvh);
-    bwd_load<T, D, BK>(sV, v, b, k0, Skv, KVH, kvh);
+    float* sk = stages + st * L::Q_STAGE;
+    stage_rows<D, BK, NT>(sk, k, b, k0, Skv, KVH, kvh);
+    stage_rows<D, BK, NT>(sk + BK * LD, v, b, k0, Skv, KVH, kvh);
+  };
+  stage_rows<D, BQ, NT>(fsm, q, b, i0, Sq, H, h);
+  stage_rows<D, BQ, NT>(fsm + BQ * LD, dout, b, i0, Sq, H, h);
+  stage_lse<BQ, NT>(fsm + 2 * BQ * LD, lse, delta, b, h, H, i0, Sq);
+  if (it_lo < it_hi) load(it_lo, 0);
+  cp_commit();
+
+  const int qw = i0 + 16 * band;   // the warp's rows qw .. qw + 15
+  const int qa = qw + g;           // this thread's rows qa and qa + 8
+  float acc[CT * 4];
+#pragma unroll
+  for (int e = 0; e < CT * 4; ++e) acc[e] = 0.f;
+  for (int it = it_lo; it < it_hi; ++it) {
+    const int st = (it - it_lo) & 1;
+    if (it + 1 < it_hi) load(it + 1, st ^ 1);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    float s[BQ / 16][BK / 16], dp[BQ / 16][BK / 16];
+    // this warp's keys kw .. kw + KH - 1 of the tile
+    const int kw = kt0 + it * BK + half * KH;
+    const float* sk = stages + st * L::Q_STAGE + half * KH * LD;
+    const float* sv = sk + BK * LD;
+    bool live = qw < Sq && kw < Skv;   // a row of the warp sees a key
+    if (causal) live = live && kw <= qw + 15;
+    if (window > 0) live = live && qw - (kw + KH - 1) < window;
+    if (live) {
+      float s[NK * 4], dp[NK * 4];
 #pragma unroll
-    for (int i = 0; i < BQ / 16; ++i)
+      for (int e = 0; e < NK * 4; ++e) s[e] = dp[e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(s, sQ, sK, ty, tx);
-    tile_mma<BQ / 16, BK / 16, D, LDD, 1, LDD, 1>(dp, sdO, sV, ty, tx);
-    bwd_probs(s, dp, sL, sD, i0, k0, Sq, Skv, causal, window, logit_cap,
-              scale, ty, tx);
+      for (int kk = 0; kk < KS; ++kk) {
+        const TfA qf = frag_a(sQ, LD, 16 * band, 8 * kk, g, t);
 #pragma unroll
-    for (int i = 0; i < BQ / 16; ++i)
+        for (int n = 0; n < NK; ++n)
+          mma3(s + 4 * n, qf, frag_bt(sk, LD, 8 * n, 8 * kk, g, t));
+      }
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        sdS[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    // dQ += dS K: the sum runs over the tile's keys
-    tile_mma<BQ / 16, D / 16, BK, LDP, 1, 1, LDD>(acc, sdS, sK, ty, tx);
+      for (int kk = 0; kk < KS; ++kk) {
+        const TfA of = frag_a(sdO, LD, 16 * band, 8 * kk, g, t);
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+          mma3(dp + 4 * n, of, frag_bt(sv, LD, 8 * n, 8 * kk, g, t));
+      }
+      // P and dS: rows the queries qa and qa + 8, columns the keys
+      // kw + 8n + 2t and kw + 8n + 2t + 1
+      const int ra = 16 * band + g;
+      const float lse_a = sL[ra], lse_b = sL[ra + 8];
+      const float del_a = sL[BQ + ra], del_b = sL[BQ + ra + 8];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool lower = (u & 2) != 0;
+          const bool ok = bwd_pair_ok(qa + (lower ? 8 : 0),
+                                      kw + 8 * n + 2 * t + (u & 1), Sq, Skv,
+                                      causal, window);
+          bwd_score(s[4 * n + u], dp[4 * n + u], ok, lower ? lse_b : lse_a,
+                    lower ? del_b : del_a, logit_cap, cap_scale, scale);
+        }
+      // dQ += dS K: the sum runs over the warp's keys
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const TfA df = frag_acc(dp + 4 * kk);
+#pragma unroll
+        for (int n = 0; n < CT; ++n)
+          mma3(acc + 4 * n, df, frag_bp(sk, LD, 8 * kk, c0 + 8 * n, g, t));
+      }
+    }
+    __syncthreads();   // the stage is refilled at tile it + 2
   }
+  cp_wait<0>();
+  // the second half's sum to the first, then added in that order
+  float* xch = stages + band * 32 + lane;
+  constexpr int kX = NT / 2;
+  if (half == 1) {
+#pragma unroll
+    for (int e = 0; e < CT * 4; ++e) xch[e * kX] = acc[e];
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int e = 0; e < CT * 4; ++e) acc[e] += xch[e * kX];
   const long long plane = static_cast<long long>(gridDim.z / nsplit) * Sq *
                           H * D;
 #pragma unroll
-  for (int i = 0; i < BQ / 16; ++i) {
-    const int qr = i0 + ty + 16 * i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qr = qa + 8 * hr;
     if (qr >= Sq) continue;
-    const long long at = ((static_cast<long long>(b) * Sq + qr) * H + h) * D;
+    const long long at =
+        ((static_cast<long long>(b) * Sq + qr) * H + h) * D + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int n = 0; n < CT; ++n) {
+      const float* a = acc + 4 * n + 2 * hr;
+      const long long e = at + 8 * n;
       if (nsplit == 1)
-        st_f(dq + at + tx + 16 * j, acc[i][j] * scale);
+        *reinterpret_cast<float2*>(dq + e) =
+            make_float2(a[0] * scale, a[1] * scale);
       else
-        part[split * plane + at + tx + 16 * j] = acc[i][j];
+        *reinterpret_cast<float2*>(part + split * plane + e) =
+            make_float2(a[0], a[1]);
     }
   }
 }
@@ -1287,7 +1586,6 @@ flash_bwd_sum(const float* __restrict__ part, T* __restrict__ out0,
   else
     st_f(out1 + e, acc * scale1);
 }
-
 // ---------------------------------------------------------------------------
 // Backward, bf16 path: wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
@@ -1823,7 +2121,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
 // How a backward call is cut: splits of the dK/dV and dQ reductions
 // that bring each pass to about two blocks a SM (at most kMaxSplit), and
 // the f32 scratch their partials take.  bq x bk are the pass's tiles:
-// BwdTile's on the f32 path, 64 x 64 on the bf16 path.
+// F32Bwd's on the f32 path, 64 x 64 on the bf16 path.
 constexpr int kMaxSplit = 8;
 
 struct BwdPlan {
@@ -1895,47 +2193,50 @@ void launch_sum(const float* part, void* out0, void* out1, long long n,
       scale1);
 }
 
-template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const void* lse, void* delta, void* dq,
-               void* dk, void* dv, void* scratch, int B, int Sq, int Skv,
-               int H, int KVH, int causal, int window, float logit_cap,
-               float scale, int sms, cudaStream_t stream) {
-  using L = BwdTile<D>;
+// The f32 backward: the delta rows, the dK/dV pass (and its sum), the
+// dQ pass (and its sum).
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const void* lse,
+                   void* delta, void* dq, void* dk, void* dv, void* scratch,
+                   int B, int Sq, int Skv, int H, int KVH, int causal,
+                   int window, float logit_cap, float scale, int sms,
+                   cudaStream_t stream) {
+  using L = F32Bwd<D>;
   static std::atomic<bool> ready_kv[kMaxDevices], ready_q[kMaxDevices];
-  auto kern_kv = flash_bwd_dkdv<T, D>;
-  auto kern_q = flash_bwd_dq<T, D>;
-  const int kv_bytes = L::DKDV_FLOATS * 4, q_bytes = L::DQ_FLOATS * 4;
-  int err = opt_in(kern_kv, kv_bytes, ready_kv);
-  if (err == 0) err = opt_in(kern_q, q_bytes, ready_q);
+  auto kern_kv = flash_bwd_dkdv_f32<D>;
+  auto kern_q = flash_bwd_dq_f32<D>;
+  int err = opt_in(kern_kv, L::KV_BYTES, ready_kv);
+  if (err == 0) err = opt_in(kern_q, L::Q_BYTES, ready_q);
   if (err != 0) return err;
   const BwdPlan plan = bwd_plan(L::BQ, L::BK, B, Sq, Skv, H, KVH, D, sms);
   float* part = static_cast<float*>(scratch);
   if (plan.scratch > 0 && part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fdo = static_cast<const float*>(dout);
   const float* flse = static_cast<const float*>(lse);
   float* fdelta = static_cast<float*>(delta);
-  launch_delta<T, D>(o, dout, fdelta, B, Sq, H, stream);
-  kern_kv<<<dim3((Skv + L::BK - 1) / L::BK, KVH, B * plan.split_kv),
-            kBwdThreads, kv_bytes, stream>>>(
-      tq, tk, tv, tdo, flse, fdelta, static_cast<T*>(dk),
-      static_cast<T*>(dv), part, Sq, Skv, H, KVH, causal, window, logit_cap,
-      scale, plan.split_kv);
+  launch_delta<float, D>(o, dout, fdelta, B, Sq, H, stream);
+  kern_kv<<<dim3((Skv + L::BK - 1) / L::BK * L::NC, KVH,
+                 B * plan.split_kv),
+            L::THREADS, L::KV_BYTES, stream>>>(
+      fq, fk, fv, fdo, flse, fdelta, static_cast<float*>(dk),
+      static_cast<float*>(dv), part, Sq, Skv, H, KVH, causal, window,
+      logit_cap, scale, plan.split_kv);
   if (plan.split_kv > 1)
-    launch_sum<T>(part, dk, dv, static_cast<long long>(B) * Skv * KVH * D, 2,
-                  plan.split_kv, scale, 1.f, stream);
-  kern_q<<<dim3((Sq + L::BQ - 1) / L::BQ, H, B * plan.split_q), kBwdThreads,
-           q_bytes, stream>>>(tq, tk, tv, tdo, flse, fdelta,
-                              static_cast<T*>(dq), part, Sq, Skv, H, KVH,
-                              causal, window, logit_cap, scale,
-                              plan.split_q);
+    launch_sum<float>(part, dk, dv,
+                      static_cast<long long>(B) * Skv * KVH * D, 2,
+                      plan.split_kv, scale, 1.f, stream);
+  kern_q<<<dim3((Sq + L::BQ - 1) / L::BQ * L::NC, H, B * plan.split_q),
+           L::THREADS, L::Q_BYTES, stream>>>(
+      fq, fk, fv, fdo, flse, fdelta, static_cast<float*>(dq), part, Sq, Skv,
+      H, KVH, causal, window, logit_cap, scale, plan.split_q);
   if (plan.split_q > 1)
-    launch_sum<T>(part, dq, dq, static_cast<long long>(B) * Sq * H * D, 1,
-                  plan.split_q, scale, scale, stream);
+    launch_sum<float>(part, dq, dq, static_cast<long long>(B) * Sq * H * D,
+                      1, plan.split_q, scale, scale, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2004,7 +2305,7 @@ extern "C" long long flash_attention_bwd_scratch(int dtype, int B, int Sq,
   if (dtype != 0) return -1;
 #define FLASH_SCRATCH_CASE(DD)                                               \
   case DD:                                                                   \
-    return bwd_plan(BwdTile<DD>::BQ, BwdTile<DD>::BK, B, Sq, Skv, H, KVH, D, \
+    return bwd_plan(F32Bwd<DD>::BQ, F32Bwd<DD>::BK, B, Sq, Skv, H, KVH, D, \
                     sms).scratch;
   switch (D) {
     FLASH_SCRATCH_CASE(16)
@@ -2020,8 +2321,8 @@ extern "C" long long flash_attention_bwd_scratch(int dtype, int B, int Sq,
 
 // The gradients (dQ, dK, dV) of the forward with lse: q, o, dout, dq
 // (B, Sq, H, D), k, v, dk, dv (B, Skv, KVH, D) in one dtype (0 = float32,
-// D in {16, 32, 64, 128, 256} on CUDA cores; 1 = bfloat16, D in {64,
-// 128, 256} on the tensor cores), lse (B, H, Sq) float32 as the forward
+// D in {16, 32, 64, 128, 256}, three TF32 products for each f32 one;
+// 1 = bfloat16, D in {64, 128, 256}), lse (B, H, Sq) float32 as the forward
 // wrote it, `delta` (B, H, Sq) float32 scratch and `scratch` the f32
 // scratch flash_attention_bwd_scratch names for the same dtype, shape
 // and `sms` (null when it names none).  The masks are the forward's:
@@ -2045,11 +2346,11 @@ extern "C" int flash_attention_bwd_launch(
               Skv, H, KVH, causal, window, logit_cap, scale, sms, s);
   if (dtype == 0) {
     switch (D) {
-      FLASH_BWD_CASE((launch_bwd<float, 16>), 16)
-      FLASH_BWD_CASE((launch_bwd<float, 32>), 32)
-      FLASH_BWD_CASE((launch_bwd<float, 64>), 64)
-      FLASH_BWD_CASE((launch_bwd<float, 128>), 128)
-      FLASH_BWD_CASE((launch_bwd<float, 256>), 256)
+      FLASH_BWD_CASE(launch_bwd_f32<16>, 16)
+      FLASH_BWD_CASE(launch_bwd_f32<32>, 32)
+      FLASH_BWD_CASE(launch_bwd_f32<64>, 64)
+      FLASH_BWD_CASE(launch_bwd_f32<128>, 128)
+      FLASH_BWD_CASE(launch_bwd_f32<256>, 256)
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

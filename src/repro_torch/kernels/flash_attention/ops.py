@@ -19,7 +19,10 @@ backward.  A call whose masks leave some query row with no key is
 refused then: such a row has no log-sum-exp.  The bf16 kernel (wgmma on
 64-column panels) takes D in {64, 128, 256}; bf16 q/k/v with D of 16 or
 32 are zero-padded to 64 here, which leaves every dot product as it was,
-and the scale stays 1/sqrt(D).
+and the scale stays 1/sqrt(D).  The f32 kernel takes every D of
+:data:`HEAD_DIMS` as it is and runs its products on the tensor cores too
+(``mma.sync``), as three TF32 products for each f32 product, which keeps
+about f32 accuracy.
 
 :func:`flash_attention_bwd`, the gradient (dq, dk, dv) of the forward
 with lse: plain version ``ref.flash_attention_bwd_plain``, operator
@@ -33,9 +36,11 @@ kv tile's K and V resident and streams the group's q tiles, one
 warpgroup accumulating dV and one dK; the dQ pass keeps a q tile
 resident and streams the kv tiles.  They take D in {64, 128, 256};
 bf16 with D of 16 or 32 is zero-padded to 64 here, as for the forward,
-and the gradients are cut back to D.  The f32 kernels stay on CUDA cores
-and take every D of :data:`HEAD_DIMS` as it is.  No atomics: two calls
-give the same bits.
+and the gradients are cut back to D.  The f32 kernels take every D of
+:data:`HEAD_DIMS` as it is, with the same two passes, each warp a 16-row
+band of the resident tile, and run all five products on the tensor cores
+as three TF32 products for each f32 one.  No atomics: two calls give the
+same bits.
 """
 
 from __future__ import annotations
@@ -255,7 +260,8 @@ _BWD_FN = None
 
 def _check_bwd(q, k, v, o, lse, do) -> None:
     """What :func:`_check` asks of q, k and v, and of the rest: o and do
-    like q, lse (B, KVH, G, Sq) float32, all contiguous on q's device."""
+    like q, lse (B, KVH, G, Sq) float32, all contiguous on q's device, do
+    16-byte aligned as q."""
     _check(q, k, v)
     b, sq, h, _ = q.shape
     kvh = k.shape[2]
@@ -272,6 +278,9 @@ def _check_bwd(q, k, v, o, lse, do) -> None:
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} must be "
                              f"contiguous")
+        if name == "do" and t.data_ptr() % 16:
+            raise ValueError("flash_attention_bwd: do must be 16-byte "
+                             "aligned")
         if t.device != q.device:
             raise ValueError("flash_attention_bwd: inputs on different "
                              "devices")

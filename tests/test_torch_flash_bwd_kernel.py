@@ -225,6 +225,19 @@ def test_check_names_a_wrong_lse():
         ops._check_bwd(q, k, v, o, lse, do.double())
 
 
+def test_check_names_an_unaligned_do():
+    """The f32 kernels copy dO in 16-byte chunks: a do that starts off a
+    16-byte boundary is refused, not read."""
+    case = CASES[0]
+    q, k, v, do = (torch.from_numpy(t) for t in _inputs(case))
+    o, lse = _forward(q, k, v, case)
+    shifted = torch.empty(do.numel() + 1)[1:].view(do.shape)
+    shifted.copy_(do)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="do must be 16-byte aligned"):
+        ops._check_bwd(q, k, v, o.contiguous(), lse, shifted)
+
+
 # the train shapes' masks at a small size: (B, Sq, Skv, H, KVH, D,
 # causal, window, logit_cap)
 CARD_CASES = [(2, 256, 256, 4, 1, 256, True, 512, 0.0),

@@ -2,7 +2,7 @@
 """Time the port's kernels of several checkouts on one card.
 
     python3 tools/kernel_ab.py ROOT [ROOT ...] [--out results.json]
-        [--edits cuts.json] [--backward-only]
+        [--edits cuts.json] [--backward-only] [--f32-only]
 
 Each ROOT is a checkout of this repository (its ``src/`` holds
 ``repro_torch``).  The roots run one after another, each in a fresh
@@ -38,10 +38,21 @@ is reported and the rest run.  For each root it prints, and writes to
   grok-1's 48 over 8 heads, D 128, soft cap 30 at B=1 S=256: event ms,
   device ms, host us per call (100 calls) and each CUDA kernel's device
   us per call.  A root whose wrappers have no backward kernel reports
-  them as absent.
+  them as absent;
+* flash attention's f32 path at the examples' shapes (``chip_smoke.py``
+  phase 11): the forward at 11a (the smoke gemma3's 4 over 1 heads, D 16,
+  window 8, B=2 S=64, with lse), 11b (B=1 S=16, no lse) and 11c
+  (train_lm's 8 over 4 heads, D 64, B=2 S=256, with lse), each beside the
+  library call phase 11 times there (SDPA with the mask without lse,
+  else ATen's efficient attention, a binding window as an additive
+  bias), and the backward at 11a and 11c beside ATen's efficient
+  attention backward on the same inputs and bias: for the kernel and the
+  library alike, event ms, device ms, host us per call (100 calls) and
+  each CUDA kernel's device us per call.
 
-``--backward-only`` times the backward kernels alone.  Every number
-names the card and its power limit.  It needs a card.
+``--backward-only`` times the bf16 and scan backward kernels alone,
+``--f32-only`` the f32 flash rows alone.  Every number names the card
+and its power limit.  It needs a card.
 """
 
 from __future__ import annotations
@@ -57,7 +68,8 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def worker(root: str, backward_only: bool = False) -> dict:
+def worker(root: str, backward_only: bool = False,
+           f32_only: bool = False) -> dict:
     """The measurements of one checkout, in this process."""
     # chip_smoke's timing helpers; it puts this checkout's src on the
     # path, so the measured root's src goes in front of it afterwards
@@ -73,7 +85,11 @@ def worker(root: str, backward_only: bool = False) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    out = {"root": root, "bounce": {}, "ssm_scan": {}, "backward": {}}
+    out = {"root": root, "bounce": {}, "ssm_scan": {}, "backward": {},
+           "f32": {}}
+    if f32_only:
+        out["f32"] = _f32(gen, dev)
+        return out
     if backward_only:
         out["backward"] = _backward(gen, dev)
         return out
@@ -108,6 +124,7 @@ def worker(root: str, backward_only: bool = False) -> dict:
             row["host_us"] = _host_us(call)
         out["ssm_scan"][label] = row
     out["backward"] = _backward(gen, dev)
+    out["f32"] = _f32(gen, dev)
     return out
 
 
@@ -123,10 +140,29 @@ def _by_kernel(fn, n: int = 10) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    def name(key):   # "void (anonymous namespace)::kern<T, 16>(args)"
-        return key.split("::")[-1].split("(")[0] if "::" in key else key
-    return {name(e.key): e.self_device_time_total / n
+    return {_kernel_name(e.key): e.self_device_time_total / n
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def _kernel_name(key: str) -> str:
+    """A CUDA kernel's short name: "void (anonymous namespace)::kern<T,
+    16>(args)" as "kern<T, 16>", "fmha_cutlassF_f32_..._sm80(args)" as
+    itself without its arguments."""
+    key = key.replace("(anonymous namespace)::", "")
+    if key.startswith("void "):
+        key = key[5:]
+    depth, cut = 0, len(key)
+    for i, ch in enumerate(key):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            cut = i
+            break
+    head, depth, start = key[:cut], 0, 0
+    for i, ch in enumerate(head):
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and head.startswith("::", i):
+            start = i + 2
+    return head[start:]
 
 
 def _backward(gen, dev) -> dict:
@@ -196,6 +232,74 @@ def _backward(gen, dev) -> dict:
                        "kernel_us": _by_kernel(call)}
     return rows
 
+# label: (B, S, H, KVH, D, window, lse): chip_smoke.py phase 11's f32
+# flash cases (11a quickstart, 11b serve_lm, 11c train_lm)
+F32_CASES = (("f32_11a", (2, 64, 4, 1, 16, 8, True)),
+             ("f32_11b", (1, 16, 4, 1, 16, 8, False)),
+             ("f32_11c", (2, 256, 8, 4, 64, 0, True)))
+
+
+def _timed(call) -> dict:
+    from chip_smoke import _cuda_ms, _device_ms, _host_us
+    return {"ms": _cuda_ms(call, n=20), "device_ms": _device_ms(call),
+            "host_us": _host_us(call, n=100), "kernel_us": _by_kernel(call)}
+
+
+def _f32(gen, dev) -> dict:
+    """Flash attention's f32 forward and backward at phase 11's shapes,
+    each beside the library call that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    rows = {}
+    for label, (b, s, h, kvh, d, window, lse) in F32_CASES:
+        q = 3 * torch.randn(b, s, h, d, generator=gen, device=dev)
+        k = torch.randn(b, s, kvh, d, generator=gen, device=dev)
+        v = torch.rand(b, s, kvh, d, generator=gen, device=dev) * 3 - 1.5
+        do = torch.randn(b, s, h, d, generator=gen, device=dev)
+        kw = dict(window=window, return_lse=lse)
+        fwd = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        qt, dot = (t.transpose(1, 2).contiguous() for t in (q, do))
+        kt, vt = (t.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+                  .contiguous() for t in (k, v))
+        pos = torch.arange(s, device=dev)
+        mask = pos[None] <= pos[:, None]
+        if window:
+            mask &= pos[:, None] - pos[None] < window
+        bias = None
+        if window and window < s:
+            bias = torch.zeros(s, s, device=dev).masked_fill(
+                ~mask, float("-inf")).expand(b, h, s, s).contiguous()
+        if not lse:
+            lib_name = "sdpa_mask"
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        else:
+            lib_name = "aten_efficient_attention"
+            eff = torch.ops.aten._scaled_dot_product_efficient_attention
+            lib = lambda: eff(qt, kt, vt, bias, True, 0.0,  # noqa: E731
+                              bias is None)
+        rows[f"{label}_fwd"] = {"kernel": _timed(fwd), "library": lib_name,
+                                lib_name: _timed(lib)}
+        if not lse:
+            continue
+        o, lse_k = fwd()
+        bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse_k, do, window=window)
+        out, lse_a, seed, off = eff(qt, kt, vt, bias, True, 0.0,
+                                    bias is None)
+        eff_bwd = \
+            torch.ops.aten._scaled_dot_product_efficient_attention_backward
+        lib_bwd = lambda: eff_bwd(  # noqa: E731
+            dot, qt, kt, vt, bias, out, lse_a, seed, off, 0.0,
+            [True, True, True, False], bias is None)
+        rows[f"{label}_bwd"] = {
+            "kernel": _timed(bwd),
+            "library": "aten_efficient_attention_backward",
+            "aten_efficient_attention_backward": _timed(lib_bwd)}
+    return rows
+
 
 def _edited(root: str, edits: dict, tmp: pathlib.Path) -> pathlib.Path:
     """A scratch copy of ``root``'s ``src/`` (for ``root@label``) with the
@@ -222,13 +326,15 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--backward-only", action="store_true",
                     help="time the backward kernels alone")
+    ap.add_argument("--f32-only", action="store_true",
+                    help="time the f32 flash forward and backward alone")
     ap.add_argument("--edits", default="",
                     help="JSON file of the edits that ROOT@LABEL applies")
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker, args.backward_only)),
-              flush=True)
+        print(json.dumps(worker(args.worker, args.backward_only,
+                                args.f32_only)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -241,7 +347,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     edits = json.loads(pathlib.Path(args.edits).read_text()) \
         if args.edits else {}
-    flags = ["--backward-only"] if args.backward_only else []
+    flags = (["--backward-only"] if args.backward_only else []) + \
+        (["--f32-only"] if args.f32_only else [])
     runs, failed = [], False
     for root in args.roots:
         with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
@@ -273,6 +380,12 @@ def main(argv=None) -> int:
             print(f"  {label}: " + (row if isinstance(row, str) else ", ".join(
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                 for k, v in row.items() if v is not None)), flush=True)
+        for label, row in res["f32"].items():
+            for who in ("kernel", row["library"]):
+                print(f"  {label} {who}: " + ", ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in row[who].items() if v is not None),
+                    flush=True)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -30,7 +30,8 @@ _SSM = "kernels/ssm_scan/csrc/ssm_scan.cu"
 _BOUNCE = "kernels/dataplane/csrc/bounce.cu"
 _STALL = "kernels/dataplane/stall.py"
 
-# name -> (source under src/repro_torch, text, replacement, phase)
+# name -> (source under src/repro_torch, text, replacement, phase); text
+# and replacement may be tuples of as many edits
 FAULTS = {
     # O is not rescaled when a row's running max moves
     "flash_no_o_rescale": (
@@ -117,6 +118,20 @@ FAULTS = {
         "      if (q0 + ra < Sq) lrow[ra] = m_a + log2f(fmaxf(l_a, 1e-30f));\n"
         "      if (q0 + rb < Sq) lrow[rb] = m_b + log2f(fmaxf(l_b, 1e-30f));\n",
         "phase_train_kernels"),
+    # the f32 forward with one TF32 product (hi.hi) where it takes three:
+    # the lo terms of Q K^T and P V cut
+    "flash_f32_fwd_one_product": (
+        _FLASH, ("          mma3(s + 4 * n, qf, kf);   // S = Q K^T\n",
+                 "          mma3(acc + 4 * n, pf, vf);   // O += P V\n"),
+        ("          mma_tf32(s + 4 * n, qf.hi, kf.hi);\n",
+         "          mma_tf32(acc + 4 * n, pf.hi, vf.hi);\n"), "phase_flash"),
+    # the f32 backward's dK with one TF32 product: the lo terms of dS^T Q
+    # cut
+    "flash_f32_bwd_dk_one_product": (
+        _FLASH, "mma3(acc_k + 4 * n, df, frag_bp(sq, LD, 8 * kk, c0 + 8 * n, "
+        "g, t));",
+        "mma_tf32(acc_k + 4 * n, df.hi, frag_bp(sq, LD, 8 * kk, c0 + 8 * n, "
+        "g, t).hi);", "phase_quickstart"),
     # the bf16 backward's dK group leaves delta out of dS = P (dP - delta)
     "flash_bwd_no_delta": (
         _FLASH,
@@ -188,10 +203,13 @@ def run(name: str) -> bool:
                         ignore=shutil.ignore_patterns("__pycache__"))
         path = d / "src" / "repro_torch" / src
         text = path.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: the text to replace is not in {src} "
-                             f"exactly once")
-        path.write_text(text.replace(old, new))
+        pairs = zip(old, new) if isinstance(old, tuple) else [(old, new)]
+        for o, n in pairs:
+            if text.count(o) != 1:
+                raise SystemExit(f"{name}: the text to replace is not in "
+                                 f"{src} exactly once")
+            text = text.replace(o, n)
+        path.write_text(text)
         r = subprocess.run(
             [sys.executable, "-c",
              f"import chip_smoke as c; c.phase_build(); c.{phase}()"],
