@@ -299,6 +299,45 @@ Phase 10 runs alone after phase 0:
    collective bytes and trace seconds; ``torch.cuda.memory_allocated()``
    the same before and after, no kernel launched.
 
+12a. ``repro_torch.bench.converged`` at full-width, full-depth gemma3-1b
+   on 8 ranks (``repro``'s 8 devices as rank-stacked tensors): its dry
+   run (4 rounds with the train tenant's QoS bucket; each round one
+   explicit-DP step of global batch 16 x 32 and a wave of 4 requests from
+   alice and bob on an ``Engine`` that shares the dataplane; gates: finite
+   losses, every tenant served every round, throttles and ops accounted,
+   the timeline valid with 4 ``train_step`` events), then ``run_all
+   (fast=True)``'s A/B rows (3 rounds, the bucket off and on: train wall,
+   served tokens, throttles).  Launches are exactly what the steps and
+   waves imply: flash with lse and its backward once a layer a rank a
+   step, flash once a layer a prefill (4 a wave), bounce once a rank a
+   gradient psum and once a serve edge, the stall once a rank a psum
+   under the bucket; the peak memory is printed;
+12b. ``repro_torch.bench.serve`` at gemma3-1b's full width,
+   SERVE_BENCH_LAYERS deep: ``run_all(fast=True)``'s gang, fixed-stripe
+   and paged engines at equal KV memory, one repeat (tok/s, p50 / p99
+   TTFT, decode compiles per queue depth); then the dry run's four
+   parts: each engine's tokens the same on a repeat; gang, fixed and
+   paged the same on the uniform stream (else the first differing request
+   is printed); the 80-token prompt refused by the stripe and served by
+   paged, whole and in 16-token chunks, their last logits at cosine >
+   0.99; the equal-memory pair, ``repro``'s timing claims printed beside
+   the numbers, not gated; the tiny pool preempting and restoring, with
+   ``preempt_s``, ``restore_s`` and ``free_blocks`` in its timeline.
+   Flash launches once a layer a whole prefill, nothing else;
+12c. ``repro_torch.bench.npb.run_all``: EP, IS, CG, FT and MG on 8 ranks
+   in bypass, cord and socket mode at ``repro``'s sizes.  Gates: each
+   kernel's output the same bits in every mode; each call's executed
+   collectives as ``repro``'s bodies issue them; bounce launches exactly
+   those a rank and side with work (cord 1, socket 2, bypass none); ms
+   and ``rel_runtime`` a mode; then bounce on an FT transpose shard
+   against its plain version and ``torch.clone``;
+12d. ``repro_torch.examples.npb_demo.main()``: EP, CG and FT, its table;
+12e. ``repro_torch.analysis.roofline`` over 11e's cells, written to a
+   scratch directory: one row a cell, no error row.
+
+Phase 12 runs alone after phase 0 (12e then traces 11e's cells itself):
+``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_bench()"``.
+
 Phase 11's flash rows are timed at each path's own shape and dtype (f32
 in 11a-11c: the smoke gemma3 at D 16, CFG_100M at D 64), the kernel the
 path launches.  Each phase's wall seconds are printed before the summary.
@@ -1974,6 +2013,15 @@ def phase_train_kernels() -> dict:
             "lse_worst_err": lse_worst,
             "o_worst_err": o_worst, "stall_ms_zero": ms0,
             "stall_ns_per_iter": ns}
+
+
+def _stall_bound_ms(iters: int) -> float:
+    """The QoS stall's bound: the delay it is asked to spend, ``iters``
+    steps of a serial chain at the card's calibrated ns a step.  A chain
+    of dependent steps has no rate to go faster at: the stall's time is
+    the emulated cost it exists to spend."""
+    from repro_torch.core import techniques as tech
+    return iters * tech.calibrate(device="cuda") / 1e6
 
 
 def _cpu_throttled(n_ops: int) -> float:
@@ -4708,8 +4756,8 @@ DRYRUN_CELLS = tuple(("gemma3-1b", s, mp)
 
 
 def _flash_path_case(gen, b: int, s: int, heads, dtype, window: int,
-                     lse: bool) -> dict:
-    """The flash kernel at a phase-11 path's shape (B, S, heads (H, KVH,
+                     lse: bool, phase: str = "11") -> dict:
+    """The flash kernel at a phase-11 (or ``phase``) path's shape (B, S, heads (H, KVH,
     D), dtype, window), with or without its lse, against its plain
     version: bf16 output within FLASH_BF16_TOL, f32 within 2e-5, the lse
     within LSE_TOL x max(1, |lse|); its time against its bound
@@ -4739,11 +4787,11 @@ def _flash_path_case(gen, b: int, s: int, heads, dtype, window: int,
     if lse:
         lse_err = (got[1] - want[1]).abs().max().item()
         if not lse_err <= LSE_TOL * max(1.0, want[1].abs().max().item()):
-            raise AssertionError(f"phase 11 flash lse error {lse_err} at "
-                                 f"B={b} S={s} {heads}")
+            raise AssertionError(f"phase {phase} flash lse error {lse_err} "
+                                 f"at B={b} S={s} {heads}")
     if not (math.isfinite(o_err) and o_err <= tol):
-        raise AssertionError(f"phase 11 flash output error {o_err} > {tol} "
-                             f"at B={b} S={s} {heads} {dtype}")
+        raise AssertionError(f"phase {phase} flash output error {o_err} > "
+                             f"{tol} at B={b} S={s} {heads} {dtype}")
     call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     ms = _cuda_ms(call, n=20)
     plain = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), n=5)
@@ -5082,7 +5130,7 @@ def phase_policy_demo() -> dict:
     row = {"iters": iters, "max_abs_err": 0.0,
            "ms": _cuda_ms(lambda: stall.stall(x, n), n=5, warmup=1),
            "plain_ms": _wall_ms(lambda: stall.stall_plain(x, iters), n=2),
-           "bound_ms": 2 * iters / F32_FLOPS * 1e3}
+           "bound_ms": _stall_bound_ms(iters)}
     _line(f"  stall at {iters} iterations (5 ms asked): {row['ms']:.4f} ms,"
           f" plain {row['plain_ms']:.3f} ms{_on_card()}")
     return {"wall_s": wall, "launches": launches, "quota_refused_at": cpu_at,
@@ -5101,10 +5149,11 @@ def phase_dryrun() -> dict:
 
     torch.cuda.synchronize()
     mem0, launches0 = torch.cuda.memory_allocated(), _launches()
-    rows = []
+    rows, records = [], {}
     t0 = time.perf_counter()
     for arch, shape, mp in DRYRUN_CELLS:
         r = dryrun.run_cell(arch, shape, multi_pod=mp)
+        records[f"{arch}__{shape}__{'multi' if mp else 'single'}"] = r
         kind = r["kind"]
         resident = (r["state_bytes_per_device"] if kind == "train"
                     else r["params_bytes_per_device"])
@@ -5130,7 +5179,8 @@ def phase_dryrun() -> dict:
     wall = time.perf_counter() - t0
     _line(f"  11e: {len(rows)} cells in {wall:.1f} s; card memory "
           f"{mem0} bytes before and after, no launch")
-    return {"cells": rows, "wall_s": wall, "memory_allocated": mem0}
+    return {"cells": rows, "wall_s": wall, "memory_allocated": mem0,
+            "records": records}
 
 
 def phase_examples() -> dict:
@@ -5153,6 +5203,410 @@ def phase_examples() -> dict:
           + ", ".join(f"{n} {out[n]['secs']:.1f} s" for n in
                       ("quickstart", "serve_lm", "train_lm", "policy_demo",
                        "dryrun")) + f"){_on_card()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the benchmarks of the paper's evaluation — the converged
+# scenario, the serve comparison, the NPB suite and its demo, the roofline
+# ---------------------------------------------------------------------------
+
+# the serve comparison's depth: one period of gemma3's five sliding-window
+# layers and a global one.  At 26 layers its sweep and parts run about
+# four times as long (host-bound ticks), past phase 12's share of the
+# script's time
+SERVE_BENCH_LAYERS = 6
+NPB_REPS = 3             # npb._measure's timed calls after its warm-up
+NPB_OPS = {"EP": 1, "IS": 8 * 2, "CG": 1 + 12 * 4, "FT": 3 * 2,
+           "MG": 3 * 5 * 2 * 2}   # executed collectives a call
+NPB_SIDES = {"bypass": 0, "cord": 1, "socket": 2}
+
+
+def _param_leaves(cfg) -> int:
+    """The parameter leaves of ``cfg``'s model: the gradient psums of one
+    explicit step (shapes on ``meta``, nothing allocated)."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.launch.dryrun import _abstract_params
+    from repro_torch.models import build_model
+    return len(tree_flatten(_abstract_params(build_model(cfg,
+                                                         device="meta"))))
+
+
+def _converged_launches(rounds: int, runs, layers: int, leaves: int,
+                        throttled: int, constraint_ops: int) -> dict:
+    """The launches ``runs`` converged runs of ``rounds`` rounds imply,
+    ``throttled`` of them with the QoS bucket: per step, flash with its
+    lse and its backward once a layer a rank, bounce once a rank a
+    gradient psum (cord's cost is on the send side only), the stall once a
+    rank a psum under the bucket; per wave, flash once a layer a prefill
+    (each request prefilled once) and bounce once a serve edge."""
+    from repro_torch.bench import converged as conv
+    steps = rounds * runs
+    return {"flash_lse": steps * layers * conv.RANKS,
+            "flash_bwd": steps * layers * conv.RANKS,
+            "flash_attention": steps * layers * (conv.RANKS + conv.WAVE),
+            "bounce": steps * conv.RANKS * leaves + constraint_ops,
+            "bounce_stall": throttled * rounds * conv.RANKS * leaves,
+            "ssm_scan": 0, "ssm_scan_bwd": 0}
+
+
+def phase_converged() -> dict:
+    """12a: ``repro_torch.bench.converged`` at full-width gemma3-1b on
+    conv.RANKS ranks: its dry run (4 throttled rounds and their gates),
+    then ``run_all(fast=True)``'s A/B rows; each run's launches gated."""
+    import torch
+    from repro_torch.bench import converged as conv
+    from repro_torch.configs import get_model_config
+    from repro_torch.core import techniques as tech
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    cfg = get_model_config(conv.ARCH)
+    leaves = _param_leaves(cfg)
+    dps = []
+    real_dp = conv._dataplane
+
+    def capture(*args, **kw):
+        dps.append(real_dp(*args, **kw))
+        return dps[-1]
+
+    def counted():
+        return {**_launches(), "flash_lse": fa.LSE_LAUNCHES}
+
+    def constraint_ops(dp):
+        return dp.telemetry.by_kind().get("constraint", {}).get("ops", 0)
+
+    tech.calibrate(device="cuda")    # its probe launches count nowhere
+    conv._dataplane = capture
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        fa.LSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        dry = conv.dry_run(cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        dry_s = time.perf_counter() - t0
+        dry_launches = counted()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = _converged_launches(4, 1, cfg.num_layers, leaves, 1,
+                                   constraint_ops(dps[-1]))
+        if dry_launches != want:
+            raise AssertionError(f"12a dry run: launches {dry_launches}, "
+                                 f"want {want}")
+        row = dry["row"]
+        if row["train_ops"] != 4 * leaves:
+            raise AssertionError(f"12a: train_ops {row['train_ops']}, want "
+                                 f"{4 * leaves}")
+        del dry
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_launches()
+        fa.LSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        ab = conv.run_all(fast=True, cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        ab_s = time.perf_counter() - t0
+        ab_launches = counted()
+        want = _converged_launches(3, 2, cfg.num_layers, leaves, 1,
+                                   sum(constraint_ops(d) for d in dps[-2:]))
+        if ab_launches != want:
+            raise AssertionError(f"12a A/B: launches {ab_launches}, want "
+                                 f"{want}")
+    finally:
+        conv._dataplane = real_dp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    flash = _flash_path_case(gen, conv.GLOBAL_BATCH // conv.RANKS,
+                             conv.SEQ_LEN, (4, 1, 256), torch.bfloat16, 512,
+                             True, phase="12a")
+    off, on = ab
+    if not (off["train_throttled"] == 0 < on["train_throttled"]):
+        raise AssertionError(f"12a A/B throttles: off {off['train_throttled']},"
+                             f" on {on['train_throttled']}")
+    _line(f"  12a dry run ({conv.RANKS} ranks, full-width {conv.ARCH}, 4 "
+          f"rounds): losses {row['losses']}, served {row['served_tokens']}, "
+          f"train throttled {row['train_throttled']:.0f} of "
+          f"{row['train_ops']:.0f} ops, {dry_s:.1f} s, peak "
+          f"{peak_gb:.2f} GB; launches {dry_launches}{_on_card()}")
+    for r in ab:
+        _line(f"  12a A/B bucket {'on ' if r['throttle_train'] else 'off'}: "
+              f"train wall {r['train_wall_s']:.3f} s over {r['rounds']} "
+              f"rounds, served {r['served_tokens']}, throttled "
+              f"{r['train_throttled']:.0f}, serve wall "
+              f"{sum(d['serve_wall_s'] for d in r['rounds_detail']):.3f} s")
+    return {"ranks": conv.RANKS, "leaves": leaves, "dry_row": row,
+            "flash": flash,
+            "dry_s": dry_s, "peak_gb": peak_gb,
+            "dry_launches": dry_launches, "ab": ab, "ab_s": ab_s,
+            "ab_launches": ab_launches,
+            "launches": {k: dry_launches[k] + ab_launches[k]
+                         for k in dry_launches}}
+
+
+def _counting_prefills(model, counts: dict):
+    """``model`` with its whole prefills counted (a chunk is no prefill)."""
+    import dataclasses
+
+    def prefill(*args, **kw):
+        counts["prefill"] += 1
+        return model.prefill(*args, **kw)
+
+    return dataclasses.replace(model, prefill=prefill)
+
+
+def _first_difference(a: dict, b: dict):
+    for rid in sorted(set(a) | set(b)):
+        if a.get(rid) != b.get(rid):
+            return rid, a.get(rid), b.get(rid)
+    return None
+
+
+def phase_serve_bench() -> dict:
+    """12b: ``repro_torch.bench.serve`` on gemma3-1b at full width,
+    SERVE_BENCH_LAYERS deep: ``run_all(fast=True)``'s three engines (one
+    repeat), then the dry run's four parts, gated as phase 3c gates the
+    same properties on the card."""
+    import torch
+    from repro_torch.bench import serve as sb
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeError
+
+    cfg = _cut("gemma3-1b", SERVE_BENCH_LAYERS)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    counts = {"prefill": 0}
+    cm = _counting_prefills(model, counts)
+    real_build = sb._build
+    sb._build = lambda cfg_=None, device=None: (cfg, cm, params)
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rows = sb.run_all(fast=True, device="cuda", repeats=1)
+    finally:
+        sb._build = real_build
+    sweep_s = time.perf_counter() - t0
+    for r in rows:
+        _line(f"  12b {r['engine']:5s} depth {r['queue_depth']:2d}: "
+              f"{r['tok_s']:.1f} tok/s, TTFT p50 {r['ttft_ms_p50']:.2f} / "
+              f"p99 {r['ttft_ms_p99']:.2f} ms, decode compiles "
+              f"{r['decode_compiles']}{_on_card()}")
+
+    # part 1: each engine's tokens the same on a repeat; gang, fixed and
+    # paged the same on the uniform stream
+    uni = [sb.uniform_runs(cfg, cm, params) for _ in range(2)]
+    for name, toks in uni[0]["tokens"].items():
+        diff = _first_difference(toks, uni[1]["tokens"][name])
+        if diff:
+            raise AssertionError(f"12b {name}: a repeat differs at request "
+                                 f"{diff}")
+    toks = uni[0]["tokens"]
+    for name in ("fixed", "paged"):
+        diff = _first_difference(toks["gang"], toks[name])
+        if diff:
+            raise AssertionError(f"12b uniform stream: gang and {name} "
+                                 f"differ first at request {diff[0]}: "
+                                 f"{diff[1]} vs {diff[2]}")
+        if uni[0]["stats"][name]["decode_compiles"] != 1:
+            raise AssertionError(f"12b {name}: {uni[0]['stats'][name]}")
+    if not uni[0]["paged_active"]:
+        raise AssertionError("12b: paged layout did not activate")
+
+    # part 2: the 80-token prompt refused by the stripe, served by paged;
+    # chunks attend in plain torch and whole prompts through the kernel,
+    # so the two are held by their last logits' cosine, as 3c holds them
+    n_long = 80
+    try:
+        uni[0]["fixed_engine"].run(sb._requests(1, equal_len=n_long))
+        raise AssertionError("12b: the stripe admitted an 80-token prompt")
+    except ServeError:
+        pass
+    last = {}
+    for name, chunk in (("whole", 512), ("chunked", 16)):
+        st = {"prefill": [], "decode": [], "logits": {}}
+        eng = sb._engine(cfg, _timed_model(cm, st), params, "continuous",
+                         block_size=sb.BLOCK, prefill_chunk=chunk)
+        (done,) = eng.run(sb._requests(1, equal_len=n_long))
+        steps = (len(st["prefill"]), len(st.get("chunk", [])))
+        if len(done.out_tokens) != sb.MAX_NEW or \
+                steps != ((1, 0) if chunk > n_long else (0, n_long // chunk)):
+            raise AssertionError(f"12b {name}: {len(done.out_tokens)} "
+                                 f"tokens, (prefills, chunks) {steps}")
+        last[name] = (st["logits"][n_long - 1], list(done.out_tokens))
+    cos = torch.nn.functional.cosine_similarity(
+        last["whole"][0].double(), last["chunked"][0].double(), dim=0).item()
+    if not cos > 0.99:
+        raise AssertionError(f"12b: chunked vs whole last logits cosine "
+                             f"{cos}")
+
+    # part 3: the equal-memory pair; repro's timing claims are printed
+    # beside the numbers, not gated on the card
+    pair = sb.equal_memory_pair(cfg, cm, params, repeats=1)
+    claims = {"tok_s": pair["paged"]["tok_s"] >= pair["fixed"]["tok_s"],
+              "ttft_p99": pair["paged"]["ttft_ms_p99"]
+              <= pair["fixed"]["ttft_ms_p99"]}
+
+    # part 4: the tiny pool preempts and restores, into the timeline
+    pre = sb.preemption_run(cfg, cm, params)
+    rep, doc = pre["report"], pre["doc"]
+    if not (rep["preemptions"] > 0 and rep["restores"] > 0
+            and all(len(t) == sb.MAX_NEW for t in pre["tokens"].values())
+            and {"preempt_s", "restore_s"} <= set(doc["rate_fields"])
+            and "free_blocks" in doc["samples"][-1]["gauges"]):
+        raise AssertionError(f"12b tiny pool: {rep}, rate fields "
+                             f"{doc['rate_fields']}")
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = {"flash_attention": cfg.num_layers * counts["prefill"],
+            "bounce": 0, "bounce_stall": 0, "ssm_scan": 0, "flash_bwd": 0,
+            "ssm_scan_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"12b launches {launches}, want {want} "
+                             f"({counts['prefill']} whole prefills)")
+    wall = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    flash = _flash_path_case(gen, 1, 16, (4, 1, 256), torch.bfloat16, 512,
+                             False, phase="12b")
+    _line(f"  12b parts: uniform stream gang = fixed = paged on "
+          f"{len(toks['gang'])} requests, the same on a repeat; 80-token "
+          f"prompt refused by the stripe, paged whole vs chunked last "
+          f"logits cosine {cos:.6f} (tokens "
+          f"{'equal' if last['whole'][1] == last['chunked'][1] else 'differ'}"
+          f"); tiny pool {rep['preemptions']} preemptions, "
+          f"{rep['restores']} restores")
+    _line(f"  12b equal memory, 18 requests: fixed {pair['fixed']['tok_s']} "
+          f"tok/s p99 {pair['fixed']['ttft_ms_p99']} ms, paged "
+          f"{pair['paged']['tok_s']} tok/s p99 {pair['paged']['ttft_ms_p99']}"
+          f" ms; repro's claims (paged >= fixed tok/s, <= p99 TTFT): "
+          f"{claims} (printed, not gated); {counts['prefill']} whole "
+          f"prefills, launches {launches}; {wall:.1f} s (sweep "
+          f"{sweep_s:.1f} s){_on_card()}")
+    return {"layers": cfg.num_layers, "rows": rows, "pair": pair,
+            "flash": flash,
+            "claims": claims, "chunk_cos": cos, "preempt": rep,
+            "prefills": counts["prefill"], "launches": launches,
+            "sweep_s": sweep_s, "wall_s": wall}
+
+
+def phase_npb() -> dict:
+    """12c-12d: ``repro_torch.bench.npb.run_all`` (all five kernels in
+    bypass, cord and socket mode at ``repro``'s sizes) and
+    ``repro_torch.examples.npb_demo``.  Gates: each kernel's output the
+    same bits in every mode; each call's executed collectives NPB_OPS;
+    bounce launches exactly those collectives a rank and side with work,
+    none in bypass; nothing else launched."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import npb
+    from repro_torch.examples import npb_demo
+
+    deltas = []
+    real = npb._measure
+
+    def measured(fn, arg, rt, reps=NPB_REPS):
+        n0 = _launches()
+        out = real(fn, arg, rt, reps)
+        deltas.append(_delta(n0))
+        return out
+
+    npb._measure = measured
+    outs = {}
+    t0 = time.perf_counter()
+    try:
+        rows = npb.run_all(device="cuda", outputs=outs)
+    finally:
+        npb._measure = real
+    wall = time.perf_counter() - t0
+    for row, d in zip(rows, deltas):
+        ops = 0 if row["mode"] == "bypass" else NPB_OPS[row["bench"]]
+        want = (1 + NPB_REPS) * ops * npb.RANKS * NPB_SIDES[row["mode"]]
+        if row["rt_ops"] != ops or d != {**dict.fromkeys(d, 0),
+                                         "bounce": want}:
+            raise AssertionError(f"12c {row['bench']} {row['mode']}: "
+                                 f"{row['rt_ops']} ops, launches {d}, want "
+                                 f"{ops} ops, {want} bounce")
+    for name in npb.BENCHES:
+        ref = _bits(outs[(name, "bypass")])
+        for mode in ("cord", "socket"):
+            if not torch.equal(_bits(outs[(name, mode)]), ref):
+                raise AssertionError(f"12c {name}: {mode} differs from "
+                                     f"bypass")
+        by = {r["mode"]: r for r in rows if r["bench"] == name}
+        _line(f"  12c {name}: bit-identical in 3 modes; ms bypass "
+              f"{by['bypass']['ms']}, cord {by['cord']['ms']} "
+              f"({by['cord']['rel_runtime']}x), socket "
+              f"{by['socket']['ms']} ({by['socket']['rel_runtime']}x); "
+              f"comm {by['cord']['comm_ops']} traced ops, "
+              f"{by['cord']['rt_ops']} executed{_on_card()}")
+    launches = {k: sum(d[k] for d in deltas) for k in deltas[0]}
+    # the FT transpose's shard through one staged copy: socket's send side
+    ft = outs[("FT", "cord")].reshape(npb.RANKS, 64, 512)
+    shard = torch.view_as_real(ft.to(torch.complex64)
+                               .reshape(npb.RANKS, npb.RANKS, 64, 64)[0]
+                               .contiguous())
+    bounce = _bounce_copy_case(shard)
+    n0 = _launches()
+    t1 = time.perf_counter()
+    demo = npb_demo.main([])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t1
+    demo_launches = _delta(n0)
+    if len(demo) != 9 or demo_launches["bounce"] <= 0:
+        raise AssertionError(f"12d demo: {len(demo)} rows, launches "
+                             f"{demo_launches}")
+    _line(f"phase 12c-12d NPB ok: {len(rows)} rows in {wall:.1f} s, demo "
+          f"{demo_s:.1f} s; bounce launches {launches['bounce']} + demo "
+          f"{demo_launches['bounce']}{_on_card()}")
+    rel = {(r["bench"], r["mode"]): r["rel_runtime"] for r in rows}
+    return {"rows": rows, "demo": demo, "launches": launches,
+            "demo_launches": demo_launches, "bounce": bounce,
+            "wall_s": wall, "demo_s": demo_s,
+            "rel_runtime": {f"{b}/{m}": v for (b, m), v in rel.items()},
+            "max_rel_cord": float(np.max([r["rel_runtime"] for r in rows
+                                          if r["mode"] == "cord"]))}
+
+
+def phase_roofline(records: dict | None) -> dict:
+    """12e: ``repro_torch.analysis.roofline`` over the cells that phase
+    11e traced (traced here when phase 11 did not run), written to a
+    scratch directory: one row a cell, no error row."""
+    import tempfile
+    from repro_torch.analysis import roofline
+
+    if records is None:
+        records = phase_dryrun()["records"]
+    with tempfile.TemporaryDirectory() as d:
+        for tag, rec in records.items():
+            pathlib.Path(d, f"{tag}.json").write_text(json.dumps(rec))
+        rows = roofline.main(["--dryrun-dir", d,
+                              "--out", str(pathlib.Path(d,
+                                                        "roofline.json"))])
+    if len(rows) != len(records) or any("error" in r for r in rows):
+        raise AssertionError(f"12e: {len(rows)} rows for {len(records)} "
+                             f"cells: {rows}")
+    _line(f"phase 12e roofline ok: {len(rows)} rows, dominant "
+          f"{[r['dominant'] for r in rows]}")
+    return {"rows": rows}
+
+
+def phase_bench(records: dict | None = None) -> dict:
+    """Phase 12: 12a-12e, each model freed before the next."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn in (("converged", phase_converged),
+                     ("serve", phase_serve_bench),
+                     ("npb", phase_npb),
+                     ("roofline", lambda: phase_roofline(records))):
+        t = time.perf_counter()
+        out[name] = fn()
+        out[name]["secs"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t0
+    _line(f"phase 12 benchmarks ok in {out['secs']:.1f} s ("
+          + ", ".join(f"{n} {out[n]['secs']:.1f} s" for n in
+                      ("converged", "serve", "npb", "roofline"))
+          + f"){_on_card()}")
     return out
 
 
@@ -5241,6 +5695,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ex = phase_examples()
     lap("11")
+    records = ex["dryrun"].pop("records")
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench = phase_bench(records)
+    lap("12")
 
     def main_path_launches(name):
         return sum(r["launches"][name] for r in serve.values())
@@ -5313,7 +5772,7 @@ def main(argv=None) -> int:
                      "XLA loop beside the Pallas kernel)",
          "launches": train["launches"]["bounce_stall"], "max_abs_err": 0.0,
          "ms": train["stall_ms"], "plain_ms": train["stall_plain_ms"],
-         "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
+         "bound_ms": _stall_bound_ms(stall_iters),
          "bound_by": "operations", "library_ms": None},
     ]
     # phase 6a's path: the GSPMD step's constraint edges and flash forwards
@@ -5393,7 +5852,7 @@ def main(argv=None) -> int:
          "launches": c_launch["bounce_stall"], "max_abs_err": 0.0,
          "ms": train["stall_ms"], "host_us": c_train["stall_host_us"],
          "plain_ms": train["stall_plain_ms"],
-         "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
+         "bound_ms": _stall_bound_ms(stall_iters),
          "bound_by": "operations", "library_ms": None},
     ]
     # phase 9's path: grok-1 serving and training, llava-next
@@ -5520,7 +5979,7 @@ def main(argv=None) -> int:
                      "XLA loop beside the Pallas kernel)",
          "launches": h_tr["launches"]["bounce_stall"], "max_abs_err": 0.0,
          "ms": train["stall_ms"], "plain_ms": train["stall_plain_ms"],
-         "bound_ms": 2 * stall_iters / F32_FLOPS * 1e3,
+         "bound_ms": _stall_bound_ms(stall_iters),
          "bound_by": "operations", "library_ms": None},
     ]
     for row in kernels[-6:]:
@@ -5630,6 +6089,58 @@ def main(argv=None) -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was launched no time on "
                                  f"its path")
+    # phase 12's paths: the converged scenario, the serve comparison, NPB
+    # and its demo (the roofline launches nothing)
+    cv, sv, nb = bench["converged"], bench["serve"], bench["npb"]
+    nbb = nb["bounce"]
+    kernels += [
+        {"name": "bounce (12a converged: the gradient psums of 8 ranks and "
+                 "the serve waves' edges; timed on phase 5's psums)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": cv["launches"]["bounce"],
+         "max_abs_err": train["psum_bounce_err"],
+         "ms": train["psum_bounce_ms"],
+         "device_ms": train["psum_bounce_device_ms"],
+         "plain_ms": train["psum_bounce_plain_ms"],
+         "bound_ms": train["psum_bounce_bound_ms"], "bound_by": "bytes",
+         "library_ms": train["psum_clone_ms"]},
+        {"name": "bounce (12c-12d NPB: every mediated collective of EP, IS, "
+                 "CG, FT and MG in cord and socket mode, and the demo's; "
+                 "timed on an FT transpose shard, 256 KB, one staged copy)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/kernels/dataplane/bounce.py:76",
+         "launches": nb["launches"]["bounce"]
+         + nb["demo_launches"]["bounce"],
+         "max_abs_err": nbb["max_abs_err"], "ms": nbb["ms"],
+         "plain_ms": nbb["plain_ms"], "bound_ms": nbb["bound_ms"],
+         "bound_by": "bytes", "library_ms": nbb["library_ms"]},
+        flash_row("flash_attention (12a converged: the train forward with "
+                  "lse on 8 ranks and the waves' prefills; timed at a "
+                  "rank's 2 x 32, D 256, window 512)",
+                  cv["launches"]["flash_attention"], cv["flash"]),
+        flash_row("flash_attention (12b serve comparison: whole prefills of "
+                  "the three engines, D 256; timed at the 16-token bucket)",
+                  sv["launches"]["flash_attention"], sv["flash"]),
+        {"name": "bounce_stall (QoS stall; 12a the train tenant's bucket)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/dataplane/csrc/bounce.cu",
+         "replaces": "src/repro/core/techniques.py:75 (delay_chain_dyn, an "
+                     "XLA loop beside the Pallas kernel)",
+         "launches": cv["launches"]["bounce_stall"], "max_abs_err": 0.0,
+         "ms": train["stall_ms"], "plain_ms": train["stall_plain_ms"],
+         "bound_ms": _stall_bound_ms(stall_iters),
+         "bound_by": "operations", "library_ms": None},
+        bwd_row("12a converged gemma3-1b on 8 ranks; timed at a rank's B=2 "
+                "S=32, window 512", cv["launches"]["flash_bwd"],
+                cv["flash"]),
+    ]
+    for row in kernels[-6:]:
+        if row["launches"] <= 0:
+            raise AssertionError(f"phase 12: {row['name']} was launched no "
+                                 f"time on its path")
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -5643,6 +6154,7 @@ def main(argv=None) -> int:
                                    "verbs": verbs, "perftest": perf,
                                    "control": control, "moe_vlm": moe,
                                    "families": fam, "examples": ex,
+                                   "bench": bench,
                                    "profile": prof or None,
                                    "phase_s": phase_s,
                                    "kernels": kernels},

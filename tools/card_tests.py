@@ -40,7 +40,8 @@ CARD_TEST_FILES = ("tests/test_torch_attention.py",
                    "tests/test_torch_encdec.py",
                    "tests/test_torch_ssm_bwd_kernel.py",
                    "tests/test_torch_flash_bwd_kernel.py",
-                   "tests/test_torch_flash_f32_kernel.py")
+                   "tests/test_torch_flash_f32_kernel.py",
+                   "tests/test_torch_bench_card.py")
 _STANDING_IN = ("jax", "repro")
 
 
