@@ -1,6 +1,7 @@
 """CoRD core in PyTorch: the Converged Dataplane, its mediation pipeline,
-policies, memory regions, telemetry and the per-tenant counter timelines
-(core/obs.py) with their threshold watchers."""
+policies, memory regions, telemetry, and in core/obs.py the per-tenant
+counter timelines with their threshold watchers and the spans at the
+port's layer boundaries."""
 
 from repro_torch.core.dataplane import Dataplane
 from repro_torch.core.mediation import (
@@ -12,11 +13,17 @@ from repro_torch.core.mediation import (
 from repro_torch.core.mr import MemoryRegion, MRError, MRRegistry
 from repro_torch.core.obs import (
     CounterTimeline,
+    Span,
     ThresholdWatcher,
     WatcherGroup,
+    clear_spans,
     merge_timelines,
+    record_span,
+    recorded_spans,
+    span,
     sparkline,
     TIMELINE_SCHEMA,
+    tracing,
     validate_timeline,
 )
 from repro_torch.core.policies import (
@@ -38,6 +45,8 @@ __all__ = [
     "CounterTimeline", "ThresholdWatcher", "WatcherGroup",
     "merge_timelines", "sparkline", "TIMELINE_SCHEMA",
     "validate_timeline",
+    "Span", "span", "record_span", "recorded_spans", "clear_spans",
+    "tracing",
     "Policy", "PolicyContext", "PolicyViolation",
     "QoSPolicy", "QuotaPolicy", "SecurityPolicy", "TelemetryPolicy",
     "OpRecord", "Telemetry",

@@ -51,6 +51,7 @@ from repro_torch.core import techniques as tech
 from repro_torch.core import telemetry as tl
 from repro_torch.core.mediation import build_pipeline, runtime_state_init
 from repro_torch.core.mr import MRRegistry
+from repro_torch.core.obs import span
 from repro_torch.core.policies import (
     Policy,
     PolicyContext,
@@ -239,10 +240,13 @@ class Dataplane:
         the edge is not a dataplane op and ``x`` is returned untouched."""
         if self.mesh is None:
             return x
-        spec = self.spec(names)
-        rec = self._record("constraint", tag, x, spec, qos, tenant=tenant)
-        x, _ = self.pipeline.send(x, rec, None, self.tenant_index(tenant))
-        return x
+        with span("dataplane.edge", kind="constraint", tag=tag) as s:
+            spec = self.spec(names)
+            rec = self._record("constraint", tag, x, spec, qos,
+                               tenant=tenant)
+            s.note(bytes=rec.bytes)
+            x, _ = self.pipeline.send(x, rec, None, self.tenant_index(tenant))
+            return x
 
     # ------------------------------------------------------------------
     # explicit collectives over rank-stacked tensors — uniform (out, state)
@@ -265,22 +269,24 @@ class Dataplane:
         if per_rank and len(state) != r:
             raise ValueError(f"{kind} over {axis!r} wants {r} per-rank "
                              f"states, got {len(state)}")
-        rec = self._record(kind, tag, x[0], axis, qos, mr, tenant=tenant,
-                           precharged=precharged)
-        ti = self.tenant_index(tenant)
-        sent, states = [], []
-        for i in range(r):
-            xi, st = self.pipeline.send(x[i], rec,
-                                        state[i] if per_rank else state, ti)
-            sent.append(xi)
-            states.append(st)
-        outs = collective(sent)
-        done = []
-        for i in range(r):
-            oi, st = self.pipeline.complete(outs[i], rec, states[i], ti)
-            done.append(oi)
-            states[i] = st
-        return _stack_ranks(done), (states if per_rank else states[0])
+        with span("dataplane.edge", kind=kind, tag=tag) as s:
+            rec = self._record(kind, tag, x[0], axis, qos, mr, tenant=tenant,
+                               precharged=precharged)
+            s.note(bytes=rec.bytes)
+            ti = self.tenant_index(tenant)
+            sent, states = [], []
+            for i in range(r):
+                xi, st = self.pipeline.send(
+                    x[i], rec, state[i] if per_rank else state, ti)
+                sent.append(xi)
+                states.append(st)
+            outs = collective(sent)
+            done = []
+            for i in range(r):
+                oi, st = self.pipeline.complete(outs[i], rec, states[i], ti)
+                done.append(oi)
+                states[i] = st
+            return _stack_ranks(done), (states if per_rank else states[0])
 
     def psum(self, x, axis, tag: str = "psum", mr: str | None = None,
              state=None, qos: str = "default", tenant: str | None = None,

@@ -40,17 +40,31 @@ Everything here is host-side Python + numpy on host floats: no tensor
 reaches the rate math or the watchers.  Counter *names* come from
 core/telemetry.py so the timeline columns can never drift from the
 counter-block layout.
+
+**Spans** (:func:`span`, :func:`record_span`) time the port's layer
+boundaries: the engine's queue wait and host steps, the MoE layer's
+weight casts, each dataplane edge, a train step's ranks and AdamW.
+They record only while a ``torch.profiler`` session records
+(:func:`tracing`), into one in-memory list per process
+(:func:`recorded_spans`, :func:`clear_spans`); a few also record a pair
+of CUDA events, resolved when the list is read.  No span synchronises
+the device or changes a result.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
+import threading
 import time
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from repro_torch.core import telemetry as tl
 
@@ -819,7 +833,135 @@ class WatcherGroup:
                 for k, v in w.gauges().items()}
 
 
+# ---------------------------------------------------------------------------
+# Spans: host intervals at the port's layer boundaries
+# ---------------------------------------------------------------------------
+
+@dataclass(eq=False)
+class Span:
+    """One recorded interval: ``perf_counter_ns`` stamps at its start and
+    end, the id of the span open when it began (``parent``, None at the
+    top), the request it served where there is one, a few attributes
+    (tokens, bytes, an edge's kind and tag, an expert leaf), and for a
+    device-timed span the device milliseconds between CUDA events
+    recorded on the current stream at its edges (None on the CPU, or
+    until :func:`recorded_spans` resolves them)."""
+    id: int
+    name: str
+    parent: int | None
+    start_ns: int
+    end_ns: int | None = None
+    rid: int | None = None
+    attrs: dict = field(default_factory=dict)
+    device_ms: float | None = None
+    events: tuple | None = field(default=None, repr=False)
+
+
+_SPANS: list[Span] = []
+_IDS = itertools.count()
+_OPEN = threading.local()
+
+
+def tracing() -> bool:
+    """Whether spans record: exactly while a ``torch.profiler`` session
+    records (the profiler's own module flag, about 80 ns to test)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Off:
+    """What :func:`span` hands back while nothing records."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def note(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Recording:
+    def __init__(self, name: str, device, rid, attrs: dict):
+        self.name, self.device, self.rid, self.attrs = name, device, rid, \
+            attrs
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.span = s = Span(next(_IDS), self.name,
+                             stack[-1].id if stack else None,
+                             time.perf_counter_ns(), rid=self.rid,
+                             attrs=self.attrs)
+        dev = self.device
+        if dev is not None and torch.device(dev).type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            s.events = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            s.events[0].record(stream)
+            self.stream = stream
+        stack.append(s)
+        _SPANS.append(s)
+        return self
+
+    def __exit__(self, *exc):
+        s = self.span
+        if s.events is not None:
+            s.events[1].record(self.stream)
+        s.end_ns = time.perf_counter_ns()
+        _OPEN.stack.pop()
+        return False
+
+    def note(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.span.attrs.update(attrs)
+
+
+def span(name: str, *, device=None, rid: int | None = None, **attrs):
+    """``with span("engine.tick"): ...`` records the block as a child of
+    the innermost open span, while :func:`tracing`; otherwise it records
+    nothing and costs a call.  With ``device`` a CUDA device, the span is
+    also timed on that device's current stream, synchronising nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name, device, rid, attrs)
+
+
+def record_span(name: str, start_ns: int, end_ns: int, *,
+                rid: int | None = None, **attrs) -> None:
+    """A span from two ``perf_counter_ns`` stamps its caller kept, for an
+    interval that overlaps the spans around it rather than nesting (the
+    engine's queue wait): no parent and no children.  Recorded only while
+    :func:`tracing`."""
+    if _autograd_profiler._is_profiler_enabled:
+        _SPANS.append(Span(next(_IDS), name, None, int(start_ns),
+                           int(end_ns), rid=rid, attrs=attrs))
+
+
+def recorded_spans() -> list[Span]:
+    """This process's spans in the order they began, each closed
+    device-timed span's device milliseconds resolved (waiting for its end
+    event: read them after the work, not inside it)."""
+    for s in _SPANS:
+        if s.events is not None and s.end_ns is not None:
+            s.events[1].synchronize()
+            s.device_ms = s.events[0].elapsed_time(s.events[1])
+            s.events = None
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    """Forget every recorded span."""
+    _SPANS.clear()
+
+
 __all__ = ["CounterTimeline", "ThresholdWatcher", "WatcherGroup",
            "merge_timelines", "sparkline",
            "validate_timeline", "TIMELINE_SCHEMA", "TIMELINE_SCHEMA_V1",
-           "TIMELINE_SCHEMAS", "RATE_FIELDS"]
+           "TIMELINE_SCHEMAS", "RATE_FIELDS",
+           "Span", "span", "record_span", "recorded_spans", "clear_spans",
+           "tracing"]

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.obs import span
+
 # logical axis names of a (layers, batch, kv_seq, kv_heads, head_dim) cache
 KV_CACHE_AXES = (None, "batch", "kv_seq", "kv_heads", "head_dim")
 
@@ -169,16 +171,21 @@ def _geom(pool: dict) -> tuple[torch.device, int]:
 def kv_pool_gather(pool: dict, tables, block_size: int) -> dict:
     """Dense (layers, B, T*block_size, KVH, hd) decode cache from the pool
     by per-slot block table (B, T), one indexing op per leaf.  Rows mapped
-    to the null block read zeros; the slot validity mask hides them."""
+    to the null block read zeros; the slot validity mask hides them.
+    In the engine's paged tick the tables' upload is an ``engine.upload``
+    span and the indexing alone the device-timed ``engine.kv_gather``
+    (core/obs.py), so the gather's device time holds no upload."""
     dev, _ = _geom(pool)
     tables = _host(tables)
     b, t = tables.shape
-    (idx,) = _upload(dev, tables.reshape(-1))
+    with span("engine.upload"):
+        (idx,) = _upload(dev, tables.reshape(-1))
     idx = idx.view(b, t)
     out = {}
-    for name, buf in pool.items():
-        ll, _, bs, kvh, hd = buf.shape
-        out[name] = buf[:, idx].reshape(ll, b, t * bs, kvh, hd)
+    with span("engine.kv_gather", device=dev):
+        for name, buf in pool.items():
+            ll, _, bs, kvh, hd = buf.shape
+            out[name] = buf[:, idx].reshape(ll, b, t * bs, kvh, hd)
     return out
 
 

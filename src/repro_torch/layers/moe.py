@@ -24,7 +24,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core.obs import span
 from repro_torch.layers.common import act_fn, constrain, dense_init
+
+
+def _expert(params: dict, leaf: str, dtype: torch.dtype) -> torch.Tensor:
+    """Expert leaf ``leaf`` in ``dtype``, the cast in a device-timed
+    ``moe.cast`` span.  Each call casts anew, right before its product, so
+    no cast copy outlives the product that reads it."""
+    w = params[leaf]
+    with span("moe.cast", device=w.device, leaf=leaf):
+        return w.to(dtype)
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, cfg: MoEConfig,
@@ -119,9 +129,10 @@ def moe(params: dict, x: torch.Tensor, cfg: MoEConfig, *, act: str = "silu",
     ein = constrain(dp, ein, ("exp_groups", "experts", None, "embed"),
                     tag="moe/expert_in", qos="moe-dispatch")
 
-    h = torch.einsum("gecd,edf->gecf", ein, params["wi"].to(x.dtype))
+    h = torch.einsum("gecd,edf->gecf", ein, _expert(params, "wi", x.dtype))
     if "wg" in params:
-        gate = torch.einsum("gecd,edf->gecf", ein, params["wg"].to(x.dtype))
+        gate = torch.einsum("gecd,edf->gecf", ein,
+                            _expert(params, "wg", x.dtype))
         h = act_fn(act)(gate) * h
     else:
         h = act_fn(act)(h)
@@ -131,7 +142,7 @@ def moe(params: dict, x: torch.Tensor, cfg: MoEConfig, *, act: str = "silu",
     h = constrain(dp, h.contiguous(),
                   ("exp_groups", "experts", None, "expert_mlp"),
                   tag="moe/hidden")
-    eo = torch.einsum("gecf,efd->gecd", h, params["wo"].to(x.dtype))
+    eo = torch.einsum("gecf,efd->gecd", h, _expert(params, "wo", x.dtype))
     eo = constrain(dp, eo.contiguous(),
                    ("exp_groups", "experts", None, "embed"),
                    tag="moe/expert_out")

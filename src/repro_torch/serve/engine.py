@@ -56,6 +56,17 @@ the ``active_slots`` / ``queued`` (and, paged, ``free_blocks``) gauges,
 and only then calls the control-plane hook ``on_tick(engine)``; without
 a timeline the hook is never called.  A snapshot reads no tensor, so
 served tokens are the same with a timeline or without.
+
+**Spans** of the continuous scheduler (core/obs.py; recorded only while
+a ``torch.profiler`` session records): ``engine.queue`` a request from
+its entry into the queue (or its re-queue after a preemption) to its
+grant; ``engine.admit`` around a scheduling round; ``engine.prefill``
+around each whole-prompt prefill; ``engine.tick`` around each decode
+call, holding the paged tick's ``engine.kv_gather`` (device-timed, in
+``kv_pool_gather`` after the block tables' upload) and
+``engine.kv_scatter``;
+``engine.upload`` around each index upload; ``engine.sample`` and
+``engine.emit`` after the tick.
 """
 
 from __future__ import annotations
@@ -70,6 +81,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core import telemetry as tl
 from repro_torch.core.mediation import HostTokenBucket
+from repro_torch.core.obs import record_span, span, tracing
 from repro_torch.core.policies import QoSPolicy
 from repro_torch.layers.kvcache import (
     BlockAllocator,
@@ -103,6 +115,8 @@ class Request:                       # caller-supplied and prompt is an
     out_tokens: list = field(default_factory=list)
     done: bool = False
     t_first: float | None = None     # perf_counter stamp of the first token
+    # perf_counter_ns stamp of the entry into the queue, while spans record
+    t_queued: int | None = field(default=None, repr=False)
 
 
 def sample(logits: torch.Tensor, gen: torch.Generator | None,
@@ -220,17 +234,20 @@ class Engine:
     # model calls (the dataplane edges are issued inside them)
     # ------------------------------------------------------------------
     def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        with span("engine.upload"):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
 
-    def _prefill(self, toks: np.ndarray, last):
+    def _prefill(self, toks: np.ndarray, last, rid: int | None = None):
         """Batch-1 prefill (bucketed, chunk cover, or exact for a recurrent
         model) into a cache of its own; returns (logits, cache), which the
         caller writes into its slot or its pool blocks."""
-        pc = self.model.init_cache(1, toks.shape[1])
-        return self.model.prefill(
-            self.params, {"tokens": self._tensor(toks)},
-            kv_cache_constrain(self.dp, pc), dp=self.dp,
-            last_pos=self._tensor(last))
+        with span("engine.prefill", rid=rid, tokens=toks.shape[1]):
+            pc = self.model.init_cache(1, toks.shape[1])
+            return self.model.prefill(
+                self.params, {"tokens": self._tensor(toks)},
+                kv_cache_constrain(self.dp, pc), dp=self.dp,
+                last_pos=self._tensor(last))
 
     def _chunk(self, toks: np.ndarray, pc, off: int, last):
         """One prefill chunk into the request's batch-1 cache ``pc``."""
@@ -249,8 +266,9 @@ class Engine:
         logits, dense = self.model.decode_step_slots(
             self.params, self._tensor(tok), dense,
             self._tensor(pos, torch.int32), dp=self.dp)
-        return logits, kv_pool_scatter_token(pool, dense, tables, pos, act,
-                                             bs)
+        with span("engine.kv_scatter"):
+            return logits, kv_pool_scatter_token(pool, dense, tables, pos,
+                                                 act, bs)
 
     def _tenant_id(self, tenant: str) -> int:
         return self._tenant_ids.setdefault(tenant, len(self._tenant_ids))
@@ -327,6 +345,22 @@ class Engine:
         if not r.out_tokens:
             r.t_first = time.perf_counter()
         r.out_tokens.append(token)
+
+    @staticmethod
+    def _enqueue(requests) -> None:
+        """Stamp the requests' entry into the queue, while spans record."""
+        if tracing():
+            now = time.perf_counter_ns()
+            for r in requests:
+                r.t_queued = now
+
+    @staticmethod
+    def _dequeue(r: Request) -> None:
+        """Record ``r``'s wait from its queue stamp to its grant."""
+        if r.t_queued is not None:
+            record_span("engine.queue", r.t_queued, time.perf_counter_ns(),
+                        rid=r.rid, tenant=r.tenant, prompt=len(r.prompt))
+            r.t_queued = None
 
     # ------------------------------------------------------------------
     # public entry
@@ -453,6 +487,7 @@ class Engine:
         vecs["pos"][slot] = 0
         ntok[slot] = 0
         self.tenant_stats[r.tenant]["preemptions"] += 1
+        self._enqueue((r,))
         queue.appendleft(r)
 
     def _enforce_budget(self, slots, vecs, ntok, queue) -> None:
@@ -508,7 +543,9 @@ class Engine:
         its first token; a resumed one re-enters with its pending token."""
         limit = min(r.max_new_tokens, self.scfg.max_new_tokens)
         if k == 0:
-            t = int(sample(logits[:, -1, :], gen, self.scfg.temperature)[0])
+            with span("engine.sample", rid=r.rid):
+                t = int(sample(logits[:, -1, :], gen,
+                               self.scfg.temperature)[0])
             self._emit(r, t)
             if t == self.eos_id or limit <= 1:
                 self._finish(r, done)
@@ -536,6 +573,7 @@ class Engine:
         restore its next decode token.  With paging ``cache`` is the
         block pool."""
         scfg = self.scfg
+        self._dequeue(r)
         k = len(r.out_tokens)            # > 0 ⇒ resume after preemption
         eff = self._resume_len(r)
         seq = (np.concatenate([np.asarray(r.prompt, np.int32),
@@ -563,7 +601,7 @@ class Engine:
             self._slot_seq += 1
             self._slot_started[slot] = self._slot_seq
             return
-        logits, pc = self._prefill(toks, np.asarray([eff - 1]))
+        logits, pc = self._prefill(toks, np.asarray([eff - 1]), r.rid)
         if self.paged:
             kv_pool_insert(cache, pc, ids, scfg.block_size)
         else:
@@ -690,13 +728,15 @@ class Engine:
         ntok = np.zeros(B, np.int32)
         slots: list[Request | None] = [None] * B
         queue = deque(requests)
+        self._enqueue(queue)
         done: list[Request] = []
         starved = 0
 
         while queue or vecs["active"].any() or self._prefills:
-            self._enforce_budget(slots, vecs, ntok, queue)
-            granted = self._fill_slots(slots, queue, cache, vecs, tok, ntok,
-                                       done, gen)
+            with span("engine.admit"):
+                self._enforce_budget(slots, vecs, ntok, queue)
+                granted = self._fill_slots(slots, queue, cache, vecs, tok,
+                                           ntok, done, gen)
             if self._prefill_q:          # one chunk per tick, interleaved
                 self._advance_chunk(cache, slots, vecs, tok, ntok, done, gen)
             if self.paged:               # claim this tick's write blocks
@@ -716,30 +756,36 @@ class Engine:
                 continue
             starved = 0
 
-            if self.paged:
-                self._decode_shapes.add(("pool", B,
-                                         self._tables_len * scfg.block_size))
-                logits, cache = self._step_pool(tok, cache, self._tables,
-                                                vecs["pos"], vecs["active"])
-            else:
-                self._decode_shapes.add(("slots", B, scfg.kv_cache_len))
-                logits, cache = self.model.decode_step_slots(
-                    self.params, self._tensor(tok), cache,
-                    self._tensor(vecs["pos"], torch.int32), dp=self.dp)
-            nxt = sample(logits[:, -1, :], gen, scfg.temperature).cpu().numpy()
-            for i in active:
-                r = slots[i]
-                t = int(nxt[i])
-                self._emit(r, t)
-                self.tenant_stats[r.tenant]["occupancy_steps"] += 1
-                ntok[i] += 1
-                vecs["pos"][i] += 1
-                tok[i, 0] = t
-                if t == self.eos_id or \
-                        ntok[i] >= min(r.max_new_tokens, scfg.max_new_tokens):
-                    self._finish(r, done)
-                    slots[i] = None
-                    self._release_slot(i, vecs)
+            with span("engine.tick", tokens=len(active)):
+                if self.paged:
+                    self._decode_shapes.add(
+                        ("pool", B, self._tables_len * scfg.block_size))
+                    logits, cache = self._step_pool(
+                        tok, cache, self._tables, vecs["pos"],
+                        vecs["active"])
+                else:
+                    self._decode_shapes.add(("slots", B, scfg.kv_cache_len))
+                    logits, cache = self.model.decode_step_slots(
+                        self.params, self._tensor(tok), cache,
+                        self._tensor(vecs["pos"], torch.int32), dp=self.dp)
+            with span("engine.sample"):
+                nxt = sample(logits[:, -1, :], gen,
+                             scfg.temperature).cpu().numpy()
+            with span("engine.emit"):
+                for i in active:
+                    r = slots[i]
+                    t = int(nxt[i])
+                    self._emit(r, t)
+                    self.tenant_stats[r.tenant]["occupancy_steps"] += 1
+                    ntok[i] += 1
+                    vecs["pos"][i] += 1
+                    tok[i, 0] = t
+                    if t == self.eos_id or \
+                            ntok[i] >= min(r.max_new_tokens,
+                                           scfg.max_new_tokens):
+                        self._finish(r, done)
+                        slots[i] = None
+                        self._release_slot(i, vecs)
             self._obs_snapshot(active=int(vecs["active"].sum()),
                                queued=len(queue))
         return done

@@ -29,6 +29,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.obs import span
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.optim.adamw import adamw_init, adamw_update, warmup_cosine
@@ -116,14 +117,16 @@ def rank_grads(model, params: dict, batch: dict, n_ranks: int, *,
 
     losses, metrics, stacked = [], [], None
     for r in range(n_ranks):
-        shard = tree_map(lambda x: x[r * per:(r + 1) * per], batch)
-        (loss, m), grads = _accumulate(loss_fn, params, shard, microbatch)
-        if stacked is None:
-            stacked = tree_map(lambda g: torch.empty(
-                (n_ranks,) + tuple(g.shape), dtype=g.dtype,
-                device=g.device), grads)
-        tree_map(lambda buf, g: buf[r].copy_(g), stacked, grads)
-        del grads
+        with span("train.rank_grads", rank=r):
+            shard = tree_map(lambda x: x[r * per:(r + 1) * per], batch)
+            (loss, m), grads = _accumulate(loss_fn, params, shard,
+                                           microbatch)
+            if stacked is None:
+                stacked = tree_map(lambda g: torch.empty(
+                    (n_ranks,) + tuple(g.shape), dtype=g.dtype,
+                    device=g.device), grads)
+            tree_map(lambda buf, g: buf[r].copy_(g), stacked, grads)
+            del grads
         losses.append(loss)
         metrics.append(m)
     return losses, metrics, stacked
@@ -186,8 +189,9 @@ def make_train_step(model, run, dp, *, total_steps: int | None = None,
     def step_fn(state: TrainState, batch):
         (loss, metrics), grads = _accumulate(loss_fn, state.params, batch,
                                              tcfg.microbatch)
-        new_params, new_opt, stats = adamw_update(
-            grads, state.opt, state.params, tcfg, schedule)
+        with span("train.adamw", device=state.step.device):
+            new_params, new_opt, stats = adamw_update(
+                grads, state.opt, state.params, tcfg, schedule)
         metrics = {**metrics, **stats}
         return TrainState(params=new_params, opt=new_opt,
                           step=state.step + 1, err=state.err), metrics
@@ -246,8 +250,9 @@ def make_explicit_dp_step(model, run, dp, *, axis: str = "data",
             err_state=err, state=rt)
         metrics = tree_map(lambda *ms: _pmean(list(ms)), *rank_metrics)
         mean = tree_map(lambda g: g[0], grads)
-        new_params, new_opt, stats = adamw_update(
-            mean, state.opt, state.params, tcfg, schedule)
+        with span("train.adamw", device=state.step.device):
+            new_params, new_opt, stats = adamw_update(
+                mean, state.opt, state.params, tcfg, schedule)
         metrics = {**metrics, **stats}
         return TrainState(params=new_params, opt=new_opt,
                           step=state.step + 1,
