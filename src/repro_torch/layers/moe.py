@@ -9,10 +9,17 @@ not depend on which other rows share the batch — continuous batching ≡
 gang decode and exact slot preempt / resume at temperature 0.
 
 Parameters: ``router`` (D, E), ``wi`` / ``wg`` (E, D, F), ``wo`` (E, F, D),
-and arctic's ``dense`` residual MLP.  Every matrix product is a plain
-``einsum``, as ``repro`` computes them outside any Pallas kernel; the six
-``moe/*`` edges go through the dataplane (``dp``), the dispatch and
-combine edges in the ``"moe-dispatch"`` QoS class.
+and arctic's ``dense`` residual MLP.  The expert leaves meet the
+activations in the activations' dtype: a caller that serves fixed
+weights hands in the tree of :func:`held_experts`, whose expert leaves
+were cast once for every layer (the serving engine does), and the layer
+casts only a leaf that arrives in another dtype, on every call (training,
+whose float32 leaves change each step and take the gradient).
+
+Every matrix product is a plain ``einsum``, as ``repro`` computes them
+outside any Pallas kernel; the six ``moe/*`` edges go through the
+dataplane (``dp``), the dispatch and combine edges in the
+``"moe-dispatch"`` QoS class.
 
 One-hot masks are comparisons with an ``arange``, never ``F.one_hot``:
 that raises on the -1 of a dropped slot (``jax.nn.one_hot(-1)`` is a
@@ -25,16 +32,63 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.obs import span
+from repro_torch.core.tree import tree_flatten
 from repro_torch.layers.common import act_fn, constrain, dense_init
 
 
+EXPERT_LEAVES = ("wi", "wg", "wo")
+
+
 def _expert(params: dict, leaf: str, dtype: torch.dtype) -> torch.Tensor:
-    """Expert leaf ``leaf`` in ``dtype``, the cast in a device-timed
-    ``moe.cast`` span.  Each call casts anew, right before its product, so
-    no cast copy outlives the product that reads it."""
+    """Expert leaf ``leaf`` in ``dtype``, in a device-timed ``moe.cast``
+    span whose ``held`` says whether the leaf arrived in ``dtype`` already
+    (a :func:`held_experts` tree: ``to`` hands it back, nothing is cast).
+    Otherwise the leaf is cast here, on every call, right before its
+    product, so no cast copy outlives the product that reads it."""
     w = params[leaf]
-    with span("moe.cast", device=w.device, leaf=leaf):
+    with span("moe.cast", device=w.device, leaf=leaf,
+              held=w.dtype == dtype):
         return w.to(dtype)
+
+
+def _expert_leaves(params: dict):
+    """``(path, leaf)`` of each expert leaf of every ``moe`` subtree of
+    ``params``; arctic's ``dense`` residual is no expert."""
+    for path, w in tree_flatten(params):
+        if path[-2:-1] == ("moe",) and path[-1] in EXPERT_LEAVES:
+            yield path, w
+
+
+def held_bytes(params: dict, dtype: torch.dtype) -> int:
+    """Bytes :func:`held_experts` would allocate for ``params``: its expert
+    leaves not in ``dtype`` already, at ``dtype``'s width."""
+    return sum(w.numel() * dtype.itemsize
+               for _, w in _expert_leaves(params) if w.dtype != dtype)
+
+
+def held_experts(params: dict, dtype: torch.dtype) -> dict:
+    """``params`` with every ``moe`` subtree's expert leaves (``wi``,
+    ``wg``, ``wo``, stacked over layers) cast to ``dtype`` once, for a
+    caller that serves fixed weights: the layer's slice of a held leaf is
+    the bf16 value its per-call cast would make, bit for bit.  Dicts on
+    the way to a cast leaf are shallow copies; every other leaf and dict
+    is the caller's own, and the caller's tree is never changed.  A leaf
+    already in ``dtype`` is not copied, so a tree with nothing to cast is
+    returned as it is."""
+    out = params
+    for path, w in _expert_leaves(params):
+        if w.dtype == dtype:
+            continue
+        if out is params:
+            out = dict(params)
+        node, src = out, params
+        for k in path[:-1]:
+            src = src[k]
+            if node[k] is src:          # not copied yet
+                node[k] = dict(src)
+            node = node[k]
+        node[path[-1]] = w.to(dtype)
+    return out
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, cfg: MoEConfig,
@@ -131,9 +185,13 @@ def moe(params: dict, x: torch.Tensor, cfg: MoEConfig, *, act: str = "silu",
 
     h = torch.einsum("gecd,edf->gecf", ein, _expert(params, "wi", x.dtype))
     if "wg" in params:
-        gate = torch.einsum("gecd,edf->gecf", ein,
-                            _expert(params, "wg", x.dtype))
-        h = act_fn(act)(gate) * h
+        gate = act_fn(act)(torch.einsum("gecd,edf->gecf", ein,
+                                        _expert(params, "wg", x.dtype)))
+        # the product in place of the activation where autograd keeps
+        # neither (serving): one (G, E, C, F) buffer less at the layer's
+        # peak, the same products
+        h = gate * h if gate.requires_grad or h.requires_grad \
+            else gate.mul_(h)
     else:
         h = act_fn(act)(h)
     # the expert products are batched over E, so with more than one group
@@ -167,4 +225,4 @@ def moe(params: dict, x: torch.Tensor, cfg: MoEConfig, *, act: str = "silu",
     return out, aux
 
 
-__all__ = ["moe_init", "moe", "route"]
+__all__ = ["moe_init", "moe", "route", "held_experts", "held_bytes"]

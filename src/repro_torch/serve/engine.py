@@ -49,6 +49,17 @@ start.
 
 ``scheduler="gang"`` keeps the batch-to-completion baseline.
 
+**Held expert weights**: serving never changes the weights, so the
+engine hands every model call a tree whose MoE expert leaves were cast
+to the compute dtype once (``layers/moe.held_experts``), not the float32
+leaves the layer would cast on every call; ``Engine.params`` stays the
+caller's tree.  The copy is made where the device's available memory
+(free, plus what the caching allocator holds unallocated) is at least
+twice its size, so that as much again is left for serving; otherwise
+the calls cast per call as before.  Each ``run`` first makes the copy
+again if ``params`` was reassigned or a leaf of it was replaced or
+changed in place.
+
 **Timelines** (``Engine(..., obs=CounterTimeline(...))``, core/obs.py):
 every ``obs_every``-th decode tick appends one snapshot of the serve
 counter block (:meth:`Engine.runtime_counters`, host arithmetic) with
@@ -72,6 +83,7 @@ call, holding the paged tick's ``engine.kv_gather`` (device-timed, in
 from __future__ import annotations
 
 import time
+import weakref
 from collections import Counter, defaultdict, deque
 from dataclasses import dataclass, field
 
@@ -83,6 +95,8 @@ from repro_torch.core import telemetry as tl
 from repro_torch.core.mediation import HostTokenBucket
 from repro_torch.core.obs import record_span, span, tracing
 from repro_torch.core.policies import QoSPolicy
+from repro_torch.core.tree import tree_flatten
+from repro_torch.layers.common import dtype_of
 from repro_torch.layers.kvcache import (
     BlockAllocator,
     kv_cache_constrain,
@@ -94,6 +108,7 @@ from repro_torch.layers.kvcache import (
     slot_vectors_init,
     state_slot_insert,
 )
+from repro_torch.layers.moe import held_bytes, held_experts
 
 # Bound on consecutive all-throttled refill rounds before the engine
 # force-admits the queue head (guarantees progress under any rate config).
@@ -135,6 +150,27 @@ def prompt_bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _copy_fits(nbytes: int, device) -> bool:
+    """Whether a copy of ``nbytes`` leaves at least ``nbytes`` more of the
+    device's memory available: the free bytes CUDA reports plus what the
+    caching allocator holds unallocated.  Always on the CPU."""
+    if torch.device(device).type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    avail = free + torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+    return avail - nbytes >= nbytes
+
+
+def _changed(tree: dict, seen: list) -> bool:
+    """Whether ``tree`` differs from what ``seen`` recorded of it: a leaf
+    added, removed or replaced, or one written in place (its version)."""
+    leaves = tree_flatten(tree)
+    return len(leaves) != len(seen) or any(
+        p != q or ref() is not t or t._version != v
+        for (p, t), (q, ref, v) in zip(leaves, seen))
 
 
 class WFQScheduler:
@@ -229,6 +265,34 @@ class Engine:
         # per-run chunk state (reset by _run_continuous)
         self._prefills: dict[int, dict] = {}
         self._prefill_q: deque = deque()
+        self._hold()
+
+    @property
+    def params(self) -> dict:
+        """The caller's parameter tree; assigning one drops the held copy
+        of the old one at once, and the next ``run`` holds the new one."""
+        return self._params
+
+    @params.setter
+    def params(self, tree: dict) -> None:
+        self._params = tree
+        self._held = self._seen = None
+
+    def _hold(self) -> None:
+        """Make the tree the model calls get, ``params`` with its expert
+        leaves held in the compute dtype where the copy fits (the module
+        docstring), unless the one made last still matches ``params``."""
+        tree, dtype = self._params, dtype_of(self.cfg.dtype)
+        if not isinstance(tree, dict):  # no tree: nothing to hold
+            self._held = tree
+            return
+        if self._seen is not None and not _changed(tree, self._seen):
+            return
+        self._held = None               # the old copy goes before the new
+        fits = _copy_fits(held_bytes(tree, dtype), self.device)
+        self._held = held_experts(tree, dtype) if fits else tree
+        self._seen = [(p, weakref.ref(t), t._version)
+                      for p, t in tree_flatten(tree)]
 
     # ------------------------------------------------------------------
     # model calls (the dataplane edges are issued inside them)
@@ -245,14 +309,14 @@ class Engine:
         with span("engine.prefill", rid=rid, tokens=toks.shape[1]):
             pc = self.model.init_cache(1, toks.shape[1])
             return self.model.prefill(
-                self.params, {"tokens": self._tensor(toks)},
+                self._held, {"tokens": self._tensor(toks)},
                 kv_cache_constrain(self.dp, pc), dp=self.dp,
                 last_pos=self._tensor(last))
 
     def _chunk(self, toks: np.ndarray, pc, off: int, last):
         """One prefill chunk into the request's batch-1 cache ``pc``."""
         return self.model.prefill_chunk(
-            self.params, {"tokens": self._tensor(toks)},
+            self._held, {"tokens": self._tensor(toks)},
             kv_cache_constrain(self.dp, pc), off, dp=self.dp,
             last_pos=self._tensor(last))
 
@@ -264,7 +328,7 @@ class Engine:
         bs = self.scfg.block_size
         dense = kv_pool_gather(pool, tables, bs)
         logits, dense = self.model.decode_step_slots(
-            self.params, self._tensor(tok), dense,
+            self._held, self._tensor(tok), dense,
             self._tensor(pos, torch.int32), dp=self.dp)
         with span("engine.kv_scatter"):
             return logits, kv_pool_scatter_token(pool, dense, tables, pos,
@@ -378,6 +442,7 @@ class Engine:
         if sched not in ("continuous", "gang"):
             raise ValueError(f"unknown scheduler {sched!r}; "
                              f"expected 'continuous' or 'gang'")
+        self._hold()
         if sched == "continuous":
             return self._run_continuous(list(requests), gen)
         for r in requests:
@@ -766,7 +831,7 @@ class Engine:
                 else:
                     self._decode_shapes.add(("slots", B, scfg.kv_cache_len))
                     logits, cache = self.model.decode_step_slots(
-                        self.params, self._tensor(tok), cache,
+                        self._held, self._tensor(tok), cache,
                         self._tensor(vecs["pos"], torch.int32), dp=self.dp)
             with span("engine.sample"):
                 nxt = sample(logits[:, -1, :], gen,
@@ -804,7 +869,7 @@ class Engine:
             cache_len = prompt_len + self.scfg.max_new_tokens + 1
             cache = self.model.init_cache(b, cache_len)
             logits, cache = self.model.prefill(
-                self.params, {"tokens": self._tensor(toks)},
+                self._held, {"tokens": self._tensor(toks)},
                 kv_cache_constrain(self.dp, cache), dp=self.dp)
             tok = sample(logits[:, -1, :], gen, self.scfg.temperature)[:, None]
             limits = [min(r.max_new_tokens, self.scfg.max_new_tokens)
@@ -821,8 +886,8 @@ class Engine:
                     break
                 self._decode_shapes.add(("gang", b, cache_len))
                 logits, cache = self.model.decode_step(
-                    self.params, tok.to(torch.int64), cache, prompt_len + i,
-                    dp=self.dp)
+                    self._held, tok.to(torch.int64), cache,
+                    prompt_len + i, dp=self.dp)
                 tok = sample(logits[:, -1, :], gen,
                              self.scfg.temperature)[:, None]
                 arr = tok[:, 0].cpu().numpy()
