@@ -34,16 +34,14 @@ def _ints(text: str) -> list[int]:
 
 
 def readings(ctx, seeds, control_seeds, fault_seeds, emit) -> None:
-    from cordbench import check, faults, weights
+    from cordbench import cells, check, faults, weights
     from cordbench.common import release
-    kind = ctx.cell.mix["driver"]
-    drv = __import__(f"cordbench.drivers.{kind}", fromlist=["run"])
-    names = faults.SERVE_FAULTS if kind == "serve_waves" \
-        else faults.TRAIN_FAULTS
+    drv = cells.driver(ctx.cell)
+    names = faults.FAULTS[drv.KIND]
     cfg = ctx.cell.model_config()
     for seed in seeds:
         ctx.seed = seed
-        if kind == "serve_waves":
+        if drv.KIND == "serve":
             params = weights.make(cfg, seed, ctx.device)
             p = drv.program(ctx, params)
             emit(seed, "program", drv.reference_readings(

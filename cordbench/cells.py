@@ -1,8 +1,9 @@
 """A cell of `BENCHMARK.json` and the files it names, found by name: its
 configuration (`configs/<config>.json`), its traffic mix
 (`traffic/<traffic>.json`), its limits (`limits/<workload>.json`), its
-driver (`drivers/<driver>.py`, named by the mix) and the readers of its
-per-layer metrics (`metrics/<metric>.py`)."""
+driver (`drivers/<driver>.py`, named by the mix), its model's family
+(`families/<family>.py`, named by the configuration) and the readers of
+its per-layer metrics (`metrics/<metric>.py`)."""
 
 from __future__ import annotations
 
@@ -27,10 +28,15 @@ class Cell:
     per_layer: list
 
     def model_config(self):
-        """The port's ModelConfig built from the configuration file."""
+        """The port's config of the configuration file's ``model``: its
+        family file's ``model_config(m)`` where it has one (a config class
+        of the port alone), else the port's ModelConfig."""
+        m = dict(self.config["model"])
+        fam = family(m["family"])
+        if hasattr(fam, "model_config"):
+            return fam.model_config(m)
         from repro_torch.configs.base import (AttentionConfig, ModelConfig,
                                               MoEConfig, SSMConfig)
-        m = dict(self.config["model"])
         m["attention"] = AttentionConfig(**m["attention"])
         m["moe"] = MoEConfig(**m["moe"])
         m["ssm"] = SSMConfig(**m["ssm"])
@@ -42,8 +48,11 @@ def _json(path: pathlib.Path) -> dict:
         return json.load(f)
 
 
-def load(workload: str, bench_path: pathlib.Path | None = None) -> Cell:
-    bench = _json(bench_path or ROOT / "BENCHMARK.json")
+def load(workload: str, bench: dict | pathlib.Path | None = None) -> Cell:
+    """Cell ``workload`` of ``bench`` (BENCHMARK.json's contents or its
+    path; the repo's by default)."""
+    if not isinstance(bench, dict):
+        bench = _json(bench or ROOT / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json; known: "
@@ -69,7 +78,23 @@ def _module(path: pathlib.Path, name: str):
 
 
 def driver(cell: Cell):
+    """The driver the cell's mix names: a module with ``run(ctx)`` and
+    ``KIND`` (``"serve"`` or ``"train"``)."""
     return importlib.import_module(f"cordbench.drivers.{cell.mix['driver']}")
+
+
+def family(name: str):
+    """What the harness needs of model family ``name``, from
+    ``families/<name>.py``: ``layout(cfg)``, ``attention_windows(m)``,
+    ``request_flops`` / ``logits_at`` where the family serves,
+    ``train_step_flops`` / ``loss`` where it trains, and optionally
+    ``model_config(m)``."""
+    if not (HERE / "families" / f"{name}.py").is_file():
+        known = sorted(p.stem for p in (HERE / "families").glob("*.py")
+                       if p.stem != "__init__")
+        raise KeyError(f"no family {name!r} under cordbench/families/; "
+                       f"known: {known}")
+    return importlib.import_module(f"cordbench.families.{name}")
 
 
 def reader(metric: str):

@@ -17,13 +17,12 @@ import time
 import numpy as np
 import torch
 
-from cordbench import check, flops, stats, traffic_gen, weights
+from cordbench import cells, check, stats, traffic_gen, weights
 from cordbench.common import Outcome, log, peak_bytes, release
-from cordbench.reference import moe_lm
 from cordbench.reference.common import Precision, float32_exact
 from cordbench.trace import Profiled, Spans, spanned_model
 
-REFERENCES = {"moe": moe_lm.logits_at}
+KIND = "serve"
 
 
 class Stamps(list):
@@ -84,6 +83,28 @@ def warm_lengths(mix: dict) -> list[int]:
     return sorted(set(out))
 
 
+def profiled_wave(eng, reqs, spans, mix: dict):
+    """Serve the first wave with its profiled slice: the whole wave, or
+    where the mix states ``trace_calls`` ``[lo, hi]`` its model calls lo
+    to hi - 1 (a wave whose every call launches thousands of operations
+    would take the profiler minutes to read).  Returns (Profiled, the
+    slice's rows of ``spans``)."""
+    r0 = len(spans.rows)
+    prof = Profiled(spans.device)
+    if "trace_calls" not in mix:
+        with prof:
+            eng.run(reqs)
+        return prof, (r0, len(spans.rows))
+    lo, hi = (r0 + int(c) for c in mix["trace_calls"])
+    spans.before = {lo: prof.__enter__,
+                    hi: lambda: prof.__exit__(None, None, None)}
+    eng.run(reqs)
+    if spans.before:
+        raise ValueError(f"trace_calls {mix['trace_calls']} reach past the "
+                         f"wave's {len(spans.rows) - r0} model calls")
+    return prof, (lo, hi)
+
+
 def requests(specs: list, rid0: int):
     from repro_torch.serve import Request
     return [Request(rid=rid0 + i, prompt=s["prompt"],
@@ -120,14 +141,11 @@ def program(ctx, params) -> dict:
                         i * 1_000_000)
         t_sub = time.perf_counter()
         if ctx.trace and i == 0:
-            r0 = len(spans.rows)
-            with Profiled(ctx.device) as prof:
-                eng.run(reqs)
-            slice_rows = (r0, len(spans.rows))
+            prof, slice_rows = profiled_wave(eng, reqs, spans, mix)
         else:
             eng.run(reqs)
         t_ret = time.perf_counter()
-        waves.append({"submit": t_sub, "requests": reqs})
+        waves.append({"submit": t_sub, "requests": reqs, "s": t_ret - t_sub})
         if t_ret - t0 >= ctx.seconds:
             break
     window_s = t_ret - t0
@@ -157,7 +175,8 @@ def program(ctx, params) -> dict:
     occupancy = sum(s["occupancy_steps"]
                     for s in eng.tenant_stats.values()) - occ0
     failed = sum(not r["ok"] for r in rows)
-    log(f"window {window_s:.2f} s: {len(waves)} waves, {len(rows)} "
+    log(f"window {window_s:.2f} s: {len(waves)} waves "
+        f"{[round(w['s'], 2) for w in waves]} s, {len(rows)} "
         f"requests, {served} tokens, {failed} failed; peak "
         f"{peak / 1e9:.2f} GB")
     del eng
@@ -194,13 +213,14 @@ def reference_readings(ctx, params, rows, control: bool = False,
     products at the same positions (the check's control).  With ``look``
     the five widest gaps come with the nearest routing tie at their
     position (the smallest margin between a token's k-th and next expert
-    over the layers) beside the median position's."""
+    over the layers, where the family routes) beside the median
+    position's."""
     mix = ctx.cell.mix
     m = ctx.cell.config["model"]
     sample = check.sample_requests([r for r in rows if r["ok"]], ctx.seed,
                                    mix["check"]["sample_tokens"],
                                    mix["check"]["max_requests"])
-    ref = REFERENCES[m["family"]]
+    ref = cells.family(m["family"]).logits_at
     gaps, ties = [], []
     t0 = time.perf_counter()
     with float32_exact():
@@ -212,7 +232,7 @@ def reference_readings(ctx, params, rows, control: bool = False,
                                device=ctx.device)
             margins = [] if look else None
             logits = ref(params, m, seq, pos, Precision(), margins=margins)
-            if look:
+            if margins:
                 ties.append(torch.stack(margins).min(0).values[pos].cpu()
                             .numpy())
             tokens = r["tokens"]
@@ -223,17 +243,21 @@ def reference_readings(ctx, params, rows, control: bool = False,
     out = check.gap_readings(np.concatenate(gaps)) if gaps else \
         {"widest_gap": float("inf")}
     if look and gaps:
-        g, t = np.concatenate(gaps), np.concatenate(ties)
+        g = np.concatenate(gaps)
         worst = np.argsort(-g)[:5]
-        out["look"] = {"widest": [[float(g[i]), float(t[i])] for i in worst],
-                       "median_tie": float(np.median(t)),
+        out["look"] = {"widest": [[float(g[i])] for i in worst],
                        "gaps_over_1e-3": int((g > 1e-3).sum())}
+        if ties:
+            t = np.concatenate(ties)
+            out["look"].update(
+                widest=[[float(g[i]), float(t[i])] for i in worst],
+                median_tie=float(np.median(t)))
     out.update(requests_compared=len(sample),
                reference_s=time.perf_counter() - t0)
     return out
 
 
 def request_flops(m: dict, rows) -> float:
-    return float(sum(flops.serve_request_flops(m, len(r["prompt"]),
-                                               len(r["tokens"]))
+    fam = cells.family(m["family"])
+    return float(sum(fam.request_flops(m, len(r["prompt"]), len(r["tokens"]))
                      for r in rows))

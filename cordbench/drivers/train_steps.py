@@ -21,12 +21,13 @@ import time
 import numpy as np
 import torch
 
-from cordbench import check, flops, traffic_gen, weights
+from cordbench import cells, check, traffic_gen, weights
 from cordbench.common import Outcome, log, peak_bytes, release
 from cordbench.reference import train as ref_train
 from cordbench.reference.common import Precision, float32_exact
 from cordbench.trace import Profiled, Spans
 
+KIND = "train"
 PROFILED_STEPS = 2
 
 
@@ -156,7 +157,8 @@ def reference(ctx, batches_, prec: str = "float32") -> dict:
     params = weights.make(ctx.cell.model_config(), ctx.seed, ctx.device)
     t0 = time.perf_counter()
     with float32_exact():
-        out = ref_train.train(params, ctx.cell.config["model"],
+        m = ctx.cell.config["model"]
+        out = ref_train.train(cells.family(m["family"]).loss, params, m,
                               [(tokens[i], labels[i]) for i in range(n)],
                               mix["train"], Precision(prec),
                               rows=int(mix["check"]["rows"]))
@@ -187,6 +189,5 @@ def run(ctx) -> Outcome:
 
 
 def step_flops(m: dict, mix: dict) -> float:
-    from cordbench.reference.common import layer_windows
-    return float(flops.train_step_flops(m, mix["global_batch"],
-                                        mix["seq_len"], layer_windows(m)))
+    return float(cells.family(m["family"]).train_step_flops(
+        m, mix["global_batch"], mix["seq_len"]))

@@ -21,6 +21,7 @@ import torch
 
 TRAIN_FAULTS = ("frozen_state", "half_batch", "no_exchange")
 SERVE_FAULTS = ("altered_token",)
+FAULTS = {"train": TRAIN_FAULTS, "serve": SERVE_FAULTS}    # by driver KIND
 
 
 @contextlib.contextmanager

@@ -72,73 +72,79 @@ def scan_bwd(b: int, s: int, di: int, n: int, *, elem: int = 4):
 
 
 # ---------------------------------------------------------------------------
-# model FLOPs
+# model FLOPs: the pieces that a family's file (`cordbench/families/`)
+# composes into its `request_flops` and `train_step_flops`
 # ---------------------------------------------------------------------------
 
-def _head_dim(m: dict) -> int:
+def head_dim(m: dict) -> int:
     a = m["attention"]
     return a["head_dim"] or m["d_model"] // a["num_heads"]
 
 
-def layer_matmul_params(m: dict) -> int:
-    """Weights one token multiplies in one layer: attention projections,
-    the MLP, or the router and the top-k experts, and the mamba
-    projections."""
-    a, d, f = m["attention"], m["d_model"], m["d_ff"]
-    hd = _head_dim(m)
-    n = d * hd * (2 * a["num_heads"] + 2 * a["num_kv_heads"])
-    mats = 3 if m["gated_mlp"] else 2
-    if m["family"] == "moe":
-        e = m["moe"]["num_experts"]
-        n += d * e + mats * d * f * m["moe"]["top_k"]
-    else:
-        n += mats * d * f
-    if m["family"] == "hybrid":
-        s = m["ssm"]
-        di = s["expand"] * d
-        r = s["dt_rank"] or math.ceil(d / 16)
-        n += d * 2 * di + di * (r + 2 * s["state_size"]) + r * di + di * d
-    return n
+def causal_pairs(n: int, window: int = 0) -> int:
+    """(query, key) pairs of causal attention over ``n`` positions, a query
+    seeing at most ``window`` keys (all with 0); ``attention_pairs(n, n,
+    True, window)`` in closed form."""
+    if not window or window >= n:
+        return n * (n + 1) // 2
+    return window * (window + 1) // 2 + (n - window) * window
 
 
-def forward_token_flops(m: dict) -> int:
-    """Matrix-product FLOPs of one token through every layer, without
-    attention scores and the vocabulary projection."""
-    return 2 * m["num_layers"] * layer_matmul_params(m)
+def attention_params(m: dict) -> int:
+    """Weights of one layer's q, k, v and output projections."""
+    a = m["attention"]
+    return m["d_model"] * head_dim(m) * (2 * a["num_heads"]
+                                         + 2 * a["num_kv_heads"])
+
+
+def mlp_params(m: dict) -> int:
+    """Weights of one MLP (or one expert) of width ``d_ff``."""
+    return (3 if m["gated_mlp"] else 2) * m["d_model"] * m["d_ff"]
+
+
+def mamba_params(m: dict) -> int:
+    """Weights of one mamba branch: in, x, time-step and out projections."""
+    s, d = m["ssm"], m["d_model"]
+    di = s["expand"] * d
+    r = s["dt_rank"] or math.ceil(d / 16)
+    return d * 2 * di + di * (r + 2 * s["state_size"]) + r * di + di * d
+
+
+def scan_flops(m: dict, tokens: int) -> int:
+    """Forward FLOPs of one layer's selective scan over ``tokens``."""
+    s = m["ssm"]
+    return SCAN_FLOPS_PER_STATE_STEP * tokens * s["expand"] * m["d_model"] \
+        * s["state_size"]
 
 
 def head_flops(m: dict) -> int:
     return 2 * m["vocab_size"] * m["d_model"]
 
 
-def serve_request_flops(m: dict, prompt: int, new: int) -> int:
+def serve_flops(m: dict, prompt: int, new: int, matmul_params: int,
+                windows: list[int], scan_layers: int = 0) -> int:
     """Model FLOPs of serving one request: its prompt tokens (no padding)
-    and ``new`` output tokens through every layer, each output token's
-    logits, and causal attention over the context each position sees."""
+    and ``new`` output tokens through ``matmul_params`` weights (every
+    layer's together), each output token's logits, causal attention over
+    the context each position sees in every attention layer (one window a
+    layer in ``windows``), and ``scan_layers`` scans."""
     tokens = prompt + max(new - 1, 0)       # the last token is not fed
-    pairs = tokens * (tokens + 1) // 2
-    a = m["attention"]
-    return (tokens * forward_token_flops(m) + new * head_flops(m)
-            + m["num_layers"] * 4 * _head_dim(m) * a["num_heads"] * pairs)
+    att = sum(4 * head_dim(m) * m["attention"]["num_heads"]
+              * causal_pairs(tokens, w) for w in windows)
+    scans = scan_layers * scan_flops(m, tokens) if scan_layers else 0
+    return tokens * 2 * matmul_params + new * head_flops(m) + att + scans
 
 
-def train_step_flops(m: dict, batch: int, seq: int,
-                     windows: list[int]) -> int:
+def train_flops(m: dict, batch: int, seq: int, matmul_params: int,
+                windows: list[int], scan_layers: int = 0) -> int:
     """Model FLOPs of one training step on (batch, seq): 6 per matrix
     weight a token (forward and backward, the tied vocabulary projection
-    included), 3x the forward attention scores of every layer under its
-    window, and 3x the scan's forward; recomputation is not counted."""
+    included), 3x the forward attention scores of every attention layer
+    under its window, and 3x the scans' forward; recomputation is not
+    counted."""
     tokens = batch * seq
-    mm = m["num_layers"] * layer_matmul_params(m) + m["vocab_size"] \
-        * m["d_model"]
-    a = m["attention"]
-    att = 0
-    for w in windows:
-        att += 4 * _head_dim(m) * a["num_heads"] * batch \
-            * attention_pairs(seq, seq, True, w)
-    scan = 0
-    if m["family"] == "hybrid":
-        s = m["ssm"]
-        scan = SCAN_FLOPS_PER_STATE_STEP * tokens * s["expand"] \
-            * m["d_model"] * s["state_size"] * m["num_layers"]
-    return 6 * mm * tokens + 3 * att + 3 * scan
+    mm = matmul_params + m["vocab_size"] * m["d_model"]
+    att = sum(4 * head_dim(m) * m["attention"]["num_heads"] * batch
+              * causal_pairs(seq, w) for w in windows)
+    scans = scan_layers * scan_flops(m, tokens) if scan_layers else 0
+    return 6 * mm * tokens + 3 * att + 3 * scans

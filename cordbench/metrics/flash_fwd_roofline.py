@@ -1,9 +1,10 @@
 """The flash forward kernel's share of its roofline in the profiled
-slice: the least time of the whole-prompt prefills' attention calls
-(cordbench/flops.py, bf16 products) over the device time of the
-operations named flash_fwd."""
+slice: the least time of the whole-prompt prefills' attention calls, one
+a layer with attention under that layer's window (cordbench/flops.py,
+bf16 products), over the device time of the operations named
+flash_fwd."""
 
-from cordbench import flops
+from cordbench import cells, flops
 
 
 def read(run):
@@ -12,16 +13,19 @@ def read(run):
         return None
     m = run["m"]
     a = m["attention"]
-    hd = a["head_dim"] or m["d_model"] // a["num_heads"]
+    windows = cells.family(m["family"]).attention_windows(m)
     lo, hi = run["slice_rows"]
     least = 0.0
     for r in spans.rows[lo:hi]:
         if r["kind"] == "prefill":
-            ops, nbytes = flops.flash_fwd(1, r["info"]["tokens"],
-                                          a["num_heads"], a["num_kv_heads"],
-                                          hd, window=a["sliding_window"])
-            least += m["num_layers"] * flops.least_s(ops, nbytes,
-                                                     flops.BF16_FLOPS)
+            call = 0.0
+            for w in windows:
+                ops, nbytes = flops.flash_fwd(1, r["info"]["tokens"],
+                                              a["num_heads"],
+                                              a["num_kv_heads"],
+                                              flops.head_dim(m), window=w)
+                call += flops.least_s(ops, nbytes, flops.BF16_FLOPS)
+            least += call
     device_s = prof.device_us(lambda name: "flash_fwd" in name) / 1e6
     if least <= 0 or device_s <= 0:
         return None

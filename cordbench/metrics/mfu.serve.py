@@ -1,6 +1,7 @@
 """Model FLOPs served in the window (every request's prompt tokens, no
-padding, and output tokens; cordbench/flops.py) over the window's
-seconds and the H100's 989 TFLOP/s of bf16 products."""
+padding, and output tokens; the family's `request_flops` from
+cordbench/flops.py) over the window's seconds and the H100's 989 TFLOP/s
+of bf16 products."""
 
 from cordbench import flops
 from cordbench.drivers.serve_waves import request_flops

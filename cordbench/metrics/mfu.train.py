@@ -1,7 +1,7 @@
 """Model FLOPs of the window's training steps (6 per matrix weight a
-token, attention under each layer's window, the scan; no recompute;
-cordbench/flops.py) over the window's seconds and the H100's 989
-TFLOP/s of bf16 products."""
+token, attention under each layer's window, the scan; no recompute; the
+family's `train_step_flops` from cordbench/flops.py) over the window's
+seconds and the H100's 989 TFLOP/s of bf16 products."""
 
 from cordbench import flops
 from cordbench.drivers.train_steps import step_flops

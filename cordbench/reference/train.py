@@ -14,10 +14,7 @@ import math
 
 import torch
 
-from cordbench.reference import hybrid_lm
 from cordbench.reference.common import Precision
-
-LOSSES = {"hybrid": hybrid_lm.loss}
 
 
 def leaves(tree: dict, prefix: tuple = ()) -> list:
@@ -39,14 +36,14 @@ def learning_rate(step: int, t: dict) -> float:
                                         * (1.0 + math.cos(math.pi * prog)))
 
 
-def train(params: dict, mcfg: dict, batches: list, t: dict,
+def train(loss_fn, params: dict, mcfg: dict, batches: list, t: dict,
           prec: Precision | None = None, rows: int = 1) -> dict:
-    """Run ``len(batches)`` steps on ``params`` (updated in place) from
-    zero moments.  Each batch is ``(tokens, labels)`` of the global batch;
-    its gradient is summed over blocks of ``rows`` rows, each block's mean
-    loss weighted by its share of the rows."""
+    """Run ``len(batches)`` steps of ``loss_fn(params, mcfg, tokens,
+    labels, prec)`` (the family's plain loss) on ``params`` (updated in
+    place) from zero moments.  Each batch is ``(tokens, labels)`` of the
+    global batch; its gradient is summed over blocks of ``rows`` rows,
+    each block's mean loss weighted by its share of the rows."""
     prec = prec or Precision()
-    loss_fn = LOSSES[mcfg["family"]]
     named = leaves(params)
     ps = [p.requires_grad_(True) for _, p in named]
     start = [p.detach().clone() for p in ps]

@@ -9,7 +9,8 @@ import pytest
 from cordbench import run
 from cordbench.tests import smoke
 
-CELLS = ("grok1-serve-burst", "hymba-train-dp2", "grok1-prefill-long")
+CELLS = ("grok1-serve-burst", "hymba-train-dp2", "grok1-prefill-long",
+         "hymba-serve-chat")
 
 
 def _line(workload, trace, seed=2**31 + 11):
@@ -79,3 +80,4 @@ def test_serve_warms_every_prefill_shape():
     real = cells.load(CELLS[0]).mix
     assert warm_lengths(real) == [32, 64, 128, 256, 512, 1024, 1536, 2048]
     assert warm_lengths(cells.load(CELLS[2]).mix) == [1024, 2048, 4096]
+    assert warm_lengths(smoke.load(CELLS[3]).mix) == [32, 64, 128, 256, 512]

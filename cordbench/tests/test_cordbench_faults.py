@@ -10,7 +10,8 @@ from cordbench.tests import smoke
 
 
 @pytest.mark.parametrize("workload", ["grok1-serve-burst",
-                                      "grok1-prefill-long"])
+                                      "grok1-prefill-long",
+                                      "hymba-serve-chat"])
 @pytest.mark.parametrize("fault", faults.SERVE_FAULTS)
 def test_serve_fault_is_not_correct(fault, workload):
     ctx = smoke.ctx(workload, seed=31)
@@ -28,7 +29,8 @@ def test_train_fault_is_not_correct(fault):
 
 
 @pytest.mark.parametrize("workload", ["grok1-serve-burst",
-                                      "grok1-prefill-long"])
+                                      "grok1-prefill-long",
+                                      "hymba-serve-chat"])
 def test_serve_control_is_not_correct(workload):
     ctx = smoke.ctx(workload, seed=33)
     params = weights.make(ctx.cell.model_config(), ctx.seed, ctx.device)

@@ -43,19 +43,32 @@ def _tiny(family):
 
 
 def test_model_flops_by_hand():
-    moe = _tiny("moe")
+    from cordbench import cells
+    moe, hybrid = cells.family("moe"), cells.family("hybrid")
+    m = _tiny("moe")
     # attention: d*hd*(2H + 2KVH) = 4*2*6 = 48; router 16; 2 experts x
     # 3 x 4 x 8 = 192
-    assert flops.layer_matmul_params(moe) == 48 + 16 + 192
+    assert moe.matmul_params(m) == 2 * (48 + 16 + 192)
     # a 3-token prompt and 2 new tokens: 4 fed tokens, 2 logits, 10 pairs
-    assert flops.serve_request_flops(moe, 3, 2) == \
+    assert moe.request_flops(m, 3, 2) == \
         4 * 2 * 2 * 256 + 2 * 2 * 10 * 4 + 2 * 4 * 2 * 2 * 10
     hyb = _tiny("hybrid")
     # 48 + MLP 96 + mamba: in 4*16=64, x_proj 8*(1+4)=40, dt 8, out 32
-    assert flops.layer_matmul_params(hyb) == 48 + 96 + 144
+    assert hybrid.matmul_params(hyb) == 2 * (48 + 96 + 144)
     tokens = 2 * 4
     mm = 2 * 288 + 10 * 4
     att = 2 * 4 * 2 * 2 * 2 * 10                   # 2 layers, batch 2
     scan = 6 * tokens * 8 * 2 * 2
-    assert flops.train_step_flops(hyb, 2, 4, [0, 0]) == \
+    assert hybrid.train_step_flops(hyb, 2, 4) == \
         6 * mm * tokens + 3 * att + 3 * scan
+    # serving counts the scan's forward in both layers: 4 fed tokens
+    assert hybrid.request_flops(hyb, 3, 2) == \
+        4 * 2 * 2 * 288 + 2 * 2 * 10 * 4 + 2 * 4 * 2 * 2 * 10 \
+        + 2 * 6 * 4 * 8 * 2
+
+
+@pytest.mark.parametrize("window", [0, 1, 3, 7, 40])
+def test_causal_pairs_in_closed_form(window):
+    for n in (1, 2, 5, 7, 8, 33):
+        assert flops.causal_pairs(n, window) == \
+            flops.attention_pairs(n, n, True, window)

@@ -20,6 +20,8 @@ import cordbench.run, cordbench.calibrate, cordbench.faults
 import cordbench.drivers.serve_waves, cordbench.drivers.train_steps
 import cordbench.reference.moe_lm, cordbench.reference.train
 from cordbench import cells
+for f in ("moe", "dense", "hybrid"):
+    cells.family(f)
 for m in cells.load("grok1-serve-burst").per_layer + \\
         cells.load("hymba-train-dp2").per_layer:
     cells.reader(m["name"])

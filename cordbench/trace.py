@@ -36,13 +36,20 @@ def _sync(device: torch.device) -> None:
 
 class Spans:
     """Synchronised spans: ``(kind, start, end, launches, info)`` rows,
-    perf_counter seconds, launches as the counters' delta."""
+    perf_counter seconds, launches as the counters' delta.  ``before``
+    maps a row's index to a function called just before that call is
+    made (and its span opened): what starts and stops a profiled slice
+    between two calls."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.rows: list[dict] = []
+        self.before: dict = {}
 
     def call(self, kind: str, fn, *args, info=None, **kw):
+        hook = self.before.pop(len(self.rows), None)
+        if hook is not None:
+            hook()
         _sync(self.device)
         n0, t0 = launch_counts(), time.perf_counter()
         with torch.profiler.record_function(f"cordbench.{kind}"):

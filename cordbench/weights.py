@@ -6,7 +6,8 @@ a device generator fills from the seed in a few large calls, then scaled
 to its layer's law (fan-in normal for kernels, mamba's S4D-real `A_log`
 and log-uniform time steps).  The layout is the one `repro_torch`'s
 `init` returns: per-layer leaves stacked on a leading layer axis, keys as
-in `models/transformer.py` and `models/hybrid.py`.
+in `models/transformer.py` and `models/hybrid.py`; each family's file
+(`cordbench/families/`) puts it together from the pieces here.
 """
 
 from __future__ import annotations
@@ -22,8 +23,19 @@ _FILL = 1 << 28
 
 def layout(cfg) -> list[tuple[tuple[str, ...], tuple[int, ...], str, float]]:
     """``(path, shape, law, scale)`` of every leaf of ``cfg``'s parameters,
-    in sorted-key order.  Laws: ``normal`` (scale = std), ``norm`` (RMSNorm
-    scale, normal of std ``scale``), ``ones``, ``a_log``, ``dt_bias``."""
+    in sorted-key order, from its family's file
+    (``cordbench/families/<family>.py``).  Laws: ``normal`` (scale = std),
+    ``norm`` (RMSNorm scale, normal of std ``scale``), ``ones``,
+    ``a_log``, ``dt_bias``."""
+    from cordbench import cells
+    return cells.family(cfg.family).layout(cfg)
+
+
+def transformer_leaves(cfg, per_layer: list) -> list:
+    """The leaves of a stack of ``cfg.num_layers`` pre-norm attention
+    blocks: the embedding, the final norm, each layer's two norms and GQA
+    projections, and ``per_layer`` (paths inside a layer, shapes with the
+    layer axis first), in sorted-key order."""
     a = cfg.attention
     d, L = cfg.d_model, cfg.num_layers
     hd = a.head_dim or d // a.num_heads
@@ -35,39 +47,36 @@ def layout(cfg) -> list[tuple[tuple[str, ...], tuple[int, ...], str, float]]:
            (("attn", "wk"), (L, d, a.num_kv_heads, hd), "normal", d ** -0.5),
            (("attn", "wv"), (L, d, a.num_kv_heads, hd), "normal", d ** -0.5),
            (("attn", "wo"), (L, a.num_heads * hd, d), "normal",
-            (a.num_heads * hd) ** -0.5)]
-    f = cfg.d_ff
-    if cfg.family == "moe":
-        e = cfg.moe.num_experts
-        lay += [(("moe", "router"), (L, d, e), "normal", 1e-2),
-                (("moe", "wi"), (L, e, d, f), "normal", d ** -0.5),
-                (("moe", "wg"), (L, e, d, f), "normal", d ** -0.5),
-                (("moe", "wo"), (L, e, f, d), "normal", f ** -0.5)]
-    elif cfg.family in ("dense", "hybrid"):
-        lay += [(("mlp", "wi"), (L, d, f), "normal", d ** -0.5),
-                (("mlp", "wg"), (L, d, f), "normal", d ** -0.5),
-                (("mlp", "wo"), (L, f, d), "normal", f ** -0.5)]
-    else:
-        raise ValueError(f"no weight layout for the {cfg.family!r} family")
-    if cfg.family == "hybrid":
-        s = cfg.ssm
-        di = s.expand * d
-        r = s.dt_rank or math.ceil(d / 16)
-        lay += [(("attn_norm", "scale"), (L, d), "norm", 0.1),
-                (("mamba_norm", "scale"), (L, d), "norm", 0.1),
-                (("mamba", "in_proj"), (L, d, 2 * di), "normal", d ** -0.5),
-                (("mamba", "conv"), (L, s.conv_width, di), "normal",
-                 s.conv_width ** -0.5),
-                (("mamba", "conv_bias"), (L, di), "normal", 0.02),
-                (("mamba", "x_proj"), (L, di, r + 2 * s.state_size), "normal",
-                 di ** -0.5),
-                (("mamba", "dt_proj"), (L, r, di), "normal", r ** -0.5),
-                (("mamba", "dt_bias"), (L, di), "dt_bias", 0.0),
-                (("mamba", "A_log"), (L, di, s.state_size), "a_log", 0.0),
-                (("mamba", "D"), (L, di), "ones", 0.0),
-                (("mamba", "out_proj"), (L, di, d), "normal", di ** -0.5)]
+            (a.num_heads * hd) ** -0.5)] + per_layer
     leaves += [(("layers",) + p, shape, law, sc) for p, shape, law, sc in lay]
     return sorted(leaves, key=lambda t: t[0])
+
+
+def mlp_leaves(cfg) -> list:
+    """A gated MLP of width ``d_ff`` a layer."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    return [(("mlp", "wi"), (L, d, f), "normal", d ** -0.5),
+            (("mlp", "wg"), (L, d, f), "normal", d ** -0.5),
+            (("mlp", "wo"), (L, f, d), "normal", f ** -0.5)]
+
+
+def mamba_leaves(cfg) -> list:
+    """A mamba (S6) branch a layer, as `repro_torch`'s `mamba_init`."""
+    s = cfg.ssm
+    d, L = cfg.d_model, cfg.num_layers
+    di = s.expand * d
+    r = s.dt_rank or math.ceil(d / 16)
+    return [(("mamba", "in_proj"), (L, d, 2 * di), "normal", d ** -0.5),
+            (("mamba", "conv"), (L, s.conv_width, di), "normal",
+             s.conv_width ** -0.5),
+            (("mamba", "conv_bias"), (L, di), "normal", 0.02),
+            (("mamba", "x_proj"), (L, di, r + 2 * s.state_size), "normal",
+             di ** -0.5),
+            (("mamba", "dt_proj"), (L, r, di), "normal", r ** -0.5),
+            (("mamba", "dt_bias"), (L, di), "dt_bias", 0.0),
+            (("mamba", "A_log"), (L, di, s.state_size), "a_log", 0.0),
+            (("mamba", "D"), (L, di), "ones", 0.0),
+            (("mamba", "out_proj"), (L, di, d), "normal", di ** -0.5)]
 
 
 def make(cfg, seed: int, device) -> dict:
